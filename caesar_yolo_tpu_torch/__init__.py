@@ -1,0 +1,32 @@
+"""caesar-yolo-tpu ported to PyTorch and CUDA for NVIDIA Hopper (H100).
+
+A second package beside `caesar_yolo_tpu` (the JAX reference, which it
+never imports).  Plain tensor code is PyTorch; each TPU kernel of the
+reference on the ported path is a kernel written by hand for Hopper in
+`csrc/`, built with nvcc at first use (`cuda_build`).
+
+Package layout (bottom-up), named after the reference's modules:
+  utils/     box math, union-find, synthetic mosaics, device selection
+  ops/       zscale and the README preprocessing chain (kernel K3)
+  models/    YOLOv8 / YOLO11 as nn.Modules, attention (kernel K2),
+             npz weight loading
+  detect/    letterbox, fixed-shape NMS (kernel K1), predictor, merge,
+             analyzer
+  parallel/  the batched tile engine on one GPU
+  outputs/   JSON catalog and DS9 region writers
+
+Entry points run on CUDA unless the caller passes device="cpu".
+"""
+
+import logging
+import sys
+
+__version__ = "0.1.0"
+
+logger = logging.getLogger("caesar_yolo_tpu_torch")
+if not logger.handlers:
+    _h = logging.StreamHandler(sys.stdout)
+    _h.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+    logger.addHandler(_h)
+    logger.setLevel(logging.INFO)
+    logger.propagate = False

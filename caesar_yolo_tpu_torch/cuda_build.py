@@ -1,0 +1,101 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface, at first use, under
+``build/kernels/`` at the repository root, and loaded with ``ctypes``.
+The library's file name carries a hash of its source and flags, so an
+edited source is rebuilt and a stale library is never loaded.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.normpath(
+    os.path.join(os.path.dirname(CSRC), os.pardir, "build", "kernels"))
+
+# Per-source flags.  NMS and the preprocessing chain must be bit-identical
+# to their plain versions, so FMA contraction is off there.
+SOURCES = {
+    "nms": ["-fmad=false"],
+    "attn": [],
+    "preproc": ["-fmad=false"],
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit on PATH or under /usr/local/cuda")
+    return path
+
+
+def _command(name: str, out: str) -> list[str]:
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            *SOURCES[name], "-o", out, os.path.join(CSRC, f"{name}.cu")]
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(SOURCES[name]).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named sources (default: all) that are not built yet,
+    one ``nvcc`` process per source, all started together.  Returns
+    {name: library path}.  Raises with the compiler's output on failure."""
+    names = list(SOURCES) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    procs = {}
+    for n in names:
+        if not os.path.exists(paths[n]):
+            tmp = f"{paths[n]}.{os.getpid()}.tmp"
+            procs[n] = (tmp, subprocess.Popen(
+                _command(n, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    errors = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, paths[n])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build([name])[name])
+            _libs[name] = lib
+        return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,103 @@
+"""Batched detection: letterbox -> YOLO -> DFL decode -> NMS ->
+unletterbox.
+
+Counterpart of caesar_yolo_tpu/detect/predictor.py.  The reference jits
+one XLA program per input shape; here the same steps run eagerly on the
+model's device.  On CUDA the model runs in bf16 in channels_last memory.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from caesar_yolo_tpu_torch import logger
+from caesar_yolo_tpu_torch.detect.letterbox import (
+    letterbox_nchw,
+    unletterbox_boxes,
+)
+from caesar_yolo_tpu_torch.detect.nms import DEFAULT_PRE_NMS, nms_batch
+from caesar_yolo_tpu_torch.models.layers import cast_weights, fuse_tree
+from caesar_yolo_tpu_torch.models.yolo import YOLO, decode_dfl
+from caesar_yolo_tpu_torch.utils.device import resolve_device
+
+
+def prepare_model(model: YOLO, *, fuse: bool, dtype: torch.dtype,
+                  device: torch.device) -> YOLO:
+    """A copy of `model` ready for inference: BN folded in f32 (the
+    reference's fuse_model_params / _fuse_head), conv weights cast to
+    `dtype` (biases stay f32), moved to `device` (channels_last on
+    CUDA)."""
+    model = copy.deepcopy(model).float().eval()
+    if fuse:
+        fuse_tree(model)
+    model = cast_weights(model.to(device=device), dtype)
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
+
+
+def detect_images(model: YOLO, images: torch.Tensor, *, img_size: int,
+                  score_thr: float, iou_thr: float, max_det: int,
+                  pre_nms: int):
+    """images [B, H, W, C] f32 on the model's device -> (boxes[B, max_det,
+    4] xyxy in image coords, scores, class_ids, valid, n_dropped[B])."""
+    h, w = images.shape[1:3]
+    stem_w = next(model.parameters())          # first conv, compute dtype
+    x = letterbox_nchw(images.permute(0, 3, 1, 2), img_size).to(stem_w.dtype)
+    if x.is_cuda:
+        x = x.contiguous(memory_format=torch.channels_last)
+    boxes, scores = decode_dfl(model(x), img_size)
+    bsel, ssel, csel, vsel, ndrop = nms_batch(
+        boxes, scores, conf_thr=score_thr, iou_thr=iou_thr,
+        max_det=max_det, pre_nms=pre_nms)
+    return unletterbox_boxes(bsel, h, w, img_size), ssel, csel, vsel, ndrop
+
+
+class Predictor:
+    """Batched detector on one device.
+
+    predict_batch(images[B, H, W, C] f32 in [0, 1]) -> device tensors
+      (boxes[B, MAXDET, 4] xyxy in image coords, scores[B, MAXDET],
+       class_ids[B, MAXDET], valid[B, MAXDET], n_dropped[B]).
+    `device` defaults to CUDA (and raises without it); pass "cpu" to run
+    on the CPU.
+    """
+
+    def __init__(self, model: YOLO, *, img_size: int = 640,
+                 score_thr: float = 0.7, iou_thr: float = 0.5,
+                 max_det: int = 300, pre_nms: int = DEFAULT_PRE_NMS,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 fuse: bool = True, device=None):
+        self.device = resolve_device(device)
+        self.in_channels = model.in_channels
+        self.img_size = img_size
+        self.score_thr = score_thr
+        self.iou_thr = iou_thr
+        self.max_det = max_det
+        self.pre_nms = pre_nms
+        self.model = prepare_model(model, fuse=fuse, dtype=compute_dtype,
+                                   device=self.device)
+
+    @torch.inference_mode()
+    def predict_batch(self, images):
+        images = torch.as_tensor(images, device=self.device).float()
+        if images.ndim == 3:
+            images = images[None]
+        return detect_images(self.model, images, img_size=self.img_size,
+                             score_thr=self.score_thr, iou_thr=self.iou_thr,
+                             max_det=self.max_det, pre_nms=self.pre_nms)
+
+    def predict_image(self, image):
+        """Single [H, W, C] image -> host numpy (boxes[N, 4], scores[N],
+        class_ids[N]) with the padding stripped."""
+        bsel, ssel, csel, vsel, ndrop = (
+            t[0].cpu().numpy() for t in self.predict_batch(image))
+        if int(ndrop):
+            logger.warning(
+                "NMS pre-filter dropped %d above-threshold candidates "
+                "(pre_nms=%d too small for this field; raise it)",
+                int(ndrop), self.pre_nms)
+        return bsel[vsel], ssel[vsel], csel[vsel]

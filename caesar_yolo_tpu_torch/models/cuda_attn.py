@@ -1,0 +1,109 @@
+"""Fused attention for the YOLO11 C2PSA stage (kernel K2).
+
+Counterpart of caesar_yolo_tpu/models/pallas_attn.py.  `attention`
+computes softmax(q k^T * scale) v per (batch, head) with the numerics of
+the reference: f32 scores multiplied by `scale` after the dot, a
+max-subtracted f32 softmax, probabilities normalised and THEN cast to
+the compute dtype, f32 accumulation of the PV product, output in the
+compute dtype.
+
+On a CUDA tensor it launches the hand-written kernel in
+csrc/attn.cu (one block per tile of query rows, the score rows kept in
+shared memory; see the source for its design and bound).  On a CPU
+tensor it runs `attention_plain`, the same function in PyTorch.
+Backward (training through C2PSA) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from caesar_yolo_tpu_torch import cuda_build
+
+# The reference's gate for its fused kernel (pallas_attn.py:48): other
+# sequence lengths take its einsum branch, which the port follows in
+# plain PyTorch (models/layers.py Attention).
+MAX_N = 2048
+# head widths the kernel takes; on CUDA it raises for others
+KERNEL_KD = (16, 32, 64)
+KERNEL_MAX_HD = 256
+
+# bf16 parity rule of the kernel against `attention_plain`.  The two sum
+# in f32 in different orders, so a bf16 output may round to the
+# neighbouring value: at most one ulp at the largest outputs (|out| < 1 on
+# unit-variance inputs, ulp 3.9e-3) and on few elements.  A kernel that
+# rounds p before normalising (online softmax) also stays within one ulp
+# but moves about half of all outputs; the share of changed elements is
+# what tells it apart.
+BF16_ATOL = 4e-3
+BF16_MAX_CHANGED_SHARE = 1e-2
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_gate(n: int) -> bool:
+    """True when the reference dispatches sequence length `n` to its
+    fused kernel (n % 8 == 0 and 8 <= n <= MAX_N), whatever the widths."""
+    return n % 8 == 0 and 8 <= n <= MAX_N
+
+
+def bf16_mismatch(got: torch.Tensor, ref: torch.Tensor) -> str | None:
+    """None when bf16 outputs `got` and `ref` agree by the bf16 parity
+    rule, else what differs."""
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    share = (diff > 0).float().mean().item()
+    if err > BF16_ATOL or share > BF16_MAX_CHANGED_SHARE:
+        return (f"max abs err {err:.3g} (limit {BF16_ATOL}), changed share "
+                f"{share:.3g} (limit {BF16_MAX_CHANGED_SHARE})")
+    return None
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """q, k [B, H, N, kd]; v [B, H, N, hd] -> [B, H, N, hd] in v's dtype.
+    The kernel's arithmetic in PyTorch (pallas_attn._attention_ref)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    p = p.to(v.dtype).float()
+    return torch.matmul(p, v.float()).to(v.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """q, k [B, H, N, kd]; v [B, H, N, hd] -> [B, H, N, hd].
+
+    CUDA tensors launch the kernel (and raise on shapes or dtypes it does
+    not take); CPU tensors take `attention_plain`."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, scale)
+    b, h, n, kd = q.shape
+    hd = v.shape[-1]
+    if (k.shape != q.shape or v.shape[:3] != q.shape[:3]
+            or not (q.dtype == k.dtype == v.dtype)
+            or q.dtype not in _DTYPE_CODES or not fused_gate(n)
+            or kd not in KERNEL_KD or not 1 <= hd <= KERNEL_MAX_HD):
+        raise ValueError(
+            f"attention kernel does not take q{tuple(q.shape)} "
+            f"k{tuple(k.shape)} v{tuple(v.shape)} {q.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(v)
+    lib = cuda_build.load("attn")
+    fn = lib.cy_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    attention.launches += 1
+    cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), b, h, n, kd, hd,
+                        _DTYPE_CODES[q.dtype], float(scale),
+                        cuda_build.stream_ptr(q.device)),
+                     "attention kernel")
+    return out
+
+
+attention.launches = 0

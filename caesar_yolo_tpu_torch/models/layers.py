@@ -1,0 +1,313 @@
+"""YOLO building blocks as nn.Modules (inference).
+
+Counterpart of caesar_yolo_tpu/models/layers.py.  Activations are NCHW
+(the caller may hand them over in channels_last memory) and conv weights
+OIHW.  Every module's parameter names follow the reference's params
+pytree (`w`, `bn/gamma`, `m/0/cv1/w`, ...), so that the reference's npz
+weights load by a mechanical walk (models/convert.py).
+
+Conventions kept from the reference: symmetric padding k // 2,
+BatchNorm eps 1e-3 folded in f32 (`Conv.fuse`), SPPF max-pooling padded
+with -inf, and C2PSA attention with f32 scores and probabilities cast to
+the compute dtype before the PV product (models/cuda_attn.py).
+Training mode and int8 are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from caesar_yolo_tpu_torch.models import cuda_attn
+
+BN_EPS = 1e-3
+
+
+def make_divisible(x: float, divisor: int = 8) -> int:
+    return max(divisor, int(x + divisor / 2) // divisor * divisor)
+
+
+def add_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """y + b in place, the add in f32 (b is f32) and rounded once to y's
+    dtype: the reference adds its f32 bias to its f32 conv output before
+    its one cast (layers.py:181-184, 216).  In bf16 the port's conv output
+    is rounded before the add, so it rounds twice where the reference
+    rounds once."""
+    return y if b is None else y.add_(b[:, None, None])
+
+
+def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Conv weights to the compute dtype, in place; biases and BN
+    statistics stay f32, as the reference casts only `w`."""
+    for m in module.modules():
+        if isinstance(m, (Conv, Conv2dRaw)):
+            m.w.data = m.w.data.to(dtype)
+    return module
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm statistics, named as the reference's `bn` dict."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(c))
+        self.beta = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def scale_shift(self):
+        """(scale, shift) in f32 with y * scale + shift == BN(y)."""
+        scale = self.gamma.float() / torch.sqrt(self.var.float() + BN_EPS)
+        return scale, self.beta.float() - self.mean.float() * scale
+
+
+class Conv(nn.Module):
+    """Conv2d + BatchNorm + SiLU (ultralytics Conv block).
+
+    Unfused, the conv output stays f32 through the BN epilogue and is cast
+    to the input dtype afterwards, as in the reference; `fuse()` folds BN
+    into `w` and an f32 bias `b` (in f32, before any cast of the weights)."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1, s: int = 1,
+                 groups: int = 1, act: bool = True):
+        super().__init__()
+        self.cin, self.cout, self.k, self.s = cin, cout, k, s
+        self.groups, self.act = groups, act
+        self.pad = k // 2
+        self.w = nn.Parameter(torch.empty(cout, cin // groups, k, k))
+        self.bn = BatchNorm(cout)
+        self.b = None
+
+    def forward(self, x):
+        if self.bn is not None:
+            y = F.conv2d(x, self.w, None, self.s, self.pad, 1, self.groups)
+            scale, shift = self.bn.scale_shift()
+            y = (y.float() * scale[:, None, None]
+                 + shift[:, None, None]).to(x.dtype)
+        else:
+            y = add_bias(F.conv2d(x, self.w, None, self.s, self.pad, 1,
+                                  self.groups), self.b)
+        return F.silu(y) if self.act else y
+
+    @torch.no_grad()
+    def fuse(self):
+        """Fold BN into conv weight + bias (inference fast path)."""
+        if self.bn is None:
+            return
+        scale, shift = self.bn.scale_shift()
+        self.w = nn.Parameter((self.w.float() * scale[:, None, None, None])
+                              .to(self.w.dtype))
+        self.b = nn.Parameter(shift)
+        self.bn = None
+
+
+class Conv2dRaw(nn.Module):
+    """Bare Conv2d with bias (detect-head final 1x1s)."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1):
+        super().__init__()
+        self.cin, self.cout, self.k = cin, cout, k
+        self.pad = k // 2
+        self.w = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.b = nn.Parameter(torch.empty(cout))
+
+    def forward(self, x):
+        return add_bias(F.conv2d(x, self.w, None, 1, self.pad), self.b)
+
+
+class Bottleneck(nn.Module):
+    """Two convs with optional residual (ultralytics Bottleneck)."""
+
+    def __init__(self, cin: int, cout: int, shortcut: bool = True,
+                 groups: int = 1, k: tuple = (3, 3), e: float = 0.5):
+        super().__init__()
+        c_ = int(cout * e)
+        self.cv1 = Conv(cin, c_, k[0], 1)
+        self.cv2 = Conv(c_, cout, k[1], 1, groups=groups)
+        self.add = shortcut and cin == cout
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Cross-stage partial block with n bottlenecks (YOLOv8 C2f)."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1,
+                 shortcut: bool = False, groups: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(cout * e)
+        self.cv1 = Conv(cin, 2 * self.c, 1, 1)
+        self.cv2 = Conv((2 + n) * self.c, cout, 1, 1)
+        self.m = nn.ModuleList(
+            Bottleneck(self.c, self.c, shortcut, groups, k=(3, 3), e=1.0)
+            for _ in range(n))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        parts = [y[:, :self.c], y[:, self.c:]]
+        for block in self.m:
+            parts.append(block(parts[-1]))
+        return self.cv2(torch.cat(parts, dim=1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs (basis of YOLO11's C3k)."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1,
+                 shortcut: bool = True, groups: int = 1, e: float = 0.5,
+                 k: int = 3):
+        super().__init__()
+        c_ = int(cout * e)
+        self.cv1 = Conv(cin, c_, 1, 1)
+        self.cv2 = Conv(cin, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, cout, 1, 1)
+        self.m = nn.ModuleList(
+            Bottleneck(c_, c_, shortcut, groups, k=(k, k), e=1.0)
+            for _ in range(n))
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        for block in self.m:
+            y1 = block(y1)
+        return self.cv3(torch.cat([y1, self.cv2(x)], dim=1))
+
+
+class C3k2(C2f):
+    """YOLO11 C3k2: C2f whose inner modules are C3k blocks or Bottlenecks."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1, c3k: bool = False,
+                 e: float = 0.5, groups: int = 1, shortcut: bool = True):
+        super().__init__(cin, cout, n, shortcut, groups, e)
+        if c3k:
+            self.m = nn.ModuleList(
+                C3(self.c, self.c, 2, shortcut, groups, e=0.5, k=3)
+                for _ in range(n))
+        else:
+            self.m = nn.ModuleList(
+                Bottleneck(self.c, self.c, shortcut, groups, e=0.5)
+                for _ in range(n))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling (fast): 3 chained 5x5 max-pools; the pools
+    pad with -inf, as the reference's reduce_window."""
+
+    def __init__(self, cin: int, cout: int, k: int = 5):
+        super().__init__()
+        c_ = cin // 2
+        self.k = k
+        self.cv1 = Conv(cin, c_, 1, 1)
+        self.cv2 = Conv(c_ * 4, cout, 1, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        p1 = F.max_pool2d(y, self.k, 1, self.k // 2)
+        p2 = F.max_pool2d(p1, self.k, 1, self.k // 2)
+        p3 = F.max_pool2d(p2, self.k, 1, self.k // 2)
+        return self.cv2(torch.cat([y, p1, p2, p3], dim=1))
+
+
+class Attention(nn.Module):
+    """Multi-head attention over spatial positions with a depthwise
+    positional encoding (YOLO11 PSA attention)."""
+
+    def __init__(self, dim: int, num_heads: int = 8,
+                 attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        self.dim = dim
+        nh_kd = self.key_dim * num_heads
+        self.qkv = Conv(dim, dim + nh_kd * 2, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, groups=dim, act=False)
+
+    def forward(self, x):
+        b, _, hh, ww = x.shape
+        n = hh * ww
+        kd, hd = self.key_dim, self.head_dim
+        # the reference's NHWC reshape(b, n, heads, 2*kd + hd) groups the
+        # qkv channels per head; in NCHW that is [b, heads, 2*kd + hd, n]
+        qkv = self.qkv(x).reshape(b, self.num_heads, 2 * kd + hd, n)
+        q = qkv[:, :, :kd].transpose(2, 3)
+        k = qkv[:, :, kd:2 * kd].transpose(2, 3)
+        v = qkv[:, :, 2 * kd:]                          # [b, heads, hd, n]
+        if cuda_attn.fused_gate(n):
+            # on CUDA the kernel, which raises for head widths it lacks
+            out = cuda_attn.attention(q, k, v.transpose(2, 3), self.scale)
+        else:
+            # the reference's einsum branch for other sequence lengths
+            # (layers.py:377-385): same arithmetic, plain PyTorch
+            out = cuda_attn.attention_plain(q, k, v.transpose(2, 3),
+                                            self.scale)
+        out = out.transpose(2, 3).reshape(b, self.dim, hh, ww)
+        out = out + self.pe(v.reshape(b, self.dim, hh, ww))
+        return self.proj(out)
+
+
+class PSABlock(nn.Module):
+    """Attention + a small conv FFN, both residual (YOLO11)."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4):
+        super().__init__()
+        self.attn = Attention(c, num_heads=num_heads, attn_ratio=attn_ratio)
+        self.ffn1 = Conv(c, c * 2, 1)
+        self.ffn2 = Conv(c * 2, c, 1, act=False)
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.ffn2(self.ffn1(x))
+
+
+class C2PSA(nn.Module):
+    """Partial self-attention stage after SPPF (YOLO11)."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        if cin != cout:
+            raise ValueError("C2PSA needs cin == cout")
+        self.c = int(cin * e)
+        self.cv1 = Conv(cin, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, cin, 1, 1)
+        self.m = nn.ModuleList(
+            PSABlock(self.c, attn_ratio=0.5, num_heads=max(1, self.c // 64))
+            for _ in range(n))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        a, b = y[:, :self.c], y[:, self.c:]
+        for block in self.m:
+            b = block(b)
+        return self.cv2(torch.cat([a, b], dim=1))
+
+
+class Upsample(nn.Module):
+    """2x nearest-neighbour upsample by broadcast (exact pixel
+    replication; the reference's default form)."""
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
+            b, c, 2 * h, 2 * w)
+
+
+class Concat(nn.Module):
+    """Channel concatenation of several inputs."""
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        return torch.cat(list(xs), dim=1)
+
+
+def fuse_tree(module: nn.Module) -> nn.Module:
+    """Fold BN into conv weights in every Conv under `module` (in place)."""
+    for m in list(module.modules()):
+        if isinstance(m, Conv):
+            m.fuse()
+    return module

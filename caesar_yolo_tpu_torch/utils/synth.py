@@ -1,0 +1,35 @@
+"""Synthetic radio mosaics (testing and benchmarking): Gaussian noise plus
+elliptical-Gaussian sources with their ground-truth boxes.  The numpy
+half of caesar_yolo_tpu/utils/synth.py, drawing the same numbers from
+the same seed."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_mosaic(nx: int = 1024, ny: int = 1024, n_sources: int = 40,
+                noise_sigma: float = 0.1, seed: int = 0,
+                amp_range=(1.0, 10.0), sigma_range=(1.5, 6.0)):
+    """-> (image[ny, nx] float32, gt_boxes[N, 4] xyxy float32).
+
+    Each gt box is the source's 2-sigma extent."""
+    rng = np.random.default_rng(seed)
+    img = rng.normal(0.0, noise_sigma, (ny, nx)).astype(np.float32)
+    boxes = []
+    for _ in range(n_sources):
+        cx = rng.uniform(10, nx - 10)
+        cy = rng.uniform(10, ny - 10)
+        sx = rng.uniform(*sigma_range)
+        sy = rng.uniform(*sigma_range)
+        amp = rng.uniform(*amp_range)
+        # add within a local window only
+        x0, x1 = int(max(0, cx - 4 * sx)), int(min(nx, cx + 4 * sx + 1))
+        y0, y1 = int(max(0, cy - 4 * sy)), int(min(ny, cy + 4 * sy + 1))
+        wy = np.arange(y0, y1)[:, None]
+        wx = np.arange(x0, x1)[None, :]
+        img[y0:y1, x0:x1] += amp * np.exp(
+            -((wx - cx) ** 2 / (2 * sx ** 2)
+              + (wy - cy) ** 2 / (2 * sy ** 2))).astype(np.float32)
+        boxes.append([cx - 2 * sx, cy - 2 * sy, cx + 2 * sx, cy + 2 * sy])
+    return img, np.asarray(boxes, np.float32).reshape(-1, 4)

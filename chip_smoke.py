@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port builds and runs on one NVIDIA H100.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the last line):
+  build     the hand-written kernels (csrc/*.cu, one nvcc per source, all
+            started together)
+  parity    each kernel against its plain PyTorch version on the card, at
+            the main path's shapes
+  golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
+            engine's committed outputs (tests/fixtures/
+            torch_port_golden_v8n96.npz), by the catalog rule
+  main      yolo11l at 640 px in bf16 with seeded weights: TileEngine on
+            batches of 32 synthetic tiles (one all-zero), then
+            Analyzer.predict writing a JSON catalog and a DS9 file; every
+            kernel must have launched on this path
+  timing    each kernel, its plain version and (where one exists) the
+            PyTorch library call, by CUDA events; tiles/s of the main path
+
+Prints the card's name and power limit, a `kernels` JSON line, and as the
+last line {"ok": true, "device": {...}}.  Needs one card; never imports
+JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+MAIN_BATCH = 32
+MAIN_BATCHES = 3
+MAIN_SIZE = 640
+PRE_NMS = 512
+
+# H100 SXM peaks (NVIDIA data sheet, dense) for the bound of each kernel
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# tolerances of the parity phase (bf16 attention: cuda_attn.bf16_mismatch,
+# at most BF16_ATOL and a changed share of at most BF16_MAX_CHANGED_SHARE)
+ATTN_F32_TOL = 1e-5
+PREPROC_TOL = 1e-6
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+class Failed(Exception):
+    pass
+
+
+def require(cond, what):
+    if not cond:
+        raise Failed(what)
+
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms, by CUDA events after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, flops, dtype):
+    """Least time the card could take: the larger of bytes over the memory
+    rate and operations over the peak rate for their type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def synthetic_detections(rng, b, a, spread, tied):
+    """Decoded-looking boxes [B, A, 4] and class scores [B, A, 5]."""
+    cx = rng.random((b, a)) * spread
+    cy = rng.random((b, a)) * spread
+    wh = rng.random((b, a, 2)) * 40 + 4
+    boxes = np.stack([cx - wh[..., 0] / 2, cy - wh[..., 1] / 2,
+                      cx + wh[..., 0] / 2, cy + wh[..., 1] / 2],
+                     axis=-1).astype(np.float32)
+    scores = (rng.random((b, a, 5)) ** 8).astype(np.float32)
+    if tied:
+        scores = np.round(scores * 16) / 16
+    return boxes, scores
+
+
+def online_softmax_attention(q, k, v, scale):
+    """What K2 must not do, in plain PyTorch: round p before normalising
+    (the deferred normalisation of an online softmax)."""
+    import torch
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (out / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+
+
+def phase_parity(torch):
+    """Kernel vs plain version on the card.  Returns the per-kernel
+    comparison errors and the timing inputs."""
+    from caesar_yolo_tpu_torch.detect import cuda_nms, nms
+    from caesar_yolo_tpu_torch.models import cuda_attn
+    from caesar_yolo_tpu_torch.ops import cuda_preproc
+    from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    errs, inputs = {}, {}
+    anchors = sum((MAIN_SIZE // s) ** 2 for s in (8, 16, 32))
+
+    # K1: masks bit-equal on random, tied-score and crowded candidates
+    mismatches = 0
+    for k in (PRE_NMS, 2048):
+        for case, spread in (("random", 640.0), ("tied", 640.0),
+                             ("crowded", 120.0)):
+            boxes, scores = synthetic_detections(
+                rng, MAIN_BATCH, anchors, spread, tied=case == "tied")
+            sel = nms._select_candidates(
+                torch.from_numpy(boxes).to(dev),
+                torch.from_numpy(scores).to(dev), 0.25 if case != "crowded"
+                else 0.01, k, False)
+            top_valid, n_dropped, nms_boxes = sel[3], sel[4], sel[5]
+            if case == "crowded":
+                require(bool((n_dropped > 0).all()),
+                        "crowded NMS case did not overflow pre_nms")
+            got = cuda_nms.nms_suppress(nms_boxes.transpose(1, 2),
+                                        top_valid, 0.5)
+            torch.cuda.synchronize()
+            ref = cuda_nms.suppress_plain(nms_boxes, top_valid, 0.5)
+            bad = int((got != ref).sum())
+            mismatches += bad
+            log(f"parity K1 nms K={k} {case}: kept {int(got.sum())}, "
+                f"mismatched bits {bad}")
+            if k == PRE_NMS and case == "random":
+                inputs["nms"] = (nms_boxes.transpose(1, 2).contiguous(),
+                                 top_valid)
+    require(mismatches == 0, f"NMS kernel mask differs ({mismatches} bits)")
+    errs["nms"] = float(mismatches)
+
+    # K2: C2PSA attention of yolo11l at 640 px
+    b, h, n, kd, hd = MAIN_BATCH, 4, (MAIN_SIZE // 32) ** 2, 32, 64
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k_, v = (torch.randn(b, h, n, d, device=dev, generator=g)
+                for d in (kd, kd, hd))
+    scale = kd ** -0.5
+    args = (q, k_, v, scale)
+    got = cuda_attn.attention(*args)
+    torch.cuda.synchronize()
+    err = (got - cuda_attn.attention_plain(*args)).abs().max().item()
+    log(f"parity K2 attention f32: max abs err {err:.3g} (tolerance "
+        f"{ATTN_F32_TOL})")
+    require(err <= ATTN_F32_TOL, f"attention kernel f32 err {err}")
+    args = (q.bfloat16(), k_.bfloat16(), v.bfloat16(), scale)
+    got = cuda_attn.attention(*args)
+    torch.cuda.synchronize()
+    ref = cuda_attn.attention_plain(*args)
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    why = cuda_attn.bf16_mismatch(got, ref)
+    log(f"parity K2 attention bf16: max abs err {err:.3g}, changed share "
+        f"{(diff > 0).float().mean().item():.3g} (limits "
+        f"{cuda_attn.BF16_ATOL}, {cuda_attn.BF16_MAX_CHANGED_SHARE}; "
+        f"max |out| {ref.float().abs().max().item():.3g})")
+    require(why is None, f"attention kernel bf16: {why}")
+    # the rule can see a kernel that rounds p before normalising
+    online = online_softmax_attention(*args)
+    why_online = cuda_attn.bf16_mismatch(online, ref)
+    log(f"parity K2 rule on an online softmax (plain PyTorch): "
+        f"{why_online}")
+    require(why_online is not None, "bf16 rule passes an online softmax")
+    errs["attn"] = err
+    inputs["attn"] = (q.bfloat16(), k_.bfloat16(), v.bfloat16(), scale)
+
+    # K3: 32 planes of 640x640, one all zero, one holding a NaN
+    x = torch.from_numpy(rng.normal(0, 1, (MAIN_BATCH, MAIN_SIZE, MAIN_SIZE))
+                         .astype(np.float32)).to(dev)
+    x[3] = 0.0
+    x[5, 0, 0] = float("nan")
+    x[7, 100:200, 100:200] = 0.0
+    vmin, vmax = zscale_limits(x)
+    vlims = torch.stack([vmin, vmax], dim=1)
+    out, zl = cuda_preproc.zscale_minmax(x, vlims)
+    torch.cuda.synchronize()
+    ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims)
+    valid = torch.isfinite(zl[:, 0]) & (zl[:, 1] > zl[:, 0])
+    rvalid = torch.isfinite(rzl[:, 0]) & (rzl[:, 1] > rzl[:, 0])
+    err = (out - ref).abs().max().item()
+    log(f"parity K3 zscale+minmax: max abs err {err:.3g} (tolerance "
+        f"{PREPROC_TOL}), valid equal {torch.equal(valid, rvalid)}, "
+        f"invalid planes {(~valid).nonzero().flatten().tolist()}")
+    require(err <= PREPROC_TOL and torch.equal(valid, rvalid),
+            "zscale+minmax kernel differs")
+    require(not bool(valid[3]) and not bool(valid[5]),
+            "zero / NaN planes must be invalid")
+    errs["preproc"] = err
+    inputs["preproc"] = (x, vlims)
+    return errs, inputs
+
+
+def phase_golden(torch):
+    from caesar_yolo_tpu_torch.models.convert import load_model
+    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+    from caesar_yolo_tpu_torch.utils.boxes import catalog_mismatch
+
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    with np.load(os.path.join(fixtures, "torch_port_golden_v8n96.npz")) as f:
+        golden = {k: f[k] for k in f.files}
+    model, _ = load_model(os.path.join(fixtures, "yolov8n_synth96.npz"))
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        engine = TileEngine(
+            model, compute_dtype=torch.float32, img_size=96, score_thr=0.3,
+            iou_thr=0.5, max_det=300, pre_nms=512,
+            preprocessor=build_preprocessor(zscale_stretch=True,
+                                            normalize_minmax=True))
+        boxes, scores, cls, valid, tile_ok, ndrop = engine.process(
+            golden["tiles"])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    require(np.array_equal(tile_ok, golden["tile_ok"]), "golden tile_ok")
+    require(np.array_equal(ndrop, golden["n_dropped"]), "golden n_dropped")
+    for i in range(len(tile_ok)):
+        r = golden["valid"][i]
+        why = catalog_mismatch(
+            (golden["boxes"][i][r], golden["scores"][i][r],
+             golden["class_ids"][i][r]),
+            (boxes[i][valid[i]], scores[i][valid[i]], cls[i][valid[i]]))
+        require(why is None, f"golden tile {i}: {why}")
+    log(f"golden: {int(valid.sum())} detections on {len(tile_ok)} tiles "
+        f"match the JAX fixture (count, class, IoU >= 0.99, score within "
+        f"1e-3)")
+
+
+def make_main_tiles(n):
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+    tiles = np.stack([make_mosaic(MAIN_SIZE, MAIN_SIZE, n_sources=25,
+                                  noise_sigma=0.1, seed=1000 + i)[0]
+                      for i in range(n)])
+    tiles[MAIN_BATCH // 2] = 0.0                   # degenerate, batch 0
+    return tiles[..., None]
+
+
+def phase_main(torch, counters):
+    from caesar_yolo_tpu_torch.detect.analyzer import (Analyzer,
+                                                       AnalyzerOutputs)
+    from caesar_yolo_tpu_torch.detect.predictor import Predictor
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+
+    model = init_weights(build_model("yolo11l"), seed=0)
+    pre = build_preprocessor(zscale_stretch=True, normalize_minmax=True)
+    # seeded random weights leave the class scores at the head's bias
+    # priors (~1.6e-4, 6.2e-4 and 2.5e-3 at strides 8/16/32): 1e-3 lets the
+    # 400 stride-32 anchors of every tile through, so that NMS works on a
+    # full window of large, overlapping, score-tied boxes
+    kw = dict(img_size=MAIN_SIZE, score_thr=1e-3, iou_thr=0.5,
+              pre_nms=PRE_NMS)
+    engine = TileEngine(model, preprocessor=pre, **kw)
+    analyzer_pred = Predictor(model, **kw)
+    tiles = make_main_tiles(MAIN_BATCH * MAIN_BATCHES)
+    batches = [tiles[i * MAIN_BATCH:(i + 1) * MAIN_BATCH]
+               for i in range(MAIN_BATCHES)]
+
+    for c in counters.values():
+        c.launches = 0
+    outs = [engine.process(bt) for bt in batches]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        analyzer = Analyzer(analyzer_pred, preprocessor=pre,
+                            outputs=AnalyzerOutputs(
+                                outfile_json=os.path.join(tmp, "cat.json"),
+                                outfile_ds9=os.path.join(tmp, "cat.reg")))
+        status = analyzer.predict(tiles[0, :, :, 0], "tile0")
+        torch.cuda.synchronize()
+        with open(os.path.join(tmp, "cat.json")) as f:
+            catalog = json.load(f)
+        with open(os.path.join(tmp, "cat.reg")) as f:
+            regions = f.read().splitlines()
+    launches = {name: c.launches for name, c in counters.items()}
+    forwards = MAIN_BATCHES + 1
+    log(f"main path launches: {launches} over {forwards} forward passes")
+    require(launches["nms"] == forwards and launches["preproc"] == forwards
+            and launches["attn"] == 2 * forwards,
+            f"main path did not run every kernel as expected: {launches}")
+
+    n_det = 0
+    for bi, (boxes, scores, cls, valid, tile_ok, ndrop) in enumerate(outs):
+        require(boxes.shape == (MAIN_BATCH, 300, 4) and scores.shape ==
+                (MAIN_BATCH, 300) and valid.shape == (MAIN_BATCH, 300)
+                and tile_ok.shape == (MAIN_BATCH,), "main path shapes")
+        require(np.isfinite(boxes).all() and np.isfinite(scores).all(),
+                "main path outputs not finite")
+        require((boxes >= 0).all() and (boxes <= MAIN_SIZE).all(),
+                "boxes outside the tile")
+        expect_ok = np.ones(MAIN_BATCH, bool)
+        if bi == 0:
+            expect_ok[MAIN_BATCH // 2] = False
+        require(np.array_equal(tile_ok, expect_ok), f"tile_ok {tile_ok}")
+        require(not valid[~tile_ok].any(), "detections on a degenerate tile")
+        require(valid[tile_ok].any(axis=1).all(), "a valid tile kept nothing")
+        n_det += int(valid.sum())
+    require(status == 0, "Analyzer.predict skipped a valid tile")
+    require(len(regions) == 2 + len(catalog["objs"]), "DS9 file")
+    log(f"main path: yolo11l@{MAIN_SIZE} bf16, {MAIN_BATCHES} batches of "
+        f"{MAIN_BATCH}: {n_det} detections; Analyzer catalog of "
+        f"{len(catalog['objs'])} objects and a DS9 file of "
+        f"{len(regions)} lines written")
+    return engine, batches, launches
+
+
+def phase_timing(torch, mods, inputs, engine, batches):
+    """Kernel, plain and library times at the main path's shapes, bounds
+    from this run's inputs, and the main path's tiles/s."""
+    import torch.nn.functional as F
+
+    cuda_nms, cuda_attn, cuda_preproc = mods
+    rows = {}
+
+    boxes_t, valid = inputs["nms"]
+    nv = valid.sum(dim=1).double()
+    pairs = float((nv * (nv - 1) / 2).sum())    # IoU pairs this data needs
+    nbytes = boxes_t.numel() * 4 + valid.numel() * 2
+    rows["nms"] = dict(
+        ms=time_ms(torch, lambda: cuda_nms.nms_suppress(boxes_t, valid, 0.5)),
+        plain_ms=time_ms(torch, lambda: cuda_nms.suppress_plain(
+            boxes_t.transpose(1, 2), valid, 0.5), iters=5),
+        library_ms=None,
+        bound=bound_ms(nbytes, 14 * pairs, "float32"))
+
+    q, k, v, scale = inputs["attn"]
+    b, h, n, kd = q.shape
+    hd = v.shape[-1]
+    flops = 2 * b * h * n * n * (kd + hd) + 5 * b * h * n * n
+    nbytes = (q.numel() + k.numel() + 2 * v.numel()) * 2
+    rows["attn"] = dict(
+        ms=time_ms(torch, lambda: cuda_attn.attention(q, k, v, scale)),
+        plain_ms=time_ms(torch, lambda: cuda_attn.attention_plain(
+            q, k, v, scale)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale)),
+        bound=bound_ms(nbytes, flops, "bfloat16"))
+
+    x, vlims = inputs["preproc"]
+    nbytes = 2 * x.numel() * 4 + 2 * vlims.numel() * 4
+    rows["preproc"] = dict(
+        ms=time_ms(torch, lambda: cuda_preproc.zscale_minmax(x, vlims)),
+        plain_ms=time_ms(torch, lambda: cuda_preproc.zscale_minmax_plain(
+            x, vlims)),
+        library_ms=None,
+        bound=bound_ms(nbytes, 12 * x.numel(), "float32"))
+
+    staged = [engine.put_tiles(bt) for bt in batches]
+    engine.process_async(staged[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in staged:
+        engine.process_async(s)
+    torch.cuda.synchronize()
+    device_tps = len(staged) * MAIN_BATCH / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for bt in batches:
+        engine.process(bt)
+    host_tps = len(batches) * MAIN_BATCH / (time.perf_counter() - t0)
+    log(f"main path throughput: {device_tps:.1f} tiles/s on staged tiles, "
+        f"{host_tps:.1f} tiles/s host numpy in -> numpy out "
+        f"(yolo11l@{MAIN_SIZE} bf16, batch {MAIN_BATCH})")
+    return rows
+
+
+KERNELS = {
+    "nms": ("nms_suppress", "caesar_yolo_tpu_torch/csrc/nms.cu",
+            "caesar_yolo_tpu/detect/pallas_nms.py:85"),
+    "attn": ("attention", "caesar_yolo_tpu_torch/csrc/attn.cu",
+             "caesar_yolo_tpu/models/pallas_attn.py:132"),
+    "preproc": ("zscale_minmax", "caesar_yolo_tpu_torch/csrc/preproc.cu",
+                "caesar_yolo_tpu/ops/pallas_preproc.py:72"),
+}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        log("FAIL: PyTorch is not installed")
+        return 1
+    if not torch.cuda.is_available():
+        log("FAIL: no CUDA device")
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "caesar_yolo_tpu_torch")):
+        log("FAIL: run chip_smoke.py from a checkout of the repository")
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        card = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
+        require(smi.returncode == 0 and card, "nvidia-smi failed")
+        log(card)
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)}")
+
+        from caesar_yolo_tpu_torch import cuda_build
+        from caesar_yolo_tpu_torch.detect import cuda_nms
+        from caesar_yolo_tpu_torch.models import cuda_attn
+        from caesar_yolo_tpu_torch.ops import cuda_preproc
+
+        t0 = time.perf_counter()
+        cuda_build.build()
+        log(f"build: {sorted(cuda_build.SOURCES)} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        mods = (cuda_nms, cuda_attn, cuda_preproc)
+        counters = {"nms": cuda_nms.nms_suppress,
+                    "attn": cuda_attn.attention,
+                    "preproc": cuda_preproc.zscale_minmax}
+
+        errs, inputs = phase_parity(torch)
+        phase_golden(torch)
+        engine, batches, launches = phase_main(torch, counters)
+        rows = phase_timing(torch, mods, inputs, engine, batches)
+    except Exception:  # report every failure before exiting non-zero
+        traceback.print_exc()
+        log("FAIL")
+        return 1
+
+    kernels = []
+    for key, (name, source, replaces) in KERNELS.items():
+        r = rows[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": errs[key], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where the device time of the PyTorch port's main path goes.
+
+Runs the chip_smoke.py main path (yolo11l at 640 px, bf16, seeded
+weights, README preprocessing, batches of 32 synthetic tiles) on one
+CUDA card under torch.profiler and prints:
+  - the card's name and power limit;
+  - wall time per batch, device-busy time per batch and the device's
+    idle share over the profiled window;
+  - device time by category (convolution/GEMM library kernels, the
+    port's own kernels, everything else) and the top kernels by name;
+  - without the profiler, the forward pass's time in channels_last (what
+    the engine uses on CUDA) and in plain NCHW memory, alternating
+    A B B A, by CUDA events.
+
+Run from the repository root:  python3 scripts/torch_profile_main_path.py
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+BATCH, BATCHES, SIZE = 32, 4, 640
+PORT_KERNELS = ("nms_suppress_kernel", "attn_fwd_kernel", "zlims_init_kernel",
+                "reduce_kernel", "apply_kernel")
+LIBRARY_MARKS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "sm90_",
+                 "implicit", "winograd", "fprop", "nhwc")
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    if any(k in name for k in PORT_KERNELS):
+        return "port kernels (K1-K3)"
+    if any(k in low for k in LIBRARY_MARKS):
+        return "convolution / GEMM (cuDNN, cuBLAS)"
+    return "other PyTorch kernels"
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device")
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    engine = TileEngine(
+        init_weights(build_model("yolo11l"), seed=0),
+        preprocessor=build_preprocessor(zscale_stretch=True,
+                                        normalize_minmax=True),
+        img_size=SIZE, score_thr=1e-3, iou_thr=0.5)
+    tiles = np.stack([make_mosaic(SIZE, SIZE, n_sources=25, seed=1000 + i)[0]
+                      for i in range(BATCH)])[..., None]
+    staged = engine.put_tiles(tiles)
+    for _ in range(2):
+        engine.process_async(staged)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(BATCHES):
+            engine.process_async(staged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    by_name: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.device_time_total / 1e3)  # ms
+    busy = sum(by_name.values())
+    if busy == 0:
+        print("FAIL: the profiler recorded no device time")
+        return 1
+    wall_ms = wall * 1e3
+    print(f"main path yolo11l@{SIZE} bf16 batch {BATCH}: wall "
+          f"{wall_ms / BATCHES:.3f} ms/batch, device busy "
+          f"{busy / BATCHES:.3f} ms/batch, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f} (profiler on)")
+    cats: dict[str, float] = {}
+    for name, ms in by_name.items():
+        cats[category(name)] = cats.get(category(name), 0.0) + ms
+    for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:40s} {ms / BATCHES:8.3f} ms/batch "
+              f"{ms / busy:6.1%}")
+    print("top kernels by device time:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {ms / BATCHES:8.3f} ms/batch {ms / busy:6.1%}  {name[:110]}")
+
+    x = torch.rand(BATCH, 3, SIZE, SIZE, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    x = x.to(next(engine.model.parameters()).dtype)
+    layouts = {
+        "channels_last": (engine.model,
+                          x.contiguous(memory_format=torch.channels_last)),
+        "nchw": (copy.deepcopy(engine.model).to(
+            memory_format=torch.contiguous_format), x)}
+    for name in ("channels_last", "nchw", "nchw", "channels_last"):
+        model, xin = layouts[name]
+        print(f"layout {name:14s} forward {forward_ms(torch, model, xin):8.3f}"
+              f" ms/batch (profiler off)", flush=True)
+    return 0
+
+
+def forward_ms(torch, model, x, iters=10):
+    """Mean device time of one forward pass, by CUDA events after
+    warm-up."""
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            model(x)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+if __name__ == "__main__":
+    sys.exit(main())

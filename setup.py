@@ -26,7 +26,7 @@ setup(
     version="0.1.0",
     description=("TPU-native radio source detection framework "
                  "(JAX/XLA re-design of SKA-INAF/caesar-yolo)"),
-    packages=find_packages(include=["caesar_yolo_tpu*"]),
+    packages=find_packages(include=["caesar_yolo_tpu*", "caesar_yolo_tpu_torch*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax"],
     extras_require={

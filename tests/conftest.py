@@ -27,6 +27,12 @@ import pytest  # noqa: E402
 REFERENCE_FITS = "/root/reference/test/galaxy0001.fits"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+        "kernels); skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(42)

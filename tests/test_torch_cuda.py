@@ -1,0 +1,92 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card.  Every test here needs a CUDA device and skips
+without one.  Run them on the card (where JAX, which tests/conftest.py
+imports, need not be installed) from the repository root with
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from caesar_yolo_tpu_torch.detect import cuda_nms
+from caesar_yolo_tpu_torch.models import cuda_attn
+from caesar_yolo_tpu_torch.ops import cuda_preproc
+from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("k", [100, 512, 1024, 2048])
+@pytest.mark.parametrize("spread", [300.0, 30.0])
+def test_nms_kernel_bit_equal(dev, k, spread):
+    rng = np.random.default_rng(k)
+    b = 4
+    cx, cy = rng.random((2, b, k)) * spread
+    w, h = rng.random((2, b, k)) * 30 + 2
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                     axis=-1).astype(np.float32)
+    boxes[:, 5:9] = boxes[:, 4:5]
+    valid = torch.from_numpy(rng.random((b, k)) > 0.1).to(dev)
+    boxes = torch.from_numpy(boxes).to(dev)
+    got = cuda_nms.nms_suppress(boxes.transpose(1, 2), valid, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_nms.suppress_plain(boxes, valid, 0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,kd,hd", [(32, 4, 400, 32, 64),
+                                         (2, 2, 16, 16, 32),
+                                         (1, 6, 2048, 32, 64),
+                                         (2, 1, 64, 64, 128)])
+def test_attention_kernel_matches_plain(dev, dtype, b, h, n, kd, hd):
+    """f32 within 1e-5; bf16 by cuda_attn's bf16 parity rule."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    q, k, v = (torch.randn(b, h, n, d, device=dev, generator=g).to(dtype)
+               for d in (kd, kd, hd))
+    got = cuda_attn.attention(q, k, v, kd ** -0.5)
+    torch.cuda.synchronize()
+    ref = cuda_attn.attention_plain(q, k, v, kd ** -0.5)
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-5
+    else:
+        assert cuda_attn.bf16_mismatch(got, ref) is None
+
+
+def test_attention_kernel_rejects_unsupported(dev):
+    """Outside the reference's N gate, and at head widths the kernel does
+    not take, the kernel raises on CUDA; so does a C2PSA attention of such
+    widths, which never runs plain PyTorch on the card."""
+    from caesar_yolo_tpu_torch.models.layers import Attention
+
+    for n, kd, hd in ((12, 32, 32), (16, 8, 32), (16, 32, 300)):
+        q = torch.randn(1, 1, n, kd, device=dev)
+        v = torch.randn(1, 1, n, hd, device=dev)
+        with pytest.raises(ValueError):
+            cuda_attn.attention(q, q, v, 0.1)
+    attn = Attention(48, num_heads=4).to(dev).eval()     # kd 6, hd 12
+    with torch.no_grad(), pytest.raises(ValueError):
+        attn(torch.randn(1, 48, 4, 4, device=dev))
+
+
+def test_zscale_minmax_kernel_matches_plain(dev):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (6, 200, 160)).astype(np.float32)
+                         ).to(dev)
+    x[1] = 0.0
+    x[2, 0, 0] = float("nan")
+    x[3] = 4.0
+    vmin, vmax = zscale_limits(x)
+    vlims = torch.stack([vmin, vmax], dim=1)
+    out, zl = cuda_preproc.zscale_minmax(x, vlims, -1.0, 2.0)
+    torch.cuda.synchronize()
+    ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims, -1.0, 2.0)
+    assert torch.equal(zl, rzl)
+    assert (out - ref).abs().max().item() <= 1e-6

@@ -1,0 +1,123 @@
+"""The PyTorch port's zscale and README preprocessing chain (K3's plain
+version) against the JAX package, on the CPU with the same seeded
+inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import caesar_yolo_tpu.ops.pallas_preproc as jax_pallas_preproc
+from caesar_yolo_tpu.ops import build_preprocessor as jax_build_preprocessor
+from caesar_yolo_tpu.ops.zscale import zscale_limits as jax_zscale_limits
+from caesar_yolo_tpu_torch.ops import cuda_preproc
+from caesar_yolo_tpu_torch.ops.transforms import (
+    Pipeline,
+    build_preprocessor,
+    min_max_normalizer,
+    prepare_tiles,
+    zscale_transformer,
+)
+from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
+
+torch.set_num_threads(1)
+
+# The zscale line fit sums in f32 in another order than XLA's, which
+# moves (vmin, vmax) by f32 rounding; after the stretch and min-max that
+# stays below 1e-5 on [0, 1] outputs.
+ATOL = 1e-5
+
+
+def _tiles(seed, b=6, size=48, c=1):
+    """Noise + a bright source per tile, with masked (zero) pixels, one
+    all-zero tile, one tile holding NaNs on sampled pixels, one constant
+    tile and one tile holding a NaN only off the zscale sample grid."""
+    rng = np.random.default_rng(seed)
+    t = rng.normal(0.0, 1.0, (b, size, size, c)).astype(np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    t += (8.0 * np.exp(-((xx - 20) ** 2 + (yy - 25) ** 2) / 18.0)
+          ).astype(np.float32)[None, :, :, None]
+    t[:, 3:7, 5:11] = 0.0
+    t[1] = 0.0
+    t[2, 0, 0] = np.nan               # sample 0 of the zscale grid
+    t[3] = 2.5
+    t[4, 0, 1] = np.nan               # off the stride-2 sample grid
+    return t
+
+
+def test_zscale_limits_match_jax():
+    t = _tiles(0)[..., 0]
+    t[2] = np.nan_to_num(t[2])        # the reference needs finite input
+    vmin, vmax = zscale_limits(torch.from_numpy(t))
+    for i in range(len(t)):
+        jmin, jmax = jax_zscale_limits(jnp.asarray(t[i]))
+        np.testing.assert_allclose([vmin[i].item(), vmax[i].item()],
+                                   [float(jmin), float(jmax)],
+                                   rtol=2e-6, atol=1e-6)
+
+
+def test_plain_matches_pallas_interpret(monkeypatch):
+    """K3's plain version against fused_zscale_minmax in interpret mode."""
+    monkeypatch.setattr(jax_pallas_preproc, "INTERPRET", True)
+    t = _tiles(1)[..., 0]
+    ref, rvalid = jax_pallas_preproc.fused_zscale_minmax(jnp.asarray(t))
+    out, valid = cuda_preproc.fused_zscale_minmax(torch.from_numpy(t))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(rvalid))
+    assert valid.numpy().tolist() == [True, False, False, False, True, True]
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("norm", [(0.0, 1.0), (-1.0, 255.0)])
+def test_pipeline_matches_jax_apply_batch(c, norm):
+    """The port's README pipeline (the fused path) and the same stages run
+    one by one against the reference's Pipeline.apply_batch on 1- and
+    3-channel tiles with zero, NaN and constant tiles."""
+    t = _tiles(2 + c, c=c)
+    if c == 3:
+        t[5, ..., 1] *= 3.0           # channels that differ
+    kw = dict(zscale_stretch=True, normalize_minmax=True,
+              norm_min=norm[0], norm_max=norm[1])
+    ref, rvalid = jax_build_preprocessor(**kw).apply_batch(jnp.asarray(t))
+    pipe = build_preprocessor(**kw)
+    assert pipe.fused is not None
+    staged = Pipeline([zscale_transformer(), min_max_normalizer(*norm)])
+    for p in (pipe, staged):
+        out, valid = p.apply_batch(torch.from_numpy(t))
+        np.testing.assert_array_equal(valid.numpy(), np.asarray(rvalid))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   atol=ATOL * (norm[1] - norm[0]), rtol=0)
+
+
+def test_single_stage_pipelines_match_jax():
+    t = _tiles(9)
+    for kw in (dict(zscale_stretch=True), dict(normalize_minmax=True)):
+        ref, rvalid = jax_build_preprocessor(**kw).apply_batch(
+            jnp.asarray(t))
+        out, valid = build_preprocessor(**kw).apply_batch(
+            torch.from_numpy(t))
+        np.testing.assert_array_equal(valid.numpy(), np.asarray(rvalid))
+        np.testing.assert_allclose(np.nan_to_num(out.numpy(), nan=7.0),
+                                   np.nan_to_num(np.asarray(ref), nan=7.0),
+                                   atol=ATOL, rtol=0)
+
+
+def test_gray_preprocessed_once_equals_repeat_first():
+    """The engine may run the channel-uniform README chain on the gray
+    plane and repeat it after: bit-identical to repeating first, as the
+    reference does (engine.py:57-58)."""
+    t = torch.from_numpy(_tiles(4))
+    pipe = build_preprocessor(zscale_stretch=True, normalize_minmax=True)
+    assert pipe.channel_uniform
+    once, ok_once = prepare_tiles(t, pipe, 3)
+    first, ok_first = prepare_tiles(t.expand(-1, -1, -1, 3).contiguous(),
+                                    pipe, 3)
+    assert torch.equal(once, first)
+    assert torch.equal(ok_once, ok_first)
+    assert ok_once.tolist() == [True, False, False, False, True, True]
+
+
+def test_unported_stages_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_preprocessor(subtract_bkg=True)
