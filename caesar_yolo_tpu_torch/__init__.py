@@ -6,16 +6,23 @@ reference on the ported path is a kernel written by hand for Hopper in
 `csrc/`, built with nvcc at first use (`cuda_build`).
 
 Package layout (bottom-up), named after the reference's modules:
-  utils/     box math, union-find, synthetic mosaics, device selection
-  ops/       zscale and the README preprocessing chain (kernel K3)
+  utils/     FITS I/O, tiling, box math, union-find, synthetic mosaics,
+             device selection
+  ops/       zscale, sigma-clipped statistics (kernel K5), histogram
+             equalisation (kernel K6), the preprocessing stages and the
+             README chain (kernel K3)
   models/    YOLOv8 / YOLO11 as nn.Modules, attention (kernel K2),
-             npz weight loading
+             npz weights to and from the reference's format
   detect/    letterbox, fixed-shape NMS (kernel K1), predictor, merge,
              analyzer
-  parallel/  the batched tile engine on one GPU
+  parallel/  the batched tile engine and the mosaic source finder on one
+             GPU, edge flags and stitch
   outputs/   JSON catalog and DS9 region writers
+  cli/       the detection command line (`python -m
+             caesar_yolo_tpu_torch.cli.run`)
 
-Entry points run on CUDA unless the caller passes device="cpu".
+Entry points run on CUDA unless the caller passes device="cpu" (the CLI:
+--devices=cpu).
 """
 
 import logging

@@ -1,0 +1,220 @@
+"""Command-line detection entry point.
+
+Flag-compatible with caesar_yolo_tpu/cli/run.py (and so with the
+reference CLI, reference scripts/run.py:58-155): the same flags,
+defaults and single-dash spellings.
+
+    python -m caesar_yolo_tpu_torch.cli.run --image=mosaic.fits \
+        --weights=w.npz --preprocessing --subtract_bkg --chan3_preproc \
+        --normalize_minmax [--split_img_in_tiles --tile_xsize=512 ...]
+
+Runs on CUDA; `--devices=cpu` selects the CPU.  `--weights` takes the
+reference's npz format (models/convert.py).  These flags are refused
+with NotImplementedError until their feature is ported (ROADMAP.md,
+Queue 1): --datalist, .pt weights, --int8, --resume, --spool_path,
+--profile_dir, --preproc_context=global, --device_tiling=on,
+--draw_plots, --save_plots and --save_tile_img.  --multigpu is a no-op,
+as in the reference package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from caesar_yolo_tpu_torch import logger
+from caesar_yolo_tpu_torch.cli.preproc_args import (
+    add_preprocessing_args,
+    build_preprocessor_from_args,
+)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="caesar-yolo-tpu (PyTorch port) options")
+
+    # DATA
+    parser.add_argument("--image", required=False, type=str, default="",
+                        help="Input FITS image to detect on")
+    parser.add_argument("--datalist", required=False, default="",
+                        help="Filelist of images for batch detection "
+                        "(not ported yet)")
+    parser.add_argument("--maxnimgs", required=False, type=int, default=-1)
+
+    # MODEL
+    parser.add_argument("--weights", required=True,
+                        help="Weights in the reference's npz format")
+    parser.add_argument("--model", required=False, default="",
+                        help="Architecture name (default: from the weights' "
+                        "meta, else their file name)")
+
+    # PREPROCESSING (shared flag set: cli/preproc_args.py)
+    parser.add_argument("--imgsize", type=int, default=640)
+    add_preprocessing_args(parser)
+
+    # DETECT
+    parser.add_argument("--scoreThr", type=float, default=0.7)
+    parser.add_argument("--iouThr", type=float, default=0.5)
+    parser.add_argument("--pre_nms", type=int, default=512,
+                        help="Pre-NMS candidate window (above-threshold "
+                        "candidates beyond it are dropped WITH a log; "
+                        "raise for crowded fields)")
+    parser.add_argument("--resume", action="store_true",
+                        help="Resume a crashed tiled run (not ported yet)")
+    parser.add_argument("--spool_path", type=str, default="",
+                        help="Tile-result spool file (not ported yet)")
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="Profiler trace directory (not ported yet)")
+    parser.add_argument("--device_tiling", choices=["auto", "on", "off"],
+                        default="auto",
+                        help="auto/off: stream windowed tile reads; on: "
+                        "device-resident mosaic (not ported yet)")
+    parser.add_argument("--preproc_context", choices=["tile", "global"],
+                        default="tile",
+                        help="Statistics context of tiled-run "
+                        "preprocessing: per tile (reference parity); "
+                        "global is not ported yet")
+    parser.add_argument("--relay_bf16", action="store_true",
+                        help="Ship tiles to the device as bfloat16 (half "
+                        "the host->device bytes; ~0.4%% pixel rounding)")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 PTQ inference (not ported yet)")
+    parser.add_argument("--merge_overlap_iou_thr_soft", type=float,
+                        default=0.3)
+    parser.add_argument("--merge_overlap_iou_thr_hard", type=float,
+                        default=0.8)
+    parser.add_argument("--xmin", type=int, default=-1)
+    parser.add_argument("--xmax", type=int, default=-1)
+    parser.add_argument("--ymin", type=int, default=-1)
+    parser.add_argument("--ymax", type=int, default=-1)
+
+    # TILING / PARALLEL
+    parser.add_argument("--split_img_in_tiles", action="store_true")
+    parser.add_argument("--tile_xsize", type=int, default=512)
+    parser.add_argument("--tile_ysize", type=int, default=512)
+    parser.add_argument("--tile_xstep", type=float, default=1.0)
+    parser.add_argument("--tile_ystep", type=float, default=1.0)
+    parser.add_argument("--max_ntasks_per_worker", type=int, default=100)
+    parser.add_argument("--batch_size", type=int, default=128,
+                        help="tiles per device batch (small mosaics pad "
+                        "up to it)")
+
+    # RUN
+    parser.add_argument("--devices", type=str, default="",
+                        help="torch device (default cuda; cpu runs on the "
+                        "CPU)")
+    parser.add_argument("--multigpu", action="store_true",
+                        help="(compat no-op)")
+
+    # DRAW / SAVE
+    parser.add_argument("--draw_plots", action="store_true")
+    parser.add_argument("--draw_class_label_in_caption", action="store_true")
+    parser.add_argument("--save_plots", action="store_true")
+    parser.add_argument("--save_tile_catalog", action="store_true")
+    parser.add_argument("--save_tile_region", action="store_true")
+    parser.add_argument("--save_tile_img", action="store_true")
+    parser.add_argument("--detect_outfile", type=str, default="")
+    parser.add_argument("--detect_outfile_json", type=str, default="")
+
+    return parser.parse_args(argv)
+
+
+def unported_flags(args) -> list[str]:
+    """The given flags whose feature the port does not have yet (the
+    SFinder refuses --device_tiling=on and --preproc_context=global)."""
+    out = [f"--{name}" for name in (
+        "datalist", "int8", "draw_plots", "save_plots", "save_tile_img",
+        "resume", "spool_path", "profile_dir") if getattr(args, name)]
+    if args.weights.endswith(".pt"):
+        out.append(".pt weights")
+    return out
+
+
+def validate_args(args) -> int:
+    """Reference validation rules (scripts/run.py:158-190)."""
+    if not args.image:
+        logger.error("Argument --image is required for detect task!")
+        return -1
+    if not os.path.isfile(args.image):
+        logger.error("Image argument must be an existing image on "
+                     "filesystem!")
+        return -1
+    if not args.image.endswith((".fits", ".png", ".jpg")):
+        logger.error("Image must have .fits/.png/.jpg extension!")
+        return -1
+    if args.maxnimgs == 0 or (args.maxnimgs < 0 and args.maxnimgs != -1):
+        logger.error("Invalid maxnimgs given (hint: give -1 or >0)!")
+        return -1
+    if not args.weights or not os.path.isfile(args.weights):
+        logger.error("Given weight file %s not existing or not a file!",
+                     args.weights)
+        return -1
+    return 0
+
+
+def load_model_from_args(args):
+    """The model named by the weights' meta (else --model, else the
+    weights' file name) with the weights loaded, on the CPU in f32."""
+    from caesar_yolo_tpu_torch.models.convert import (
+        load_jax_params,
+        load_params,
+    )
+    from caesar_yolo_tpu_torch.models.yolo import build_model
+    name = args.model or os.path.splitext(os.path.basename(args.weights))[0]
+    params, meta = load_params(args.weights)
+    model = build_model(meta.get("model", name),
+                        num_classes=int(meta.get("num_classes", 5)))
+    return load_jax_params(model, params)
+
+
+def config_from_args(args):
+    from caesar_yolo_tpu_torch.parallel.sfinder import SFinderConfig
+    return SFinderConfig(
+        image_path=args.image,
+        image_xmin=args.xmin, image_xmax=args.xmax,
+        image_ymin=args.ymin, image_ymax=args.ymax,
+        img_size=args.imgsize, score_thr=args.scoreThr,
+        iou_thr=args.iouThr, pre_nms=args.pre_nms,
+        relay_dtype="bfloat16" if args.relay_bf16 else "float32",
+        device_tiling=args.device_tiling,
+        preproc_context=args.preproc_context,
+        merge_overlap_iou_thr_soft=args.merge_overlap_iou_thr_soft,
+        merge_overlap_iou_thr_hard=args.merge_overlap_iou_thr_hard,
+        split_image_in_tiles=args.split_img_in_tiles,
+        tile_xsize=args.tile_xsize, tile_ysize=args.tile_ysize,
+        tile_xstep=args.tile_xstep, tile_ystep=args.tile_ystep,
+        max_ntasks_per_worker=args.max_ntasks_per_worker,
+        batch_size=args.batch_size,
+        save_tile_catalog=args.save_tile_catalog,
+        save_tile_region=args.save_tile_region,
+        outfile_json=args.detect_outfile_json,
+        outfile_ds9=args.detect_outfile)
+
+
+def run(argv=None):
+    """Parse, check and run -> (exit code, the SFinder after its run, or
+    None when the arguments were rejected)."""
+    args = parse_args(argv)
+    bad = unported_flags(args)
+    if bad:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(bad)} (ROADMAP.md, Queue 1)")
+    if validate_args(args) < 0:
+        return 1, None
+
+    from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
+
+    sf = SFinder(load_model_from_args(args), config_from_args(args),
+                 preprocessor=build_preprocessor_from_args(args),
+                 device=args.devices or None)
+    rc = sf.run_tiled() if args.split_img_in_tiles else sf.run()
+    return (0 if rc == 0 else 1), sf
+
+
+def main(argv=None) -> int:
+    return run(argv)[0]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

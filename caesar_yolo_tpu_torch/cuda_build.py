@@ -23,12 +23,16 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.normpath(
     os.path.join(os.path.dirname(CSRC), os.pardir, "build", "kernels"))
 
-# Per-source flags.  NMS and the preprocessing chain must be bit-identical
-# to their plain versions, so FMA contraction is off there.
+# Per-source flags.  NMS, the zscale chain, the clip statistics and the
+# histogram equalisation must be bit-identical to their plain versions
+# (clip bounds med +- sigma*std, bin positions (x - vmin) / span * 256),
+# so FMA contraction is off there.
 SOURCES = {
     "nms": ["-fmad=false"],
     "attn": [],
     "preproc": ["-fmad=false"],
+    "stats": ["-fmad=false"],
+    "histeq": ["-fmad=false"],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

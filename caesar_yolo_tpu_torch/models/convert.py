@@ -71,6 +71,33 @@ def state_from_params(params) -> dict[str, torch.Tensor]:
     return state
 
 
+def params_from_state(state: dict) -> dict:
+    """The inverse of `state_from_params`: the port's state_dict -> the
+    reference's params pytree of numpy f32 arrays ('.' -> '/', 4-D conv
+    kernels OIHW -> HWIO)."""
+    flat = {}
+    for key, value in state.items():
+        arr = value.detach().cpu().float().numpy()
+        if arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        flat[key.replace(".", "/")] = np.ascontiguousarray(arr)
+    return _unflatten(flat)
+
+
+def save_params(model: YOLO, path: str, meta: dict | None = None) -> str:
+    """Save `model`'s weights in the reference's npz format (flat
+    '/'-joined keys plus a `__meta__` JSON entry), which
+    caesar_yolo_tpu/models/convert.py:load_params reads.  Returns the
+    path written (".npz" appended when absent, as np.savez does)."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    flat = dict(_flatten(params_from_state(model.state_dict())))
+    flat["__meta__"] = np.frombuffer(
+        json.dumps(meta or {}).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
+    return path
+
+
 def load_jax_params(model: YOLO, params) -> YOLO:
     """Carry the reference's params pytree into `model` (strict: every
     key on both sides must match)."""

@@ -20,13 +20,8 @@ import ctypes
 import torch
 
 from caesar_yolo_tpu_torch import cuda_build
+from caesar_yolo_tpu_torch.ops.stats import valid_mask
 from caesar_yolo_tpu_torch.ops.zscale import zscale_apply, zscale_limits
-
-
-def valid_mask(x: torch.Tensor) -> torch.Tensor:
-    """The masking convention: a pixel takes part iff it is != 0 and
-    finite (caesar_yolo_tpu/ops/transforms.py:valid_mask)."""
-    return (x != 0) & torch.isfinite(x)
 
 
 def minmax_apply(z: torch.Tensor, norm_min: float, norm_max: float):

@@ -26,6 +26,21 @@ CLASS_COLOR_MAP_DS9 = {
     "flagged": "magenta",
 }
 
+# mosaic-level map: the reference SFinder uses a DIFFERENT palette than
+# the per-tile Analyzer (reference inference.py:334-342 vs
+# evaluation.py:108-115): yellow extended-multisland, black flagged,
+# and an extra 'diffuse' class
+CLASS_COLOR_MAP_DS9_MOSAIC = {
+    "bkg": "black",
+    "spurious": "red",
+    "compact": "blue",
+    "extended": "green",
+    "extended-multisland": "yellow",
+    "flagged": "black",
+    "diffuse": "magenta",
+}
+
+
 class NumpyJSONEncoder(json.JSONEncoder):
     """Serialize numpy scalars/arrays transparently (replaces the
     reference's third-party `numpyencoder` dep)."""

@@ -40,16 +40,40 @@ def iou_matrix_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
     return np.where(union > 0, inter / np.where(union > 0, union, 1.0), 0.0)
 
 
+def get_merged_bbox(bboxes) -> tuple:
+    """Enclosing box of a list of xyxy boxes (reference utils.py:110-119)."""
+    x = np.asarray(bboxes)
+    return (x[:, 0].min(), x[:, 1].min(), x[:, 2].max(), x[:, 3].max())
+
+
+def boxes_overlap_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
+    """Pairwise closed-interval overlap predicate [N,M].
+
+    Matches the reference's stitch-time check (inference.py:796-801):
+    boxes sharing only an edge/corner DO overlap (<=/>= comparisons).
+    """
+    boxes1 = np.asarray(boxes1, dtype=np.float64)
+    boxes2 = np.asarray(boxes2, dtype=np.float64)
+    not_olap = (
+        (boxes1[:, None, 2] < boxes2[None, :, 0])
+        | (boxes1[:, None, 0] > boxes2[None, :, 2])
+        | (boxes1[:, None, 3] < boxes2[None, :, 1])
+        | (boxes1[:, None, 1] > boxes2[None, :, 3])
+    )
+    return ~not_olap
+
+
 def catalog_mismatch(ref, got, iou_min: float = 0.99,
                      score_tol: float = 1e-3) -> str | None:
     """The catalog rule of the port's parity checks: `ref` and `got` are
-    (boxes[N, 4], scores[N], class_ids[N]) of one image; they match when
-    the counts are equal and every reference detection has its own
-    partner with IoU >= iou_min, the same class and a score within
-    score_tol (as a set: near-equal scores may come out in another
-    order).  Returns None on a match, else what differs."""
-    rb, rs, rc = (np.asarray(a) for a in ref)
-    gb, gs, gc = (np.asarray(a) for a in got)
+    (boxes[N, 4], scores[N], class_ids[N], *flags) of one image or
+    mosaic; they match when the counts are equal and every reference
+    detection has its own partner with IoU >= iou_min, the same class, a
+    score within score_tol and equal flags (e.g. a stitched catalog's
+    edge and merged flags), as a set: near-equal scores may come out in
+    another order.  Returns None on a match, else what differs."""
+    rb, rs, rc, *rf = (np.asarray(a) for a in ref)
+    gb, gs, gc, *gf = (np.asarray(a) for a in got)
     if len(rs) != len(gs):
         return f"count {len(gs)} != reference {len(rs)}"
     used = np.zeros(len(gs), bool)
@@ -58,6 +82,8 @@ def catalog_mismatch(ref, got, iou_min: float = 0.99,
                             gb.reshape(-1, 4))[0]
         cand = ((iou >= iou_min) & (gc == rc[i])
                 & (np.abs(gs - rs[i]) <= score_tol) & ~used)
+        for r, g in zip(rf, gf):
+            cand &= g == r[i]
         if not cand.any():
             return (f"reference detection {i} (box {rb[i]}, score "
                     f"{float(rs[i]):.4f}, class {int(rc[i])}) has no "

@@ -1,11 +1,13 @@
 """Synthetic radio mosaics (testing and benchmarking): Gaussian noise plus
-elliptical-Gaussian sources with their ground-truth boxes.  The numpy
-half of caesar_yolo_tpu/utils/synth.py, drawing the same numbers from
-the same seed."""
+elliptical-Gaussian sources with their ground-truth boxes, in memory or
+as a FITS file.  A copy of caesar_yolo_tpu/utils/synth.py, drawing the
+same numbers from the same seed."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from caesar_yolo_tpu_torch.utils.fits import FitsHeader, write_fits
 
 
 def make_mosaic(nx: int = 1024, ny: int = 1024, n_sources: int = 40,
@@ -33,3 +35,26 @@ def make_mosaic(nx: int = 1024, ny: int = 1024, n_sources: int = 40,
               + (wy - cy) ** 2 / (2 * sy ** 2))).astype(np.float32)
         boxes.append([cx - 2 * sx, cy - 2 * sy, cx + 2 * sx, cy + 2 * sy])
     return img, np.asarray(boxes, np.float32).reshape(-1, 4)
+
+
+def write_mosaic_fits(path: str, nx: int = 1024, ny: int = 1024,
+                      blank_border: int = 0, **kwargs):
+    """Write a synthetic mosaic FITS with beam keywords; returns gt boxes.
+
+    `blank_border` > 0 sets that many pixels along each side to NaN, as
+    survey mosaics blank their edges (the reader turns them into 0); 0
+    writes the same file as the reference's write_mosaic_fits."""
+    img, boxes = make_mosaic(nx=nx, ny=ny, **kwargs)
+    if blank_border > 0:
+        b = blank_border
+        img[:b] = img[-b:] = np.nan
+        img[:, :b] = img[:, -b:] = np.nan
+    header = FitsHeader()
+    header["CDELT1"] = -2.777778e-4
+    header["CDELT2"] = 2.777778e-4
+    header["BMAJ"] = 2.5e-3
+    header["BMIN"] = 2.0e-3
+    header["BPA"] = 10.0
+    header["BUNIT"] = "JY/BEAM"
+    write_fits(img, path, header)
+    return boxes

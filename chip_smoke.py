@@ -7,14 +7,25 @@ Phases (any failure exits non-zero before the last line):
   build     the hand-written kernels (csrc/*.cu, one nvcc per source, all
             started together)
   parity    each kernel against its plain PyTorch version on the card, at
-            the main path's shapes
+            the main paths' shapes
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
+  golden-mosaic
+            the port's SFinder.run_tiled in f32 (TF32 off) on the committed
+            mosaic against the JAX SFinder's catalog (tests/fixtures/
+            torch_port_golden_mosaic_v8n96.npz), by the catalog rule with
+            equal edge and merged flags
   main      yolo11l at 640 px in bf16 with seeded weights: TileEngine on
             batches of 32 synthetic tiles (one all-zero), then
-            Analyzer.predict writing a JSON catalog and a DS9 file; every
-            kernel must have launched on this path
+            Analyzer.predict writing a JSON catalog and a DS9 file; K1-K3
+            must have launched on this path
+  mosaic    the CLI (cli.run) on a seeded 2560x2560 FITS mosaic with a
+            NaN-blanked border, yolo11l@640 bf16: a tiled run (100 tiles of
+            512 px at step 0.5, four shapes, batches of 32; bkg + chan3 +
+            min-max) and a serial run on a 640x640 crop, each writing a
+            JSON catalog and a DS9 file; K1, K2, K5 and K6 must have
+            launched as often as the stages imply
   timing    each kernel, its plain version and (where one exists) the
             PyTorch library call, by CUDA events; tiles/s of the main path
 
@@ -32,6 +43,7 @@ import sys
 import tempfile
 import time
 import traceback
+from collections import Counter
 
 import numpy as np
 
@@ -46,9 +58,28 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # tolerances of the parity phase (bf16 attention: cuda_attn.bf16_mismatch,
-# at most BF16_ATOL and a changed share of at most BF16_MAX_CHANGED_SHARE)
+# at most BF16_ATOL and a changed share of at most BF16_MAX_CHANGED_SHARE;
+# clip statistics: cuda_stats.stats_mismatch, medians exact; histogram
+# equalisation: bit-equal)
 ATTN_F32_TOL = 1e-5
 PREPROC_TOL = 1e-6
+
+# the mosaic phase: 2560 px at 512 px tiles and step 0.5 is a 10x10 grid
+# whose last row and column are 256 px wide: 81 + 9 + 9 + 1 tiles in four
+# shapes, 3 + 1 + 1 + 1 = 6 batches of 32
+MOSAIC_SIZE = 2560
+MOSAIC_TILE = 512
+MOSAIC_SIGMAS = ((3.0, 3.0), (0.0, 20.0), (1.0, 20.0))  # bkg, chan3 clips
+# per batch (or serial image): one K5 launch for the background, one for
+# each chan3 clip; one K6 launch for chan3's third channel; one NMS; two
+# C2PSA attentions in yolo11l
+PER_FORWARD = {"stats": 3, "histeq": 1, "nms": 1, "attn": 2}
+# the random model's class scores sit at its head's bias priors (~2.5e-3
+# at stride 32): at 3e-3 its catalog is empty, at 1e-3 each tile keeps one
+# detection after NMS and the merge, so the catalog has 100 sources and
+# edge flags plus stitch take milliseconds
+# (scripts/torch_mosaic_thresholds.py)
+MOSAIC_SCORE_THR = 1e-3
 
 
 def log(*args):
@@ -210,7 +241,59 @@ def phase_parity(torch):
             "zero / NaN planes must be invalid")
     errs["preproc"] = err
     inputs["preproc"] = (x, vlims)
+
+    # K5 and K6 at the mosaic phase's batch shape, with edge-case planes
+    from caesar_yolo_tpu_torch.ops import cuda_histeq, cuda_stats
+    from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
+    from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
+    x = mosaic_planes(dev, rng)
+    err = 0.0
+    for sig in MOSAIC_SIGMAS:
+        got = cuda_stats.clip_stats(x, *sig)
+        torch.cuda.synchronize()
+        ref = clip_stats_plain(x, None, *sig)
+        why = cuda_stats.stats_mismatch(got, ref)
+        same = got[1][:, 1] == ref[1][:, 1]
+        e = (got[0] - ref[0]).nan_to_num()[same].abs().max().item()
+        log(f"parity K5 sigma-clip stats {tuple(x.shape)} sigmas {sig}: "
+            f"max abs err {e:.3g}, medians equal "
+            f"{torch.equal(got[0][:, 1].nan_to_num(), ref[0][:, 1].nan_to_num())}"
+            f", kept counts equal on {int(same.sum())}/{len(same)} planes "
+            f"(rule: cuda_stats.stats_mismatch) -> {why or 'ok'}")
+        require(why is None, f"sigma-clip kernel: {why}")
+        require(int(got[1][0, 0]) == 0 and bool(got[0][0].isnan().all()),
+                "an all-zero plane must give NaN statistics")
+        err = max(err, e)
+    errs["stats"] = err
+    inputs["stats"] = x
+    got = cuda_histeq.equalize_hist_batch(x)
+    torch.cuda.synchronize()
+    ref = equalize_hist(x)
+    err = (got.nan_to_num() - ref.nan_to_num()).abs().max().item()
+    log(f"parity K6 hist-eq {tuple(x.shape)}: max abs err {err:.3g} "
+        f"(tolerance 0), NaN planes equal "
+        f"{torch.equal(got.isnan(), ref.isnan())}")
+    require(err == 0 and torch.equal(got.isnan(), ref.isnan()),
+            "hist-eq kernel differs")
+    errs["histeq"] = err
+    inputs["histeq"] = x
     return errs, inputs
+
+
+def mosaic_planes(dev, rng):
+    """[32, 512, 512] planes like the mosaic phase's, with the edge cases
+    of the clip statistics: all zero, NaN-blanked rows, constant, a bright
+    source (clipping bites), heavy duplicates (the pin's fallback)."""
+    import torch
+    x = rng.normal(0, 1, (MAIN_BATCH, MOSAIC_TILE, MOSAIC_TILE)
+                   ).astype(np.float32)
+    x[0] = 0.0
+    x[1, :128] = np.nan
+    x[2] = 3.0
+    x[3, 256:264, 256:264] += 500.0
+    x[4, :256] = 0.25
+    x[:, :2] = 0.0
+    return torch.from_numpy(x).to(dev)
 
 
 def phase_golden(torch):
@@ -250,6 +333,57 @@ def phase_golden(torch):
     log(f"golden: {int(valid.sum())} detections on {len(tile_ok)} tiles "
         f"match the JAX fixture (count, class, IoU >= 0.99, score within "
         f"1e-3)")
+
+
+def catalog_arrays(sources):
+    """(boxes, scores, class_ids, edge, merged) of a stitched catalog."""
+    boxes = np.asarray([[o["x1"], o["y1"], o["x2"], o["y2"]]
+                        for o in sources], np.float64).reshape(-1, 4)
+    return (boxes, np.asarray([o["score"] for o in sources]),
+            np.asarray([o["class_id"] for o in sources]),
+            np.asarray([bool(o["edge"]) for o in sources]),
+            np.asarray([bool(o.get("merged", False)) for o in sources]))
+
+
+def phase_golden_mosaic(torch, tmp):
+    """The port's tiled SFinder in f32 on the committed mosaic against the
+    JAX SFinder's catalog (tests/test_torch_sfinder.py writes both)."""
+    from caesar_yolo_tpu_torch.models.convert import load_model
+    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.parallel.sfinder import SFinder, SFinderConfig
+    from caesar_yolo_tpu_torch.utils.boxes import catalog_mismatch
+    from caesar_yolo_tpu_torch.utils.fits import write_fits
+
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    with np.load(os.path.join(fixtures,
+                              "torch_port_golden_mosaic_v8n96.npz")) as f:
+        golden = {k: f[k] for k in f.files}
+    config = json.loads(str(golden["config"]))
+    path = os.path.join(tmp, "golden_mosaic.fits")
+    write_fits(golden["mosaic"], path)
+    model, _ = load_model(os.path.join(fixtures, "yolov8n_synth96.npz"))
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sf = SFinder(model, SFinderConfig(
+            image_path=path, outfile_json=os.path.join(tmp, "golden.json"),
+            outfile_ds9=os.path.join(tmp, "golden.reg"), **config["sfinder"]),
+            preprocessor=build_preprocessor(**config["preprocessing"]),
+            engine_kwargs={"compute_dtype": torch.float32})
+        require(sf.run_tiled() == 0, "golden-mosaic run failed")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    ref = tuple(golden[k] for k in ("boxes", "scores", "class_ids", "edge",
+                                    "merged"))
+    why = catalog_mismatch(ref, catalog_arrays(sf.sources["sources"]))
+    require(why is None, f"golden mosaic: {why}")
+    log(f"golden-mosaic: {len(ref[1])} stitched sources ({int(ref[4].sum())}"
+        f" merged, {int(ref[3].sum())} edge) on {sf.report.n_tiles} tiles "
+        f"match the JAX SFinder's catalog (count, class, IoU >= 0.99, score "
+        f"within 1e-3, edge and merged flags)")
 
 
 def make_main_tiles(n):
@@ -329,12 +463,95 @@ def phase_main(torch, counters):
     return engine, batches, launches
 
 
+def phase_mosaic(torch, counters, tmp):
+    """The CLI on a seeded 2560x2560 FITS mosaic with yolo11l@640 bf16: a
+    tiled run, then a serial run on a 640x640 crop.  Returns the launches
+    of each run and the tiled run's tiles/s."""
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+    from caesar_yolo_tpu_torch.models.convert import save_params
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.utils.synth import write_mosaic_fits
+    from caesar_yolo_tpu_torch.utils.tiling import generate_tiles
+
+    image = os.path.join(tmp, "mosaic.fits")
+    write_mosaic_fits(image, nx=MOSAIC_SIZE, ny=MOSAIC_SIZE, n_sources=400,
+                      seed=0, blank_border=16)
+    weights = save_params(init_weights(build_model("yolo11l"), seed=0),
+                          os.path.join(tmp, "yolo11l_seed0.npz"),
+                          meta={"model": "yolo11l", "num_classes": 5})
+    common = [f"--image={image}", f"--weights={weights}", "--preprocessing",
+              "--subtract_bkg", "--chan3_preproc", "--sigma_clip_baseline=0",
+              "--sigma_clip_low=1", "--sigma_clip_up=20",
+              "--normalize_minmax", "--norm_min=0", "--norm_max=255",
+              f"--scoreThr={MOSAIC_SCORE_THR}"]
+    runs = {
+        "tiled": ["--split_img_in_tiles", f"--tile_xsize={MOSAIC_TILE}",
+                  f"--tile_ysize={MOSAIC_TILE}", "--tile_xstep=0.5",
+                  "--tile_ystep=0.5", "--max_ntasks_per_worker=1000",
+                  f"--batch_size={MAIN_BATCH}"],
+        "serial": ["--xmin=0", "--xmax=639", "--ymin=0", "--ymax=639"]}
+    grid = generate_tiles(0, MOSAIC_SIZE - 1, 0, MOSAIC_SIZE - 1,
+                          MOSAIC_TILE, MOSAIC_TILE, 0.5, 0.5)
+    shapes = Counter((x1 - x0, y1 - y0) for x0, x1, y0, y1 in grid)
+    batches = sum(-(-n // MAIN_BATCH) for n in shapes.values())
+    log(f"mosaic grid: {len(grid)} tiles in shapes {dict(shapes)}, "
+        f"{batches} batches of {MAIN_BATCH}")
+    launches, tps = {}, None
+    for name, flags in runs.items():
+        out_json = os.path.join(tmp, f"{name}.json")
+        out_reg = os.path.join(tmp, f"{name}.reg")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc, sf = cli_run.run([*common, *flags,
+                              f"--detect_outfile_json={out_json}",
+                              f"--detect_outfile={out_reg}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {k: c.launches for k, c in counters.items()}
+        require(rc == 0, f"mosaic {name} run failed")
+        forwards = batches if name == "tiled" else 1
+        expect = {k: n * forwards for k, n in PER_FORWARD.items()}
+        log(f"mosaic {name} launches: {launches[name]} (expected {expect} "
+            f"over {forwards} forward passes, none of K3)")
+        require(all(launches[name][k] == n for k, n in expect.items())
+                and launches[name]["preproc"] == 0,
+                f"mosaic {name} run did not launch the kernels as expected")
+        with open(out_json) as f:
+            cat = json.load(f)
+        objs = cat["sources"] if name == "tiled" else cat["objs"]
+        with open(out_reg) as f:
+            regions = f.read().splitlines()
+        require(len(objs) > 0, f"mosaic {name}: empty catalog")
+        require(len(regions) == 2 + len(objs), f"mosaic {name}: DS9 file")
+        boxes = catalog_arrays(objs)[0]
+        limit = MOSAIC_SIZE if name == "tiled" else 640
+        require(np.isfinite(boxes).all() and (boxes >= 0).all()
+                and (boxes <= limit).all(), f"mosaic {name}: boxes")
+        if name == "tiled":
+            rep = sf.report
+            require(rep.n_tiles == len(grid) and not rep.tile_errors,
+                    f"mosaic tiles {rep.n_tiles}, errors {rep.tile_errors}")
+            tps = rep.n_tiles / wall
+            log(f"mosaic tiled: {rep.n_tiles} tiles in {wall:.3f} s end to "
+                f"end = {tps:.2f} tiles/s (yolo11l@640 bf16, batch "
+                f"{MAIN_BATCH}, bkg + chan3 + min-max); {len(objs)} stitched "
+                f"sources ({sum(o['merged'] for o in objs)} merged)")
+            log(f"mosaic tiled phase_times: {rep.phase_times}; worker read "
+                f"{rep.read_s:.3f} s, staging {rep.h2d_put_s:.3f} s, main "
+                f"thread draining {rep.drain_s:.3f} s")
+        else:
+            log(f"mosaic serial: 640x640 crop in {wall:.3f} s, "
+                f"{len(objs)} objects")
+    return launches, tps
+
+
 def phase_timing(torch, mods, inputs, engine, batches):
     """Kernel, plain and library times at the main path's shapes, bounds
     from this run's inputs, and the main path's tiles/s."""
     import torch.nn.functional as F
 
-    cuda_nms, cuda_attn, cuda_preproc = mods
+    cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq = mods
     rows = {}
 
     boxes_t, valid = inputs["nms"]
@@ -370,6 +587,23 @@ def phase_timing(torch, mods, inputs, engine, batches):
         library_ms=None,
         bound=bound_ms(nbytes, 12 * x.numel(), "float32"))
 
+    from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
+    from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
+    x = inputs["stats"]
+    sig = MOSAIC_SIGMAS[0]
+    rows["stats"] = dict(
+        ms=time_ms(torch, lambda: cuda_stats.clip_stats(x, *sig)),
+        plain_ms=time_ms(torch, lambda: clip_stats_plain(x, None, *sig),
+                         iters=5),
+        library_ms=None,
+        bound=bound_ms(x.numel() * 4, 0, "float32"))
+    x = inputs["histeq"]
+    rows["histeq"] = dict(
+        ms=time_ms(torch, lambda: cuda_histeq.equalize_hist_batch(x)),
+        plain_ms=time_ms(torch, lambda: equalize_hist(x), iters=5),
+        library_ms=None,
+        bound=bound_ms(2 * x.numel() * 4, 0, "float32"))
+
     staged = [engine.put_tiles(bt) for bt in batches]
     engine.process_async(staged[0])
     torch.cuda.synchronize()
@@ -395,6 +629,10 @@ KERNELS = {
              "caesar_yolo_tpu/models/pallas_attn.py:132"),
     "preproc": ("zscale_minmax", "caesar_yolo_tpu_torch/csrc/preproc.cu",
                 "caesar_yolo_tpu/ops/pallas_preproc.py:72"),
+    "stats": ("clip_stats", "caesar_yolo_tpu_torch/csrc/stats.cu",
+              "caesar_yolo_tpu/ops/pallas_stats.py:146"),
+    "histeq": ("equalize_hist_batch", "caesar_yolo_tpu_torch/csrc/histeq.cu",
+               "caesar_yolo_tpu/ops/pallas_histeq.py:133"),
 }
 
 
@@ -425,26 +663,36 @@ def main() -> int:
         from caesar_yolo_tpu_torch import cuda_build
         from caesar_yolo_tpu_torch.detect import cuda_nms
         from caesar_yolo_tpu_torch.models import cuda_attn
-        from caesar_yolo_tpu_torch.ops import cuda_preproc
+        from caesar_yolo_tpu_torch.ops import (cuda_histeq, cuda_preproc,
+                                               cuda_stats)
 
         t0 = time.perf_counter()
         cuda_build.build()
         log(f"build: {sorted(cuda_build.SOURCES)} in "
             f"{time.perf_counter() - t0:.1f} s")
-        mods = (cuda_nms, cuda_attn, cuda_preproc)
+        mods = (cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq)
         counters = {"nms": cuda_nms.nms_suppress,
                     "attn": cuda_attn.attention,
-                    "preproc": cuda_preproc.zscale_minmax}
+                    "preproc": cuda_preproc.zscale_minmax,
+                    "stats": cuda_stats.clip_stats,
+                    "histeq": cuda_histeq.equalize_hist_batch}
 
         errs, inputs = phase_parity(torch)
         phase_golden(torch)
-        engine, batches, launches = phase_main(torch, counters)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_golden_mosaic(torch, tmp)
+            engine, batches, launches = phase_main(torch, counters)
+            mosaic_launches, _ = phase_mosaic(torch, counters, tmp)
         rows = phase_timing(torch, mods, inputs, engine, batches)
     except Exception:  # report every failure before exiting non-zero
         traceback.print_exc()
         log("FAIL")
         return 1
 
+    # each kernel's launches on the path that runs it: K3 on the README
+    # main path, the others on the mosaic CLI path's tiled run
+    launches = {k: (launches[k] if k == "preproc"
+                    else mosaic_launches["tiled"][k]) for k in KERNELS}
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         r = rows[key]

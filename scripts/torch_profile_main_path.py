@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the device time of the PyTorch port's main path goes.
+"""Where the device time of the PyTorch port's main paths goes.
 
 Runs the chip_smoke.py main path (yolo11l at 640 px, bf16, seeded
-weights, README preprocessing, batches of 32 synthetic tiles) on one
-CUDA card under torch.profiler and prints:
+weights, README preprocessing, batches of 32 synthetic 640 px tiles) or,
+with --path=mosaic, the tile engine of its mosaic phase (batches of 32
+synthetic 512 px tiles, background subtraction + chan3 + min-max to
+[0, 255]) on one CUDA card under torch.profiler and prints:
   - the card's name and power limit;
   - wall time per batch, device-busy time per batch and the device's
     idle share over the profiled window;
@@ -13,7 +15,8 @@ CUDA card under torch.profiler and prints:
     the engine uses on CUDA) and in plain NCHW memory, alternating
     A B B A, by CUDA events.
 
-Run from the repository root:  python3 scripts/torch_profile_main_path.py
+Run from the repository root:
+    python3 scripts/torch_profile_main_path.py [--path=main|mosaic]
 """
 
 from __future__ import annotations
@@ -28,25 +31,35 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 BATCH, BATCHES, SIZE = 32, 4, 640
+MOSAIC_TILE = 512
 PORT_KERNELS = ("nms_suppress_kernel", "attn_fwd_kernel", "zlims_init_kernel",
-                "reduce_kernel", "apply_kernel")
+                "reduce_kernel", "apply_kernel", "minmax_kernel",
+                "hist_kernel", "init_kernel")
 LIBRARY_MARKS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "sm90_",
                  "implicit", "winograd", "fprop", "nhwc")
 
 
 def category(name: str) -> str:
     low = name.lower()
+    if "clip_stats_kernel" in name:
+        return "port kernel K5 (sigma-clip stats)"
     if any(k in name for k in PORT_KERNELS):
-        return "port kernels (K1-K3)"
+        return "port kernels (K1-K3, K6)"
     if any(k in low for k in LIBRARY_MARKS):
         return "convolution / GEMM (cuDNN, cuBLAS)"
     return "other PyTorch kernels"
 
 
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--path", choices=["main", "mosaic"], default="main")
+    mosaic = parser.parse_args().path == "mosaic"
 
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
@@ -60,12 +73,19 @@ def main() -> int:
     from caesar_yolo_tpu_torch.parallel.engine import TileEngine
     from caesar_yolo_tpu_torch.utils.synth import make_mosaic
 
-    engine = TileEngine(
-        init_weights(build_model("yolo11l"), seed=0),
-        preprocessor=build_preprocessor(zscale_stretch=True,
-                                        normalize_minmax=True),
-        img_size=SIZE, score_thr=1e-3, iou_thr=0.5)
-    tiles = np.stack([make_mosaic(SIZE, SIZE, n_sources=25, seed=1000 + i)[0]
+    if mosaic:
+        pre = build_preprocessor(subtract_bkg=True, chan3_preproc=True,
+                                 sigma_clip_baseline=0.0, sigma_clip_low=1.0,
+                                 sigma_clip_up=20.0, normalize_minmax=True,
+                                 norm_max=255.0)
+        tile = MOSAIC_TILE
+    else:
+        pre = build_preprocessor(zscale_stretch=True, normalize_minmax=True)
+        tile = SIZE
+    engine = TileEngine(init_weights(build_model("yolo11l"), seed=0),
+                        preprocessor=pre, img_size=SIZE, score_thr=1e-3,
+                        iou_thr=0.5)
+    tiles = np.stack([make_mosaic(tile, tile, n_sources=25, seed=1000 + i)[0]
                       for i in range(BATCH)])[..., None]
     staged = engine.put_tiles(tiles)
     for _ in range(2):
@@ -90,7 +110,8 @@ def main() -> int:
         print("FAIL: the profiler recorded no device time")
         return 1
     wall_ms = wall * 1e3
-    print(f"main path yolo11l@{SIZE} bf16 batch {BATCH}: wall "
+    print(f"{'mosaic' if mosaic else 'main'} path ({tile} px tiles) "
+          f"yolo11l@{SIZE} bf16 batch {BATCH}: wall "
           f"{wall_ms / BATCHES:.3f} ms/batch, device busy "
           f"{busy / BATCHES:.3f} ms/batch, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.3f} (profiler on)")
@@ -103,6 +124,8 @@ def main() -> int:
     print("top kernels by device time:")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms / BATCHES:8.3f} ms/batch {ms / busy:6.1%}  {name[:110]}")
+    if mosaic:
+        return 0
 
     x = torch.rand(BATCH, 3, SIZE, SIZE, device="cuda",
                    generator=torch.Generator(device="cuda").manual_seed(0))

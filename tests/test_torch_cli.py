@@ -1,0 +1,133 @@
+"""The port's detection CLI: the JAX CLI's flags and defaults, a tiled and
+a serial run on the CPU writing the port SFinder's catalog and DS9 file,
+the unported flags refused, and CUDA by default."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from caesar_yolo_tpu.cli.run import parse_args as jax_parse_args
+from caesar_yolo_tpu_torch.cli.preproc_args import build_preprocessor_from_args
+from caesar_yolo_tpu_torch.cli.run import main, parse_args
+from caesar_yolo_tpu_torch.models.convert import load_model
+from caesar_yolo_tpu_torch.parallel.sfinder import SFinder, SFinderConfig
+from caesar_yolo_tpu_torch.utils.fits import write_fits
+
+torch.set_num_threads(1)
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
+WEIGHTS = os.path.join(FIXTURES, "yolov8n_synth96.npz")
+PREPROC_FLAGS = ["--preprocessing", "--subtract_bkg", "--chan3_preproc",
+                 "-sigma_clip_baseline=0", "-sigma_clip_low=1",
+                 "--sigma_clip_up=20", "--normalize_minmax", "--norm_min=0",
+                 "--norm_max=1"]
+TILE_FLAGS = ["--split_img_in_tiles", "--tile_xsize=96", "--tile_ysize=96",
+              "--tile_xstep=0.75", "--tile_ystep=0.75", "--batch_size=4",
+              "--max_ntasks_per_worker=1000"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--weights=w.npz"],
+    ["--weights=w.npz", "--image=m.fits", *PREPROC_FLAGS, *TILE_FLAGS,
+     "--scoreThr=0.25", "--imgsize=96", "--relay_bf16", "--multigpu"],
+    ["--weights", "w.npz", "--zscale_stretch", "--zscale_contrasts=0.2,0.3",
+     "-nchannels", "3", "-bkg_chid", "1", "--use_box_mask_in_bkg",
+     "-bkg_box_mask_fract=0.5", "--clip_shift_data", "-sigma_clip=2",
+     "--clip_data", "-clip_chid=0", "-sigma_bkg", "2.5", "--xmin=1",
+     "--xmax=50", "--ymin=2", "--ymax=60", "--detect_outfile=a.reg",
+     "--detect_outfile_json=a.json", "--save_tile_catalog",
+     "--devices=cpu", "--pre_nms=1024", "--iouThr=0.4"],
+])
+def test_parse_args_matches_jax(argv):
+    got, ref = vars(parse_args(argv)), vars(jax_parse_args(argv))
+    assert got == ref
+
+
+def _mosaic(tmp_path):
+    """The golden mosaic (tests/test_torch_sfinder.py) as a FITS file."""
+    with np.load(os.path.join(FIXTURES,
+                              "torch_port_golden_mosaic_v8n96.npz")) as f:
+        mosaic = f["mosaic"]
+    path = str(tmp_path / "mosaic.fits")
+    write_fits(mosaic, path)
+    return path
+
+
+@pytest.mark.parametrize("tiled", [True, False], ids=["tiled", "serial"])
+def test_main_writes_the_sfinder_catalog(tmp_path, tiled):
+    """`main --devices=cpu` writes the JSON catalog and DS9 file that the
+    port's SFinder writes for the same configuration."""
+    path = _mosaic(tmp_path)
+    out = {k: str(tmp_path / f"cli.{k}") for k in ("json", "reg")}
+    argv = [f"--image={path}", f"--weights={WEIGHTS}", "--imgsize=96",
+            "--scoreThr=0.3", "--devices=cpu", *PREPROC_FLAGS,
+            f"--detect_outfile_json={out['json']}",
+            f"--detect_outfile={out['reg']}"]
+    if tiled:
+        argv += TILE_FLAGS
+    assert main(argv) == 0
+
+    cfg = SFinderConfig(
+        image_path=path, image_xmin=-1, image_xmax=-1, image_ymin=-1,
+        image_ymax=-1, img_size=96, score_thr=0.3,
+        split_image_in_tiles=tiled, tile_xsize=96, tile_ysize=96,
+        tile_xstep=0.75, tile_ystep=0.75, batch_size=4,
+        max_ntasks_per_worker=1000,
+        outfile_json=str(tmp_path / "sf.json"),
+        outfile_ds9=str(tmp_path / "sf.reg"))
+    sf = SFinder(load_model(WEIGHTS)[0], cfg, device="cpu",
+                 preprocessor=build_preprocessor_from_args(
+                     parse_args(["--weights=w", *PREPROC_FLAGS])))
+    assert (sf.run_tiled() if tiled else sf.run()) == 0
+    for k in ("json", "reg"):
+        got = open(out[k]).read()
+        assert got == open(str(tmp_path / f"sf.{k}")).read()
+    assert len(sf.sources["sources"]) >= 3
+    assert open(out["reg"]).read().count("\n") == 2 + len(
+        sf.sources["sources"])
+
+
+def test_max_ntasks_guard(tmp_path):
+    """More tiles than --max_ntasks_per_worker on the one device: the
+    reference's guard refuses the run (exit code 1, no catalog)."""
+    out = tmp_path / "c.json"
+    assert main([f"--image={_mosaic(tmp_path)}", f"--weights={WEIGHTS}",
+                 "--imgsize=96", "--devices=cpu", *TILE_FLAGS[:-1],
+                 "--max_ntasks_per_worker=8",
+                 f"--detect_outfile_json={out}"]) == 1
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("flag", [
+    "--datalist=list.txt", "--int8", "--draw_plots", "--save_plots",
+    "--resume", "--spool_path=s.jsonl", "--profile_dir=prof",
+    "--preproc_context=global", "--device_tiling=on", "--save_tile_img",
+    ".pt"])
+def test_unported_flags_raise(tmp_path, flag):
+    path = _mosaic(tmp_path)
+    weights = WEIGHTS
+    argv = [f"--image={path}", "--devices=cpu", "--imgsize=96"]
+    if flag == ".pt":
+        weights = str(tmp_path / "w.pt")
+        open(weights, "w").close()
+    else:
+        argv.append(flag)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main([*argv, f"--weights={weights}"])
+
+
+def test_main_needs_cuda_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device is usable")
+    path = _mosaic(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([f"--image={path}", f"--weights={WEIGHTS}", "--imgsize=96"])
+    assert main([f"--image={path}", f"--weights={WEIGHTS}", "--imgsize=96",
+                 "--devices=cpu", "--scoreThr=0.3",
+                 f"--detect_outfile_json={tmp_path / 'o.json'}",
+                 f"--detect_outfile={tmp_path / 'o.reg'}"]) == 0
+    assert json.loads((tmp_path / "o.json").read_text())["objs"]

@@ -11,7 +11,9 @@ import torch
 
 from caesar_yolo_tpu_torch.detect import cuda_nms
 from caesar_yolo_tpu_torch.models import cuda_attn
-from caesar_yolo_tpu_torch.ops import cuda_preproc
+from caesar_yolo_tpu_torch.ops import cuda_histeq, cuda_preproc, cuda_stats
+from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
+from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
 from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
 
 pytestmark = pytest.mark.cuda
@@ -90,3 +92,51 @@ def test_zscale_minmax_kernel_matches_plain(dev):
     ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims, -1.0, 2.0)
     assert torch.equal(zl, rzl)
     assert (out - ref).abs().max().item() <= 1e-6
+
+
+def _edge_planes(dev, p, h, w, seed):
+    """Noise planes with the edge cases of the clip statistics: all zero,
+    NaN-blanked pixels, constant, a bright source, heavy duplicates."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (p, h, w)).astype(np.float32)
+    x[0] = 0.0
+    x[1, : h // 4] = np.nan
+    x[2] = 3.0
+    x[3, h // 2:h // 2 + 8, w // 2:w // 2 + 8] += 500.0
+    x[4, : h // 2] = 0.25
+    x[:, :2, :] = 0.0
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("sigmas", [(3.0, 3.0), (0.0, 20.0), (1.0, 20.0)])
+@pytest.mark.parametrize("shape", [(32, 512, 512), (6, 96, 100),
+                                   (5, 33, 47)])
+def test_sigma_clip_kernel_matches_plain(dev, shape, sigmas):
+    """By cuda_stats.stats_mismatch: n_valid equal, medians exact where
+    the kept sets agree, the rest within 1e-5 of the plane's scale."""
+    x = _edge_planes(dev, *shape, seed=shape[1])
+    got = cuda_stats.clip_stats(x, *sigmas)
+    torch.cuda.synchronize()
+    ref = clip_stats_plain(x, None, *sigmas)
+    assert cuda_stats.stats_mismatch(got, ref) is None
+    assert int(got[1][0, 0]) == 0 and bool(got[0][0].isnan().all())
+
+
+def test_sigma_clip_kernel_rejects_what_it_cannot_take(dev):
+    x = torch.randn(2, 16, 16, device=dev)
+    with pytest.raises(ValueError):
+        cuda_stats.clip_stats(x, 3.0, 3.0, mask=x != 0)
+    with pytest.raises(ValueError):
+        cuda_stats.clip_stats(x.double(), 3.0, 3.0)
+
+
+@pytest.mark.parametrize("shape", [(32, 512, 512), (6, 96, 100),
+                                   (5, 33, 47)])
+def test_histeq_kernel_bit_equal(dev, shape):
+    x = _edge_planes(dev, *shape, seed=shape[2])
+    got = cuda_histeq.equalize_hist_batch(x)
+    torch.cuda.synchronize()
+    ref = equalize_hist(x)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert bool(got[1].isnan().all())            # a NaN poisons its plane
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())

@@ -20,13 +20,15 @@ from caesar_yolo_tpu.models.convert import load_params
 from caesar_yolo_tpu.models.yolo import build_model as jax_build_model
 from caesar_yolo_tpu.ops import build_preprocessor as jax_build_preprocessor
 from caesar_yolo_tpu.parallel.engine import TileEngine as JaxTileEngine
+from caesar_yolo_tpu_torch.cli.run import main as cli_main
 from caesar_yolo_tpu_torch.detect.analyzer import Analyzer, AnalyzerOutputs
 from caesar_yolo_tpu_torch.detect.predictor import Predictor
 from caesar_yolo_tpu_torch.models.convert import load_model
 from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
 from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+from caesar_yolo_tpu_torch.parallel.sfinder import SFinder, SFinderConfig
 from caesar_yolo_tpu_torch.utils.boxes import catalog_mismatch, iou_matrix_np
-from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+from caesar_yolo_tpu_torch.utils.synth import make_mosaic, write_mosaic_fits
 
 torch.set_num_threads(1)
 
@@ -175,7 +177,7 @@ def test_analyzer_skips_degenerate_image(models):
     assert analyzer.results == {"image_id": "z", "objs": []}
 
 
-def test_entry_points_default_to_cuda(models):
+def test_entry_points_default_to_cuda(models, tmp_path):
     """Without a device argument an entry point runs on CUDA, and raises on
     a host without it instead of carrying on on the CPU."""
     _, _, tm = models
@@ -185,6 +187,14 @@ def test_entry_points_default_to_cuda(models):
         TileEngine(tm, **KW)
     with pytest.raises(RuntimeError, match="CUDA"):
         Predictor(tm, **KW)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SFinder(tm, SFinderConfig(image_path="m.fits"))
+    image = str(tmp_path / "m.fits")
+    write_mosaic_fits(image, nx=96, ny=96, n_sources=2)
+    for tiles in ([], ["--split_img_in_tiles", "--tile_xsize=96",
+                       "--tile_ysize=96"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main([f"--image={image}", f"--weights={WEIGHTS}", *tiles])
 
 
 def test_port_imports_no_jax():
@@ -201,7 +211,10 @@ bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
        or m.startswith("jax.") or m.startswith("jaxlib")
        or m == "caesar_yolo_tpu" or m.startswith("caesar_yolo_tpu.")]
 assert not bad, bad
-assert len(names) >= 20, names
+need = {"parallel.sfinder", "parallel.stitch", "cli.run", "cli.preproc_args",
+        "ops.stats", "ops.cuda_stats", "ops.histeq", "ops.cuda_histeq",
+        "utils.fits", "utils.tiling"}
+assert {pkg.__name__ + "." + n for n in need} <= set(names), names
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -215,8 +228,9 @@ print(len(names))
 
 def test_kernel_build_command(monkeypatch, tmp_path):
     """Each CUDA source builds for sm_90a into its own library whose name
-    follows the source and flags; NMS and preprocessing keep FMA
-    contraction off (their outputs must equal the plain versions)."""
+    follows the source and flags; NMS, preprocessing, the clip statistics
+    and histogram equalisation keep FMA contraction off (their outputs
+    must equal the plain versions)."""
     from caesar_yolo_tpu_torch import cuda_build
 
     monkeypatch.setattr(cuda_build.shutil, "which", lambda _: "/bin/true")
@@ -224,7 +238,9 @@ def test_kernel_build_command(monkeypatch, tmp_path):
         cmd = cuda_build._command(name, str(tmp_path / "lib.so"))
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert cmd[-1].endswith(os.path.join("csrc", f"{name}.cu"))
-        assert ("-fmad=false" in cmd) == (name in ("nms", "preproc"))
+        assert ("-fmad=false" in cmd) == (
+            name in ("nms", "preproc", "stats", "histeq"))
+    assert {"stats", "histeq"} <= set(cuda_build.SOURCES)
     path = cuda_build.library_path("nms")
     monkeypatch.setitem(cuda_build.SOURCES, "nms", [])
     assert cuda_build.library_path("nms") != path

@@ -118,6 +118,90 @@ def test_gray_preprocessed_once_equals_repeat_first():
     assert ok_once.tolist() == [True, False, False, False, True, True]
 
 
-def test_unported_stages_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_preprocessor(subtract_bkg=True)
+# The stages of the full chain (bkg, clips, chan3) against the reference's
+# Pipeline.apply_batch (its .batch paths, i.e. the Pallas K5/K6 kernels in
+# interpret mode).  Their statistics are f32 sums in another order, so a
+# background level or clip bound may move by f32 rounding; a pixel next to
+# a histogram bin edge can then change bin.  Rule: valid flags equal, and
+# at most 0.2% of the outputs further than ATOL (scaled to the output
+# range) from the reference.
+STAGE_CASES = {
+    "bkg": dict(subtract_bkg=True),
+    "bkg_box": dict(subtract_bkg=True, use_box_mask_in_bkg=True,
+                    bkg_box_mask_fract=0.5),
+    "bkg_chid": dict(subtract_bkg=True, bkg_chid=1),
+    "clip_shift": dict(clip_shift_data=True, sigma_clip=1.5),
+    "clip": dict(clip_data=True, sigma_clip_low=2.0, sigma_clip_up=3.0),
+    "clip_chid": dict(clip_data=True, clip_chid=0, sigma_clip_low=1.0),
+    "chan3": dict(chan3_preproc=True),
+    "bkg_chan3_minmax": dict(subtract_bkg=True, chan3_preproc=True,
+                             sigma_clip_low=1.0, sigma_clip_up=20.0,
+                             normalize_minmax=True, norm_max=255.0),
+    "nchannels3": dict(nchannels=3, zscale_stretch=True,
+                       normalize_minmax=True),
+}
+
+
+def _stage_tiles(seed, c):
+    """_tiles with a brighter source (so clipping bites) and NaNs on
+    source pixels of tile 2, which the chan3 chain without bkg keeps
+    until the clip and hist-eq stages."""
+    t = _tiles(seed, c=c)
+    yy, xx = np.mgrid[0:48, 0:48]
+    t += (60.0 * np.exp(-((xx - 30) ** 2 + (yy - 12) ** 2) / 8.0)
+          ).astype(np.float32)[None, :, :, None]
+    t[2, 28:31, 18:22] = np.nan
+    t[1] = 0.0
+    t[3] = 2.5
+    return t
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_stages_match_jax_apply_batch(case, c):
+    kw = STAGE_CASES[case]
+    t = _stage_tiles(20 + c, c)
+    if c == 3:
+        t[..., 1] *= 3.0
+    ref, rvalid = jax_build_preprocessor(**kw).apply_batch(jnp.asarray(t))
+    pipe = build_preprocessor(**kw)
+    out, valid = pipe.apply_batch(torch.from_numpy(t))
+    ref = np.asarray(ref)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(rvalid))
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(np.isnan(out.numpy()), np.isnan(ref))
+    scale = max(1.0, float(np.nanmax(np.abs(ref))))
+    diff = np.abs(np.nan_to_num(out.numpy()) - np.nan_to_num(ref))
+    assert (diff > ATOL * scale).mean() <= 2e-3, (case, diff.max())
+
+
+@pytest.mark.parametrize("case", ["bkg_chan3_minmax", "bkg", "chan3"])
+def test_full_chain_gray_once_equals_repeat_first(case):
+    """Gray tiles run the chain on their one plane (the chan3 stage makes
+    the three channels); bit-identical to repeating to 3 channels first,
+    as the reference does."""
+    t = torch.from_numpy(_stage_tiles(7, 1))
+    pipe = build_preprocessor(**STAGE_CASES[case])
+    assert pipe.channel_uniform
+    once, ok_once = prepare_tiles(t, pipe, 3)
+    first, ok_first = prepare_tiles(t.expand(-1, -1, -1, 3).contiguous(),
+                                    pipe, 3)
+    assert torch.equal(once.nan_to_num(), first.nan_to_num())
+    assert torch.equal(ok_once, ok_first)
+    assert not build_preprocessor(**STAGE_CASES["bkg_chid"]).channel_uniform
+
+
+def test_unported_stages_raise(tmp_path):
+    """Every preprocessing flag now builds its stage; what is still
+    unported raises at the CLI, naming the ROADMAP."""
+    from caesar_yolo_tpu_torch.cli.run import main
+
+    pipe = build_preprocessor(subtract_bkg=True, clip_shift_data=True,
+                              clip_data=True, nchannels=3,
+                              zscale_stretch=True, chan3_preproc=True,
+                              normalize_minmax=True)
+    assert len(pipe.stages) == 7
+    for flag in ("--int8", "--datalist=l.txt", "--draw_plots", "--save_plots"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main([f"--image={tmp_path / 'x.fits'}", "--weights=w.npz",
+                  "--devices=cpu", flag])
