@@ -10,16 +10,19 @@ Package layout (bottom-up), named after the reference's modules:
              device selection
   ops/       zscale, sigma-clipped statistics (kernel K5), histogram
              equalisation (kernel K6), the preprocessing stages and the
-             README chain (kernel K3)
-  models/    YOLOv8 / YOLO11 as nn.Modules, attention (kernel K2),
-             npz weights to and from the reference's format
+             README chain (kernel K3), 2x upsample (kernel K4), the
+             augmentation's row shift (kernel K8)
+  models/    YOLOv8 / YOLO11 as nn.Modules (inference and train mode),
+             attention and its gradient (kernel K2), npz weights to and
+             from the reference's format
   detect/    letterbox, fixed-shape NMS (kernel K1), predictor, merge,
              analyzer
   parallel/  the batched tile engine and the mosaic source finder on one
              GPU, edge flags and stitch
   outputs/   JSON catalog and DS9 region writers
-  cli/       the detection command line (`python -m
-             caesar_yolo_tpu_torch.cli.run`)
+  train/     detection loss and assigner, augmentation, dataset, trainer
+  cli/       the detection and training command lines (`python -m
+             caesar_yolo_tpu_torch.cli.run`, `... .cli.train`)
 
 Entry points run on CUDA unless the caller passes device="cpu" (the CLI:
 --devices=cpu).

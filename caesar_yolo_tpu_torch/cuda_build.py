@@ -23,16 +23,20 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.normpath(
     os.path.join(os.path.dirname(CSRC), os.pardir, "build", "kernels"))
 
-# Per-source flags.  NMS, the zscale chain, the clip statistics and the
-# histogram equalisation must be bit-identical to their plain versions
-# (clip bounds med +- sigma*std, bin positions (x - vmin) / span * 256),
-# so FMA contraction is off there.
+# Per-source flags.  NMS, the zscale chain, the clip statistics, the
+# histogram equalisation and the row shift must be bit-identical to their
+# plain versions (clip bounds med +- sigma*std, bin positions
+# (x - vmin) / span * 256, the shear lerp), so FMA contraction is off
+# there.  The upsample only moves data and sums in a fixed order.
 SOURCES = {
     "nms": ["-fmad=false"],
     "attn": [],
+    "attn_bwd": [],
     "preproc": ["-fmad=false"],
     "stats": ["-fmad=false"],
     "histeq": ["-fmad=false"],
+    "upsample": [],
+    "shift": ["-fmad=false"],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -80,8 +80,17 @@ def params_from_state(state: dict) -> dict:
         arr = value.detach().cpu().float().numpy()
         if arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)
-        flat[key.replace(".", "/")] = np.ascontiguousarray(arr)
+        # a copy: .numpy() of a CPU tensor shares its memory
+        flat[key.replace(".", "/")] = np.array(arr, order="C")
     return _unflatten(flat)
+
+
+def flat_params(state: dict) -> dict[str, np.ndarray]:
+    """The port's state_dict (or a dict of the same keys, such as the
+    trainer's EMA) -> {the reference's param path ('head/box/0/2/w',
+    '.../bn/gamma'): f32 array in the reference's layout}, for comparing
+    parameter trees leaf by leaf."""
+    return dict(_flatten(params_from_state(state)))
 
 
 def save_params(model: YOLO, path: str, meta: dict | None = None) -> str:
@@ -91,7 +100,7 @@ def save_params(model: YOLO, path: str, meta: dict | None = None) -> str:
     path written (".npz" appended when absent, as np.savez does)."""
     if not path.endswith(".npz"):
         path = path + ".npz"
-    flat = dict(_flatten(params_from_state(model.state_dict())))
+    flat = flat_params(model.state_dict())
     flat["__meta__"] = np.frombuffer(
         json.dumps(meta or {}).encode(), dtype=np.uint8)
     np.savez(path, **flat)

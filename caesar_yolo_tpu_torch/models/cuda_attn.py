@@ -11,7 +11,12 @@ On a CUDA tensor it launches the hand-written kernel in
 csrc/attn.cu (one block per tile of query rows, the score rows kept in
 shared memory; see the source for its design and bound).  On a CPU
 tensor it runs `attention_plain`, the same function in PyTorch.
-Backward (training through C2PSA) is not ported yet.
+
+`fused_attention` is the differentiable form the model calls: an
+autograd Function whose forward is `attention` and whose backward is
+`attention_backward`, the kernel in csrc/attn_bwd.cu on CUDA and, on the
+CPU, autograd through `attention_plain` -- the reference's custom VJP,
+which recomputes through `_attention_ref` (pallas_attn.py:106-128).
 """
 
 from __future__ import annotations
@@ -40,6 +45,17 @@ KERNEL_MAX_HD = 256
 BF16_ATOL = 4e-3
 BF16_MAX_CHANGED_SHARE = 1e-2
 
+# bf16 parity rule of the backward kernel against `attention_backward_plain`
+# (per gradient).  dP is rounded to bf16 after an f32 sum, and the kernel
+# sums in another order than PyTorch's matmul, so some dP elements round
+# to the neighbouring bf16 value; each such flip moves dS by p * ulp(dP)
+# and reaches the dq and dk elements of its row or column.  So a gradient
+# may differ by one bf16 ulp of its largest magnitude (2^-8 of max |ref|)
+# on a small share of its elements (on the H100 at [16,4,400,32/64]: at
+# most 0.07% changed, max 2^-9).
+BWD_BF16_REL_ATOL = 2 ** -8
+BWD_BF16_MAX_CHANGED_SHARE = 1e-2
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,6 +74,21 @@ def bf16_mismatch(got: torch.Tensor, ref: torch.Tensor) -> str | None:
     if err > BF16_ATOL or share > BF16_MAX_CHANGED_SHARE:
         return (f"max abs err {err:.3g} (limit {BF16_ATOL}), changed share "
                 f"{share:.3g} (limit {BF16_MAX_CHANGED_SHARE})")
+    return None
+
+
+def bwd_bf16_mismatch(got, ref) -> str | None:
+    """None when the bf16 gradients `got` (dq, dk, dv) agree with `ref` by
+    the backward's bf16 parity rule, else what differs."""
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        diff = (g.float() - r.float()).abs()
+        limit = BWD_BF16_REL_ATOL * r.float().abs().max().item()
+        err = diff.max().item()
+        share = (diff > 0).float().mean().item()
+        if err > limit or share > BWD_BF16_MAX_CHANGED_SHARE:
+            return (f"{name}: max abs err {err:.3g} (limit {limit:.3g}), "
+                    f"changed share {share:.3g} (limit "
+                    f"{BWD_BF16_MAX_CHANGED_SHARE})")
     return None
 
 
@@ -107,3 +138,71 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 attention.launches = 0
+
+
+def attention_backward_plain(q, k, v, g, scale):
+    """(dq, dk, dv) of `attention_plain` for the output cotangent g, by
+    autograd through it: the reference's VJP, which differentiates
+    `_attention_ref` (pallas_attn.py:121-125), with the same rounding
+    points (dP and dv rounded to the compute dtype)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_plain(*leaves, scale)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def attention_backward(q, k, v, g, scale):
+    """(dq, dk, dv) of softmax(q k^T * scale) v for the output cotangent g
+    [B, H, N, hd].  CUDA tensors launch the kernel of csrc/attn_bwd.cu
+    (and raise on what it does not take); CPU tensors take
+    `attention_backward_plain`."""
+    if not q.is_cuda:
+        return attention_backward_plain(q, k, v, g, scale)
+    b, h, n, kd = q.shape
+    hd = v.shape[-1]
+    if (k.shape != q.shape or v.shape[:3] != q.shape[:3]
+            or g.shape != v.shape
+            or not (q.dtype == k.dtype == v.dtype == g.dtype)
+            or q.dtype not in _DTYPE_CODES or not fused_gate(n)
+            or kd not in KERNEL_KD or not 1 <= hd <= KERNEL_MAX_HD):
+        raise ValueError(
+            f"attention backward kernel does not take q{tuple(q.shape)} "
+            f"v{tuple(v.shape)} dO{tuple(g.shape)} {q.dtype}/{g.dtype}")
+    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ds = torch.empty((b, h, n, n), dtype=torch.float32, device=q.device)
+    pc = torch.empty_like(ds)
+    fn = cuda_build.load("attn_bwd").cy_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    attention_backward.launches += 1
+    cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), ds.data_ptr(), pc.data_ptr(), b, h, n,
+                        kd, hd, _DTYPE_CODES[q.dtype], float(scale),
+                        cuda_build.stream_ptr(q.device)),
+                     "attention backward kernel")
+    return dq, dk, dv
+
+
+attention_backward.launches = 0
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return attention(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, g, ctx.scale), None)
+
+
+def fused_attention(q, k, v, scale):
+    """Differentiable `attention`: forward through it, backward through
+    `attention_backward` (the kernel on CUDA, the plain VJP on the CPU)."""
+    return _FusedAttention.apply(q, k, v, scale)

@@ -1,4 +1,4 @@
-"""YOLO building blocks as nn.Modules (inference).
+"""YOLO building blocks as nn.Modules (inference and training).
 
 Counterpart of caesar_yolo_tpu/models/layers.py.  Activations are NCHW
 (the caller may hand them over in channels_last memory) and conv weights
@@ -10,7 +10,14 @@ Conventions kept from the reference: symmetric padding k // 2,
 BatchNorm eps 1e-3 folded in f32 (`Conv.fuse`), SPPF max-pooling padded
 with -inf, and C2PSA attention with f32 scores and probabilities cast to
 the compute dtype before the PV product (models/cuda_attn.py).
-Training mode and int8 are not ported yet.
+
+Inside `train_mode(model)` the convs follow the reference's train mode
+(layers.py:154-185, 211-216): the f32 master weight is cast to the
+input's dtype on each call, BatchNorm normalises with the current
+batch's f32 mean and biased variance over N, H, W (optionally recording
+them for precise-BN), and in bf16 the conv output is bf16 while BN's
+`y * scale + shift` runs in f32 and is cast back.  int8 is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from caesar_yolo_tpu_torch.models import cuda_attn
+from caesar_yolo_tpu_torch.ops import cuda_upsample
 
 BN_EPS = 1e-3
 
@@ -46,6 +54,31 @@ def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
         if isinstance(m, (Conv, Conv2dRaw)):
             m.w.data = m.w.data.to(dtype)
     return module
+
+
+class train_mode:
+    """Context manager: the Conv and Conv2dRaw layers of `module` run in
+    the reference's train mode while it is open.  Pass a dict as
+    `collect` to also record {BatchNorm module: (mean, var)} of each
+    forward's batch statistics (detached; a recompute under remat writes
+    the same entry again, so nothing is counted twice).  Keep the
+    backward pass inside the context when the forward was rematerialised:
+    its recompute reads the same flags."""
+
+    def __init__(self, module: nn.Module, collect: dict | None = None):
+        self.convs = [m for m in module.modules()
+                      if isinstance(m, (Conv, Conv2dRaw))]
+        self.collect = collect
+
+    def __enter__(self):
+        for m in self.convs:
+            m.train_mode, m.bn_collect = True, self.collect
+        return self.collect
+
+    def __exit__(self, *exc):
+        for m in self.convs:
+            m.train_mode, m.bn_collect = False, None
+        return False
 
 
 class BatchNorm(nn.Module):
@@ -80,8 +113,12 @@ class Conv(nn.Module):
         self.w = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bn = BatchNorm(cout)
         self.b = None
+        self.train_mode = False
+        self.bn_collect = None
 
     def forward(self, x):
+        if self.train_mode:
+            return self._train_forward(x)
         if self.bn is not None:
             y = F.conv2d(x, self.w, None, self.s, self.pad, 1, self.groups)
             scale, shift = self.bn.scale_shift()
@@ -90,6 +127,22 @@ class Conv(nn.Module):
         else:
             y = add_bias(F.conv2d(x, self.w, None, self.s, self.pad, 1,
                                   self.groups), self.b)
+        return F.silu(y) if self.act else y
+
+    def _train_forward(self, x):
+        y = F.conv2d(x, self.w.to(x.dtype), None, self.s, self.pad, 1,
+                     self.groups)
+        if self.bn is not None:
+            yf = y.float()
+            var, mean = torch.var_mean(yf, dim=(0, 2, 3), correction=0)
+            if self.bn_collect is not None:
+                self.bn_collect[self.bn] = (mean.detach(), var.detach())
+            scale = self.bn.gamma / torch.sqrt(var + BN_EPS)
+            shift = self.bn.beta - mean * scale
+            y = yf * scale[:, None, None] + shift[:, None, None]
+        elif self.b is not None:
+            y = y.float() + self.b[:, None, None]
+        y = y.to(x.dtype)
         return F.silu(y) if self.act else y
 
     @torch.no_grad()
@@ -113,8 +166,15 @@ class Conv2dRaw(nn.Module):
         self.pad = k // 2
         self.w = nn.Parameter(torch.empty(cout, cin, k, k))
         self.b = nn.Parameter(torch.empty(cout))
+        self.train_mode = False
+        self.bn_collect = None
 
     def forward(self, x):
+        if self.train_mode:
+            # the bias is cast to the conv output's dtype before the add
+            # (the reference's train mode; inference keeps it f32)
+            y = F.conv2d(x, self.w.to(x.dtype), None, 1, self.pad)
+            return (y + self.b.to(y.dtype)[:, None, None]).to(x.dtype)
         return add_bias(F.conv2d(x, self.w, None, 1, self.pad), self.b)
 
 
@@ -240,8 +300,10 @@ class Attention(nn.Module):
         k = qkv[:, :, kd:2 * kd].transpose(2, 3)
         v = qkv[:, :, 2 * kd:]                          # [b, heads, hd, n]
         if cuda_attn.fused_gate(n):
-            # on CUDA the kernel, which raises for head widths it lacks
-            out = cuda_attn.attention(q, k, v.transpose(2, 3), self.scale)
+            # on CUDA the kernels (forward and backward), which raise for
+            # head widths they lack
+            out = cuda_attn.fused_attention(q, k, v.transpose(2, 3),
+                                            self.scale)
         else:
             # the reference's einsum branch for other sequence lengths
             # (layers.py:377-385): same arithmetic, plain PyTorch
@@ -289,13 +351,12 @@ class C2PSA(nn.Module):
 
 
 class Upsample(nn.Module):
-    """2x nearest-neighbour upsample by broadcast (exact pixel
-    replication; the reference's default form)."""
+    """2x nearest-neighbour upsample (exact pixel replication): kernel K4
+    on CUDA, forward and gradient; the reference's broadcast form on the
+    CPU (ops/cuda_upsample.py)."""
 
     def forward(self, x):
-        b, c, h, w = x.shape
-        return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
-            b, c, 2 * h, 2 * w)
+        return cuda_upsample.upsample2x(x)
 
 
 class Concat(nn.Module):

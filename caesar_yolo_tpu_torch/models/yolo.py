@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from caesar_yolo_tpu_torch.models.layers import (
     C2PSA,
@@ -209,21 +210,34 @@ class YOLO(nn.Module):
             self.add_module(name, module)
         self.head = head
 
-    def forward_features(self, x):
-        """Backbone + neck -> the 3 FPN feature maps (P3, P4, P5)."""
+    def forward_features(self, x, remat: bool = False):
+        """Backbone + neck -> the 3 FPN feature maps (P3, P4, P5).
+
+        remat=True checkpoints each layer that has parameters (the
+        reference's per-layer jax.checkpoint, yolo.py:270-293): its
+        internal activations are recomputed in the backward pass instead
+        of kept."""
         saved = []
         prev = x
         for name, frm in self.graph:
             module = getattr(self, name)
             inputs = [prev if j == -1 else saved[j] for j in frm]
-            prev = (module(inputs) if isinstance(module, Concat)
-                    else module(inputs[0]))
+            if isinstance(module, Concat):
+                prev = module(inputs)
+            elif remat and any(True for _ in module.parameters()):
+                prev = checkpoint(module, inputs[0], use_reentrant=False)
+            else:
+                prev = module(inputs[0])
             saved.append(prev)
         return tuple(saved[i] for i in self.out_idx)
 
-    def forward(self, x):
-        """Full raw forward: ((box_l, cls_l) for l in P3, P4, P5)."""
-        return self.head(self.forward_features(x))
+    def forward(self, x, remat: bool = False):
+        """Full raw forward: ((box_l, cls_l) for l in P3, P4, P5); remat
+        also checkpoints the head."""
+        feats = self.forward_features(x, remat=remat)
+        if remat:
+            return checkpoint(self.head, feats, use_reentrant=False)
+        return self.head(feats)
 
 
 @torch.no_grad()

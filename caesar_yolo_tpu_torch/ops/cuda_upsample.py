@@ -1,0 +1,110 @@
+"""2x nearest-neighbour upsample and its gradient (kernel K4).
+
+Counterpart of caesar_yolo_tpu/ops/pallas_upsample.py.  The JAX package
+made its kernel opt-in (models/layers.py CY_UPSAMPLE) and had no gradient
+for it; every mode is exact pixel replication, so the port takes the
+kernel on the card in serving and in training, and its gradient too.
+
+`upsample2x(x[B, C, H, W])` is differentiable.  On a CUDA tensor the
+forward and the backward launch the kernels of csrc/upsample.cu, which
+take and return channels_last memory (the port's layout on the card); on
+a CPU tensor they run `upsample2x_plain` (the reference's broadcast form,
+layers.py:475-477) and `upsample2x_backward_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from caesar_yolo_tpu_torch import cuda_build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] -> [B, C, 2H, 2W] by broadcast and reshape."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
+        b, c, 2 * h, 2 * w)
+
+
+def upsample2x_backward_plain(g: torch.Tensor) -> torch.Tensor:
+    """[B, C, 2H, 2W] -> [B, C, H, W]: each 2x2 window summed in f32 as
+    ((g00 + g01) + g10) + g11, rounded once to g's dtype."""
+    b, c, h2, w2 = g.shape
+    gf = g.float().reshape(b, c, h2 // 2, 2, w2 // 2, 2)
+    s = (gf[:, :, :, 0, :, 0] + gf[:, :, :, 0, :, 1]
+         + gf[:, :, :, 1, :, 0] + gf[:, :, :, 1, :, 1])
+    return s.to(g.dtype)
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
+    """The forward alone: the kernel on CUDA, the plain form on the CPU."""
+    if not x.is_cuda:
+        return upsample2x_plain(x)
+    b, c, h, w = x.shape
+    pixel_bytes = c * x.element_size()
+    if pixel_bytes % 2:
+        raise ValueError(f"upsample kernel does not take {tuple(x.shape)} "
+                         f"{x.dtype}")
+    x = _channels_last(x)
+    y = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    fn = cuda_build.load("upsample").cy_upsample2x_fwd
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    upsample2x_forward.launches += 1
+    cuda_build.check(fn(x.data_ptr(), y.data_ptr(), b, h, w, pixel_bytes,
+                        cuda_build.stream_ptr(x.device)), "upsample kernel")
+    return y
+
+
+upsample2x_forward.launches = 0
+
+
+def upsample2x_backward(g: torch.Tensor) -> torch.Tensor:
+    """The gradient alone: the kernel on CUDA, the plain form on the CPU."""
+    if not g.is_cuda:
+        return upsample2x_backward_plain(g)
+    b, c, h2, w2 = g.shape
+    if h2 % 2 or w2 % 2 or g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"upsample backward kernel does not take "
+                         f"{tuple(g.shape)} {g.dtype}")
+    g = _channels_last(g)
+    gx = torch.empty((b, c, h2 // 2, w2 // 2), dtype=g.dtype,
+                     device=g.device, memory_format=torch.channels_last)
+    fn = cuda_build.load("upsample").cy_upsample2x_bwd
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    upsample2x_backward.launches += 1
+    cuda_build.check(fn(g.data_ptr(), gx.data_ptr(), b, h2 // 2, w2 // 2, c,
+                        _DTYPE_CODES[g.dtype],
+                        cuda_build.stream_ptr(g.device)),
+                     "upsample backward kernel")
+    return gx
+
+
+upsample2x_backward.launches = 0
+
+
+class _Upsample2x(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return upsample2x_forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return upsample2x_backward(g)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable 2x nearest upsample of [B, C, H, W]."""
+    return _Upsample2x.apply(x)

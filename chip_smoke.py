@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the last line):
   build     the hand-written kernels (csrc/*.cu, one nvcc per source, all
             started together)
   parity    each kernel against its plain PyTorch version on the card, at
-            the main paths' shapes
+            the main paths' shapes (K2's backward, K4 and K8 at the training
+            path's)
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
@@ -26,6 +27,21 @@ Phases (any failure exits non-zero before the last line):
             min-max) and a serial run on a 640x640 crop, each writing a
             JSON catalog and a DS9 file; K1, K2, K5 and K6 must have
             launched as often as the stages imply
+  golden-train
+            2 f32 steps (TF32 off) of the port's Trainer on the committed
+            batch from yolov8n_synth96 against the JAX Trainer's numbers
+            (tests/fixtures/torch_port_golden_train_v8n96.npz), by
+            tests/test_torch_train_golden.golden_mismatch
+  train     the training CLI (cli.train) on yolo11l@640 bf16, batch 16, on
+            a seeded set of 48 FITS cutouts of 132 px: 2 epochs of 3 steps,
+            precise-BN over an augmented epoch, the `last` checkpoint and
+            its npz export (loaded into a TileEngine for one batch), then a
+            --resume from step_1 that runs epoch 2 again; K2, K2-backward,
+            K4 (forward and backward) and K8 must have launched as often as
+            the steps imply; step time and images/s
+  upsample-ab
+            main-path and mosaic tiles/s with K4 and with the plain
+            broadcast upsample, in turns (plain, K4, K4, plain)
   timing    each kernel, its plain version and (where one exists) the
             PyTorch library call, by CUDA events; tiles/s of the main path
 
@@ -44,6 +60,7 @@ import tempfile
 import time
 import traceback
 from collections import Counter
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -63,6 +80,23 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # equalisation: bit-equal)
 ATTN_F32_TOL = 1e-5
 PREPROC_TOL = 1e-6
+# K2 backward in f32: within 1e-5 of each gradient's largest value; in bf16
+# by cuda_attn.bwd_bf16_mismatch.  K4 and K8: bit-equal.
+ATTN_BWD_F32_REL_TOL = 1e-5
+
+# the training phase: yolo11l@640 bf16 at the reference's batch 16 on 48
+# cutouts of 132 px (the reference's cutout size): 3 steps an epoch
+TRAIN_BATCH = 16
+TRAIN_IMAGES = 48
+TRAIN_CUTOUT = 132
+TRAIN_EPOCHS = 2
+TRAIN_TIMED_STEPS = 5
+# the augmentation canvas at 640 px: 640 + 2 * (int(0.35 * 640) + 2), and
+# the row shift's pad (augment._rot_scale_sample_batch)
+SHIFT_CANVAS = 1092
+SHIFT_PAD = SHIFT_CANVAS // 2 + 2
+# yolo11l's two neck upsamples at 640 px: [B, 512, 20, 20] and [B, 512, 40, 40]
+NECK_SHAPES = ((512, 20, 20), (512, 40, 40))
 
 # the mosaic phase: 2560 px at 512 px tiles and step 0.5 is a 10x10 grid
 # whose last row and column are 256 px wide: 81 + 9 + 9 + 1 tiles in four
@@ -73,7 +107,9 @@ MOSAIC_SIGMAS = ((3.0, 3.0), (0.0, 20.0), (1.0, 20.0))  # bkg, chan3 clips
 # per batch (or serial image): one K5 launch for the background, one for
 # each chan3 clip; one K6 launch for chan3's third channel; one NMS; two
 # C2PSA attentions in yolo11l
-PER_FORWARD = {"stats": 3, "histeq": 1, "nms": 1, "attn": 2}
+PER_FORWARD = {"stats": 3, "histeq": 1, "nms": 1, "attn": 2, "upsample": 2}
+# kernels only the training path launches
+TRAIN_ONLY = ("attn_bwd", "upsample_bwd", "shift")
 # the random model's class scores sit at its head's bias priors (~2.5e-3
 # at stride 32): at 3e-3 its catalog is empty, at 1e-3 each tile keeps one
 # detection after NMS and the merge, so the catalog has 100 sources and
@@ -277,7 +313,85 @@ def phase_parity(torch):
             "hist-eq kernel differs")
     errs["histeq"] = err
     inputs["histeq"] = x
+    parity_train_kernels(torch, dev, errs, inputs)
     return errs, inputs
+
+
+def parity_train_kernels(torch, dev, errs, inputs):
+    """K2's backward, K4 and K8 at the training path's shapes."""
+    from caesar_yolo_tpu_torch.models import cuda_attn
+    from caesar_yolo_tpu_torch.ops import cuda_shift, cuda_upsample
+
+    g_ = torch.Generator(device=dev).manual_seed(1)
+    b, h, n, kd, hd = TRAIN_BATCH, 4, 400, 32, 64
+    q, k, v, g = (torch.randn(b, h, n, d, device=dev, generator=g_)
+                  for d in (kd, kd, hd, hd))
+    scale = kd ** -0.5
+    got = cuda_attn.attention_backward(q, k, v, g, scale)
+    torch.cuda.synchronize()
+    ref = cuda_attn.attention_backward_plain(q, k, v, g, scale)
+    err = max(((x - r).abs().max() / r.abs().max()).item()
+              for x, r in zip(got, ref))
+    log(f"parity K2-bwd attention f32 {tuple(q.shape)}/{tuple(v.shape)}: "
+        f"max abs err {err:.3g} of each gradient's largest value "
+        f"(tolerance {ATTN_BWD_F32_REL_TOL})")
+    require(err <= ATTN_BWD_F32_REL_TOL, f"attention backward f32 err {err}")
+    args = tuple(t.bfloat16() for t in (q, k, v, g))
+    got = cuda_attn.attention_backward(*args, scale)
+    torch.cuda.synchronize()
+    ref = cuda_attn.attention_backward_plain(*args, scale)
+    why = cuda_attn.bwd_bf16_mismatch(got, ref)
+    diffs = [(x.float() - r.float()).abs() for x, r in zip(got, ref)]
+    log("parity K2-bwd attention bf16: " + ", ".join(
+        f"{name} max abs err {d.max().item():.3g} (max |ref| "
+        f"{r.float().abs().max().item():.3g}), changed share "
+        f"{(d > 0).float().mean().item():.3g}"
+        for name, d, r in zip(("dq", "dk", "dv"), diffs, ref))
+        + f" (rule cuda_attn.bwd_bf16_mismatch: 2^-8 of max |ref|, share "
+        f"{cuda_attn.BWD_BF16_MAX_CHANGED_SHARE}) -> {why or 'ok'}")
+    require(why is None, f"attention backward bf16: {why}")
+    errs["attn_bwd"] = max(d.max().item() for d in diffs)
+    inputs["attn_bwd"] = (*args, scale)
+
+    bad = 0
+    for c, hh, ww in NECK_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(TRAIN_BATCH, c, hh, ww, device=dev,
+                            generator=g_).to(dtype).contiguous(
+                                memory_format=torch.channels_last)
+            gy = torch.randn(TRAIN_BATCH, c, 2 * hh, 2 * ww, device=dev,
+                             generator=g_).to(dtype).contiguous(
+                                 memory_format=torch.channels_last)
+            y = cuda_upsample.upsample2x_forward(x)
+            gx = cuda_upsample.upsample2x_backward(gy)
+            torch.cuda.synchronize()
+            ok = (torch.equal(y, cuda_upsample.upsample2x_plain(x))
+                  and torch.equal(gx,
+                                  cuda_upsample.upsample2x_backward_plain(gy))
+                  and y.is_contiguous(memory_format=torch.channels_last))
+            bad += not ok
+            log(f"parity K4 upsample {tuple(x.shape)} {dtype}: forward and "
+                f"backward bit-equal {ok}")
+    require(bad == 0, "upsample kernels differ from the plain versions")
+    errs["upsample"] = errs["upsample_bwd"] = 0.0
+    inputs["upsample"] = (x.bfloat16(), gy.bfloat16())
+
+    imgs = torch.rand(TRAIN_BATCH, SHIFT_CANVAS, SHIFT_CANVAS, 3, device=dev,
+                      generator=g_)
+    shifts = (torch.rand(TRAIN_BATCH, SHIFT_CANVAS, device=dev, generator=g_)
+              * 2 - 1) * (SHIFT_PAD + 2)
+    shifts[0, :3] = torch.tensor([0.0, -SHIFT_PAD, SHIFT_PAD - 1.0])
+    for pad_val in (114.0 / 255.0, 0.0):
+        got = cuda_shift.fractional_row_shift_batch(imgs, shifts, SHIFT_PAD,
+                                                    pad_val)
+        torch.cuda.synchronize()
+        ref = cuda_shift.row_shift_plain(imgs, shifts, SHIFT_PAD, pad_val)
+        err = (got - ref).abs().max().item()
+        log(f"parity K8 row shift {tuple(imgs.shape)} pad {SHIFT_PAD} "
+            f"pad_val {pad_val:.4f}: max abs err {err:.3g} (tolerance 0)")
+        require(err == 0, "row shift kernel differs")
+    errs["shift"] = 0.0
+    inputs["shift"] = (imgs, shifts)
 
 
 def mosaic_planes(dev, rng):
@@ -333,6 +447,161 @@ def phase_golden(torch):
     log(f"golden: {int(valid.sum())} detections on {len(tile_ok)} tiles "
         f"match the JAX fixture (count, class, IoU >= 0.99, score within "
         f"1e-3)")
+
+
+def phase_golden_train(torch):
+    """2 f32 steps of the port's Trainer on the card against the JAX
+    Trainer's committed numbers (tests/test_torch_train_golden.py writes
+    them and holds the rule)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_torch_train_golden as golden_train
+
+    golden = golden_train.load_golden()
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = golden_train.port_run(golden, device="cuda")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    why = golden_train.golden_mismatch(golden, got)
+    rel = np.abs(got["loss"] - golden["loss"]) / golden["loss"]
+    nz = golden["update_norms"] > 0
+    urel = (np.abs(got["update_norms"] - golden["update_norms"])[nz]
+            / golden["update_norms"][nz])
+    log(f"golden-train: yolov8n_synth96 @96 f32, batch 4, 2 steps: losses "
+        f"{got['loss'].tolist()} vs JAX {golden['loss'].tolist()} (max rel "
+        f"err {rel.max():.3g}, limit {golden_train.LOSS_RTOL}); update norms "
+        f"of {int(nz.sum())} tensors max rel err {urel.max():.3g} (limit "
+        f"{golden_train.UPDATE_RTOL}) -> {why or 'ok'}")
+    require(why is None, f"golden-train: {why}")
+
+
+def write_train_set(root):
+    """48 seeded FITS cutouts of 132 px with 1-3 Gaussian sources each,
+    YOLO label files and a dataset.yaml with a train split only."""
+    from caesar_yolo_tpu_torch.utils.fits import write_fits
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "labels"))
+    s = TRAIN_CUTOUT
+    for i in range(TRAIN_IMAGES):
+        img, boxes = make_mosaic(s, s, n_sources=1 + i % 3, noise_sigma=0.1,
+                                 seed=3000 + i, amp_range=(2.0, 10.0),
+                                 sigma_range=(2.0, 5.0))
+        write_fits(img, os.path.join(root, "images", f"c{i:03d}.fits"))
+        rows = []
+        for j, (x1, y1, x2, y2) in enumerate(np.clip(boxes, 0, s)):
+            rows.append(f"{(i + j) % 5} {(x1 + x2) / 2 / s:.6f} "
+                        f"{(y1 + y2) / 2 / s:.6f} {(x2 - x1) / s:.6f} "
+                        f"{(y2 - y1) / s:.6f}")
+        with open(os.path.join(root, "labels", f"c{i:03d}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    path = os.path.join(root, "dataset.yaml")
+    with open(path, "w") as f:
+        f.write(f"path: {root}\ntrain: images\nnames: [spurious, compact, "
+                f"extended, extended-multisland, flagged]\n")
+    return path
+
+
+def phase_train(torch, counters, tmp, card):
+    """cli.train on yolo11l@640 bf16, then a resume; returns the first
+    run's launches."""
+    from caesar_yolo_tpu_torch.cli import train as cli_train
+    from caesar_yolo_tpu_torch.detect.letterbox import letterbox_batch
+    from caesar_yolo_tpu_torch.models.convert import load_model
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+    from caesar_yolo_tpu_torch.train.augment import (augment_batch,
+                                                     draw_augment_params)
+    from caesar_yolo_tpu_torch.train.dataset import DetectionDataset
+
+    data = write_train_set(os.path.join(tmp, "trainset"))
+    ck = os.path.join(tmp, "runs")
+    args = [f"--data={data}", "--model=yolo11l", f"--imgsz={MAIN_SIZE}",
+            f"--batch={TRAIN_BATCH}", f"--epochs={TRAIN_EPOCHS}",
+            f"--checkpoint_dir={ck}", "--checkpoint_every=1", "--seed=0"]
+    per_epoch = TRAIN_IMAGES // TRAIN_BATCH
+    runs = {"train": (args, TRAIN_EPOCHS * per_epoch),
+            "resume": (args + [f"--resume={os.path.join(ck, 'step_1')}"],
+                       per_epoch)}
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, (argv, steps) in runs.items():
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc, trainer = cli_train.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {k: c.launches for k, c in counters.items()}
+        require(rc == 0, f"train {name} run failed")
+        forwards = steps + per_epoch          # + the precise-BN epoch
+        expect = {"attn": 2 * forwards, "upsample": 2 * forwards,
+                  "attn_bwd": 2 * steps, "upsample_bwd": 2 * steps,
+                  "shift": 2 * forwards, "nms": 0, "preproc": 0,
+                  "stats": 0, "histeq": 0}
+        log(f"train {name} launches: {launches[name]} (expected {expect}: "
+            f"{steps} steps and {per_epoch} precise-BN forwards, every batch "
+            f"augmented)")
+        require(launches[name] == expect,
+                f"train {name} run did not launch the kernels as expected")
+        losses = [float(l) for _, l in trainer.loss_log]
+        require(len(losses) == steps and np.isfinite(losses).all(),
+                f"train {name} losses {losses}")
+        log(f"train {name}: {steps} steps, losses {[round(l, 4) for l in losses]}"
+            f", optimizer step {trainer.step}, {wall:.1f} s end to end")
+    require(trainer.step == TRAIN_EPOCHS * per_epoch, "resume step")
+
+    last = torch.load(os.path.join(ck, "last"), map_location="cpu",
+                      weights_only=True)
+    init = init_weights(build_model("yolo11l"), seed=0).state_dict()
+    moved = sum(not torch.equal(last["params"][k], v)
+                for k, v in init.items() if k.endswith((".w", ".gamma")))
+    require(moved > 100, f"only {moved} weights moved")
+    model, meta = load_model(os.path.join(ck, "last.npz"))
+    engine = TileEngine(model, img_size=MAIN_SIZE, score_thr=1e-3,
+                        pre_nms=PRE_NMS)
+    boxes, scores, _, valid, tile_ok, _ = engine.process(
+        make_main_tiles(MAIN_BATCH))
+    require(boxes.shape == (MAIN_BATCH, 300, 4) and np.isfinite(boxes).all()
+            and np.isfinite(scores).all(), "TileEngine on the trained weights")
+    log(f"train: {moved} weight tensors moved; last.npz ({meta['model']}) "
+        f"ran one batch of {MAIN_BATCH} through the TileEngine "
+        f"({int(valid.sum())} detections, {int(tile_ok.sum())} tiles ok)")
+
+    # step time: the resumed trainer on real augmented batches
+    ds = DetectionDataset(data, img_size=MAIN_SIZE, batch_size=TRAIN_BATCH,
+                          device_letterbox=True)
+    imgs, labels, boxes, masks = next(iter(ds))
+    imgs = letterbox_batch(torch.from_numpy(imgs).cuda().repeat(1, 1, 1, 3),
+                           MAIN_SIZE)
+    gen = torch.Generator().manual_seed(0)
+    boxes, masks = torch.from_numpy(boxes), torch.from_numpy(masks)
+    aug_ms, step_ms = [], []
+    for _ in range(TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = augment_batch(imgs, boxes, masks,
+                              *draw_augment_params(gen, TRAIN_BATCH))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.train_step(batch[0], labels, batch[1], batch[2])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        aug_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+    total = np.mean(aug_ms) + np.mean(step_ms)
+    log(f"train throughput ({card}): yolo11l@{MAIN_SIZE} bf16 batch "
+        f"{TRAIN_BATCH}, mean of {TRAIN_TIMED_STEPS} steps after the first: "
+        f"train_step {np.mean(step_ms):.1f} ms (min {np.min(step_ms):.1f}), "
+        f"augment_batch {np.mean(aug_ms):.1f} ms, together {total:.1f} ms = "
+        f"{TRAIN_BATCH * 1e3 / total:.1f} images/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches["train"]
 
 
 def catalog_arrays(sources):
@@ -435,7 +704,9 @@ def phase_main(torch, counters):
     forwards = MAIN_BATCHES + 1
     log(f"main path launches: {launches} over {forwards} forward passes")
     require(launches["nms"] == forwards and launches["preproc"] == forwards
-            and launches["attn"] == 2 * forwards,
+            and launches["attn"] == 2 * forwards
+            and launches["upsample"] == 2 * forwards
+            and not any(launches[k] for k in TRAIN_ONLY),
             f"main path did not run every kernel as expected: {launches}")
 
     n_det = 0
@@ -513,9 +784,11 @@ def phase_mosaic(torch, counters, tmp):
         forwards = batches if name == "tiled" else 1
         expect = {k: n * forwards for k, n in PER_FORWARD.items()}
         log(f"mosaic {name} launches: {launches[name]} (expected {expect} "
-            f"over {forwards} forward passes, none of K3)")
+            f"over {forwards} forward passes, none of K3 or of the training "
+            f"kernels)")
         require(all(launches[name][k] == n for k, n in expect.items())
-                and launches[name]["preproc"] == 0,
+                and launches[name]["preproc"] == 0
+                and not any(launches[name][k] for k in TRAIN_ONLY),
                 f"mosaic {name} run did not launch the kernels as expected")
         with open(out_json) as f:
             cat = json.load(f)
@@ -546,12 +819,73 @@ def phase_mosaic(torch, counters, tmp):
     return launches, tps
 
 
+class plain_upsample:
+    """Context manager: the model's Upsample takes the plain broadcast
+    form (the serving path before K4) instead of the kernel."""
+
+    def __enter__(self):
+        from caesar_yolo_tpu_torch.ops import cuda_upsample
+        self.mod, self.prev = cuda_upsample, cuda_upsample.upsample2x
+        cuda_upsample.upsample2x = cuda_upsample.upsample2x_plain
+
+    def __exit__(self, *exc):
+        self.mod.upsample2x = self.prev
+        return False
+
+
+def staged_tps(torch, engine, staged):
+    engine.process_async(staged[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in staged:
+        engine.process_async(st)
+    torch.cuda.synchronize()
+    return len(staged) * MAIN_BATCH / (time.perf_counter() - t0)
+
+
+def phase_upsample_ab(torch, engine, batches, tmp):
+    """Main-path staged tiles/s and mosaic tiled tiles/s with the plain
+    broadcast upsample and with K4, in turns: plain, K4, K4, plain."""
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+
+    staged = [engine.put_tiles(bt) for bt in batches]
+    common = [f"--image={os.path.join(tmp, 'mosaic.fits')}",
+              f"--weights={os.path.join(tmp, 'yolo11l_seed0.npz')}",
+              "--preprocessing", "--subtract_bkg", "--chan3_preproc",
+              "--sigma_clip_baseline=0", "--sigma_clip_low=1",
+              "--sigma_clip_up=20", "--normalize_minmax", "--norm_min=0",
+              "--norm_max=255", f"--scoreThr={MOSAIC_SCORE_THR}",
+              "--split_img_in_tiles", f"--tile_xsize={MOSAIC_TILE}",
+              f"--tile_ysize={MOSAIC_TILE}", "--tile_xstep=0.5",
+              "--tile_ystep=0.5", "--max_ntasks_per_worker=1000",
+              f"--batch_size={MAIN_BATCH}",
+              f"--detect_outfile_json={os.path.join(tmp, 'ab.json')}",
+              f"--detect_outfile={os.path.join(tmp, 'ab.reg')}"]
+    out = {"plain": {"main": [], "mosaic": []}, "k4": {"main": [],
+                                                       "mosaic": []}}
+    for variant in ("plain", "k4", "k4", "plain"):
+        ctx = plain_upsample() if variant == "plain" else nullcontext()
+        with ctx:
+            out[variant]["main"].append(staged_tps(torch, engine, staged))
+            t0 = time.perf_counter()
+            rc, sf = cli_run.run(common)
+            torch.cuda.synchronize()
+            require(rc == 0, "mosaic A/B run failed")
+            out[variant]["mosaic"].append(
+                sf.report.n_tiles / (time.perf_counter() - t0))
+    for variant, r in out.items():
+        log(f"upsample A/B {variant}: main path staged tiles/s "
+            f"{[round(x, 1) for x in r['main']]}, mosaic tiled tiles/s "
+            f"{[round(x, 2) for x in r['mosaic']]}")
+
+
 def phase_timing(torch, mods, inputs, engine, batches):
     """Kernel, plain and library times at the main path's shapes, bounds
     from this run's inputs, and the main path's tiles/s."""
     import torch.nn.functional as F
 
-    cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq = mods
+    (cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq,
+     cuda_upsample, cuda_shift) = mods
     rows = {}
 
     boxes_t, valid = inputs["nms"]
@@ -604,14 +938,52 @@ def phase_timing(torch, mods, inputs, engine, batches):
         library_ms=None,
         bound=bound_ms(2 * x.numel() * 4, 0, "float32"))
 
+    q, k, v, g, scale = inputs["attn_bwd"]
+    b, h, n, kd = q.shape
+    hd = v.shape[-1]
+    flops = 2 * b * h * n * n * (3 * kd + 2 * hd)
+    nbytes = (4 * q.numel() + 3 * v.numel()) * 2   # q,k,v,dO in; dq,dk,dv out
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    rows["attn_bwd"] = dict(
+        ms=time_ms(torch, lambda: cuda_attn.attention_backward(
+            q, k, v, g, scale)),
+        plain_ms=time_ms(torch, lambda: cuda_attn.attention_backward_plain(
+            q, k, v, g, scale), iters=5),
+        library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (ql, kl, vl), g, retain_graph=True)),
+        bound=bound_ms(nbytes, flops, "bfloat16"))
+
+    x, gy = inputs["upsample"]
+    xl = x.detach().clone().requires_grad_()
+    interp = F.interpolate(xl, scale_factor=2, mode="nearest")
+    rows["upsample"] = dict(
+        ms=time_ms(torch, lambda: cuda_upsample.upsample2x_forward(x)),
+        plain_ms=time_ms(torch, lambda: cuda_upsample.upsample2x_plain(x)),
+        library_ms=time_ms(torch, lambda: F.interpolate(
+            x, scale_factor=2, mode="nearest")),
+        bound=bound_ms(5 * x.numel() * x.element_size(), 0, "bfloat16"))
+    rows["upsample_bwd"] = dict(
+        ms=time_ms(torch, lambda: cuda_upsample.upsample2x_backward(gy)),
+        plain_ms=time_ms(torch, lambda: cuda_upsample.upsample2x_backward_plain(
+            gy)),
+        library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            interp, xl, gy, retain_graph=True)),
+        bound=bound_ms(5 * x.numel() * x.element_size(), 3 * x.numel(),
+                       "float32"))
+
+    imgs, shifts = inputs["shift"]
+    rows["shift"] = dict(
+        ms=time_ms(torch, lambda: cuda_shift.fractional_row_shift_batch(
+            imgs, shifts, SHIFT_PAD, 114.0 / 255.0)),
+        plain_ms=time_ms(torch, lambda: cuda_shift.row_shift_plain(
+            imgs, shifts, SHIFT_PAD, 114.0 / 255.0), iters=5),
+        library_ms=None,
+        bound=bound_ms(2 * imgs.numel() * 4 + shifts.numel() * 4,
+                       4 * imgs.numel(), "float32"))
+
     staged = [engine.put_tiles(bt) for bt in batches]
-    engine.process_async(staged[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for s in staged:
-        engine.process_async(s)
-    torch.cuda.synchronize()
-    device_tps = len(staged) * MAIN_BATCH / (time.perf_counter() - t0)
+    device_tps = staged_tps(torch, engine, staged)
     t0 = time.perf_counter()
     for bt in batches:
         engine.process(bt)
@@ -633,6 +1005,16 @@ KERNELS = {
               "caesar_yolo_tpu/ops/pallas_stats.py:146"),
     "histeq": ("equalize_hist_batch", "caesar_yolo_tpu_torch/csrc/histeq.cu",
                "caesar_yolo_tpu/ops/pallas_histeq.py:133"),
+    "attn_bwd": ("attention_backward", "caesar_yolo_tpu_torch/csrc/attn_bwd.cu",
+                 "caesar_yolo_tpu/models/pallas_attn.py:106"),
+    "upsample": ("upsample2x_forward", "caesar_yolo_tpu_torch/csrc/upsample.cu",
+                 "caesar_yolo_tpu/ops/pallas_upsample.py:56"),
+    "upsample_bwd": ("upsample2x_backward",
+                     "caesar_yolo_tpu_torch/csrc/upsample.cu",
+                     "caesar_yolo_tpu/ops/pallas_upsample.py:56"),
+    "shift": ("fractional_row_shift_batch",
+              "caesar_yolo_tpu_torch/csrc/shift.cu",
+              "caesar_yolo_tpu/ops/pallas_shift.py:54"),
 }
 
 
@@ -664,25 +1046,34 @@ def main() -> int:
         from caesar_yolo_tpu_torch.detect import cuda_nms
         from caesar_yolo_tpu_torch.models import cuda_attn
         from caesar_yolo_tpu_torch.ops import (cuda_histeq, cuda_preproc,
-                                               cuda_stats)
+                                               cuda_shift, cuda_stats,
+                                               cuda_upsample)
 
         t0 = time.perf_counter()
         cuda_build.build()
         log(f"build: {sorted(cuda_build.SOURCES)} in "
             f"{time.perf_counter() - t0:.1f} s")
-        mods = (cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq)
+        mods = (cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq,
+                cuda_upsample, cuda_shift)
         counters = {"nms": cuda_nms.nms_suppress,
                     "attn": cuda_attn.attention,
                     "preproc": cuda_preproc.zscale_minmax,
                     "stats": cuda_stats.clip_stats,
-                    "histeq": cuda_histeq.equalize_hist_batch}
+                    "histeq": cuda_histeq.equalize_hist_batch,
+                    "attn_bwd": cuda_attn.attention_backward,
+                    "upsample": cuda_upsample.upsample2x_forward,
+                    "upsample_bwd": cuda_upsample.upsample2x_backward,
+                    "shift": cuda_shift.fractional_row_shift_batch}
 
         errs, inputs = phase_parity(torch)
         phase_golden(torch)
+        phase_golden_train(torch)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_golden_mosaic(torch, tmp)
             engine, batches, launches = phase_main(torch, counters)
             mosaic_launches, _ = phase_mosaic(torch, counters, tmp)
+            train_launches = phase_train(torch, counters, tmp, card)
+            phase_upsample_ab(torch, engine, batches, tmp)
         rows = phase_timing(torch, mods, inputs, engine, batches)
     except Exception:  # report every failure before exiting non-zero
         traceback.print_exc()
@@ -690,8 +1081,10 @@ def main() -> int:
         return 1
 
     # each kernel's launches on the path that runs it: K3 on the README
-    # main path, the others on the mosaic CLI path's tiled run
+    # main path, K1, K2, K5 and K6 on the mosaic CLI path's tiled run, K4
+    # and the training kernels on the training CLI's first run
     launches = {k: (launches[k] if k == "preproc"
+                    else train_launches[k] if k in TRAIN_ONLY + ("upsample",)
                     else mosaic_launches["tiled"][k]) for k in KERNELS}
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():

@@ -11,7 +11,13 @@ import torch
 
 from caesar_yolo_tpu_torch.detect import cuda_nms
 from caesar_yolo_tpu_torch.models import cuda_attn
-from caesar_yolo_tpu_torch.ops import cuda_histeq, cuda_preproc, cuda_stats
+from caesar_yolo_tpu_torch.ops import (
+    cuda_histeq,
+    cuda_preproc,
+    cuda_shift,
+    cuda_stats,
+    cuda_upsample,
+)
 from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
 from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
 from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
@@ -140,3 +146,69 @@ def test_histeq_kernel_bit_equal(dev, shape):
     assert torch.equal(got.isnan(), ref.isnan())
     assert bool(got[1].isnan().all())            # a NaN poisons its plane
     assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,kd,hd", [(16, 4, 400, 32, 64),
+                                         (2, 2, 16, 16, 32),
+                                         (1, 2, 2048, 32, 64),
+                                         (2, 1, 72, 64, 160)])
+def test_attention_backward_kernel_matches_plain(dev, dtype, b, h, n, kd, hd):
+    """dq, dk, dv against autograd of attention_plain: f32 within 1e-5 of
+    each gradient's largest value; bf16 by cuda_attn.bwd_bf16_mismatch."""
+    g_ = torch.Generator(device=dev).manual_seed(n + hd)
+    q, k, v, g = (torch.randn(b, h, n, d, device=dev, generator=g_).to(dtype)
+                  for d in (kd, kd, hd, hd))
+    got = cuda_attn.attention_backward(q, k, v, g, kd ** -0.5)
+    torch.cuda.synchronize()
+    ref = cuda_attn.attention_backward_plain(q, k, v, g, kd ** -0.5)
+    if dtype == torch.float32:
+        for x, r in zip(got, ref):
+            assert (x - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+    else:
+        assert cuda_attn.bwd_bf16_mismatch(got, ref) is None
+
+
+def test_fused_attention_autograd_launches_both_kernels(dev):
+    q, k, v = (torch.randn(2, 2, 64, d, device=dev, requires_grad=True)
+               for d in (32, 32, 64))
+    f0, b0 = cuda_attn.attention.launches, cuda_attn.attention_backward.launches
+    cuda_attn.fused_attention(q, k, v, 0.2).sum().backward()
+    assert cuda_attn.attention.launches == f0 + 1
+    assert cuda_attn.attention_backward.launches == b0 + 1
+    assert q.grad is not None and v.grad.shape == v.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 512, 20, 20), (16, 512, 40, 40),
+                                   (2, 3, 5, 7), (1, 6, 4, 4)])
+def test_upsample_kernels_bit_equal(dev, dtype, shape):
+    """Forward and gradient bit-equal to the plain versions, channels_last
+    in and out (and from an NCHW input)."""
+    x = torch.randn(shape, device=dev).to(dtype)
+    g = torch.randn(shape[0], shape[1], 2 * shape[2], 2 * shape[3],
+                    device=dev).to(dtype)
+    for xin in (x.contiguous(memory_format=torch.channels_last), x):
+        y = cuda_upsample.upsample2x_forward(xin)
+        torch.cuda.synchronize()
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(y, cuda_upsample.upsample2x_plain(x))
+    gx = cuda_upsample.upsample2x_backward(
+        g.contiguous(memory_format=torch.channels_last))
+    torch.cuda.synchronize()
+    assert torch.equal(gx, cuda_upsample.upsample2x_backward_plain(g))
+
+
+@pytest.mark.parametrize("pad_val", [114 / 255, 1.0])
+@pytest.mark.parametrize("shape,pad", [((16, 1092, 1092, 3), 548),
+                                       ((2, 30, 20, 3), 12)])
+def test_row_shift_kernel_bit_equal(dev, shape, pad, pad_val):
+    b, h, w, c = shape
+    g_ = torch.Generator(device=dev).manual_seed(h)
+    imgs = torch.rand(shape, device=dev, generator=g_)
+    shifts = (torch.rand(b, h, device=dev, generator=g_) * 2 - 1) * (pad + 3)
+    shifts[0, :3] = torch.tensor([0.0, -pad, pad - 1.0])
+    got = cuda_shift.fractional_row_shift_batch(imgs, shifts, pad, pad_val)
+    torch.cuda.synchronize()
+    ref = cuda_shift.row_shift_plain(imgs, shifts, pad, pad_val)
+    assert torch.equal(got, ref)
