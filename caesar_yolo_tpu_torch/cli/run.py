@@ -9,12 +9,16 @@ defaults and single-dash spellings.
         --normalize_minmax [--split_img_in_tiles --tile_xsize=512 ...]
 
 Runs on CUDA; `--devices=cpu` selects the CPU.  `--weights` takes the
-reference's npz format (models/convert.py).  These flags are refused
-with NotImplementedError until their feature is ported (ROADMAP.md,
-Queue 1): --datalist, .pt weights, --int8, --resume, --spool_path,
---profile_dir, --preproc_context=global, --device_tiling=on,
---draw_plots, --save_plots and --save_tile_img.  --multigpu is a no-op,
-as in the reference package.
+reference's npz format (models/convert.py).  `--datalist` runs a filelist
+as the reference package does: tiled through one shared TileEngine with
+--split_img_in_tiles, per image through the SFinder when outfiles or a
+crop window are given, else batched by shape through the BatchedDetector
+(out_<stem>.json and .reg per image).  These flags are refused with
+NotImplementedError until their feature is ported (ROADMAP.md, Queue 1):
+.pt weights, --int8, --resume, --spool_path, --profile_dir,
+--preproc_context=global, --device_tiling=on, --draw_plots, --save_plots
+and --save_tile_img.  --multigpu is a no-op, as in the reference
+package.
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
+from dataclasses import replace
 
 from caesar_yolo_tpu_torch import logger
 from caesar_yolo_tpu_torch.cli.preproc_args import (
     add_preprocessing_args,
     build_preprocessor_from_args,
 )
+from caesar_yolo_tpu_torch.evaluation.evaluate import read_filelist
 
 
 def parse_args(argv=None):
@@ -38,8 +45,7 @@ def parse_args(argv=None):
     parser.add_argument("--image", required=False, type=str, default="",
                         help="Input FITS image to detect on")
     parser.add_argument("--datalist", required=False, default="",
-                        help="Filelist of images for batch detection "
-                        "(not ported yet)")
+                        help="Filelist of images for batch detection")
     parser.add_argument("--maxnimgs", required=False, type=int, default=-1)
 
     # MODEL
@@ -124,7 +130,7 @@ def unported_flags(args) -> list[str]:
     """The given flags whose feature the port does not have yet (the
     SFinder refuses --device_tiling=on and --preproc_context=global)."""
     out = [f"--{name}" for name in (
-        "datalist", "int8", "draw_plots", "save_plots", "save_tile_img",
+        "int8", "draw_plots", "save_plots", "save_tile_img",
         "resume", "spool_path", "profile_dir") if getattr(args, name)]
     if args.weights.endswith(".pt"):
         out.append(".pt weights")
@@ -133,6 +139,15 @@ def unported_flags(args) -> list[str]:
 
 def validate_args(args) -> int:
     """Reference validation rules (scripts/run.py:158-190)."""
+    if args.datalist:
+        if not os.path.isfile(args.datalist):
+            logger.error("Datalist %s not existing!", args.datalist)
+            return -1
+        if not args.weights or not os.path.isfile(args.weights):
+            logger.error("Given weight file %s not existing or not a file!",
+                         args.weights)
+            return -1
+        return 0
     if not args.image:
         logger.error("Argument --image is required for detect task!")
         return -1
@@ -192,9 +207,113 @@ def config_from_args(args):
         outfile_ds9=args.detect_outfile)
 
 
+def _per_image_path(template: str, path: str, n_images: int) -> str:
+    """A fixed per-run output path gets the image stem appended for a
+    datalist of more than one image: a shared path would keep only the
+    last image's output."""
+    if not template or n_images == 1:
+        return template
+    stem = os.path.splitext(os.path.basename(path))[0]
+    base, ext = os.path.splitext(template)
+    return f"{base}_{stem}{ext}"
+
+
+def _per_image_config(cfg, path: str, n: int):
+    return replace(cfg, image_path=path,
+                   outfile_json=_per_image_path(cfg.outfile_json, path, n),
+                   outfile_ds9=_per_image_path(cfg.outfile_ds9, path, n))
+
+
+def run_datalist_tiled(model, cfg, images, preproc, device=None) -> int:
+    """Tiled detection over a datalist, every image through ONE shared
+    TileEngine."""
+    from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
+
+    status, engine = 0, None
+    for path in images:
+        sf = SFinder(model, _per_image_config(cfg, path, len(images)),
+                     preprocessor=preproc, engine=engine, device=device)
+        rc = sf.run_tiled()
+        engine = sf._engine
+        if rc != 0:
+            logger.error("Detection failed on %s, continuing", path)
+            status = 1
+    return status
+
+
+def run_datalist_serial(model, cfg, images, preproc, device=None) -> int:
+    """Per-image SFinder runs (outfile overrides, crop windows) sharing ONE
+    Predictor."""
+    from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
+
+    status, predictor = 0, None
+    for path in images:
+        sf = SFinder(model, _per_image_config(cfg, path, len(images)),
+                     preprocessor=preproc, predictor=predictor,
+                     device=device)
+        rc = sf.run()
+        predictor = sf._predictor
+        if rc != 0:
+            logger.error("Detection failed on %s, continuing", path)
+            status = 1
+    return status
+
+
+def run_datalist_batched(model, cfg, images, preproc, device=None) -> int:
+    """Whole-image detection over a datalist, batched by shape through the
+    BatchedDetector; writes out_<stem>.json and out_<stem>.reg per image
+    into the working directory (the reference dispatches the model once
+    per image, macros/make_prediction.py:645-658)."""
+    from caesar_yolo_tpu_torch.detect.batch import BatchedDetector
+    from caesar_yolo_tpu_torch.detect.merge import merge_detections
+    from caesar_yolo_tpu_torch.evaluation.evaluate import detect_files
+    from caesar_yolo_tpu_torch.outputs.catalog import (
+        make_json_results,
+        make_objects,
+        write_json,
+    )
+    from caesar_yolo_tpu_torch.outputs.ds9 import write_ds9_regions
+
+    t0 = time.time()
+    detector = BatchedDetector(
+        model, preprocessor=preproc, img_size=cfg.img_size,
+        score_thr=cfg.score_thr, iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms,
+        batch_size=cfg.batch_size, relay_dtype=cfg.relay_dtype,
+        device=device)
+    detections, shapes = detect_files(detector, images)
+    status, n_total = 0, 0
+    for path in images:
+        det = detections.get(path)
+        image_id = os.path.splitext(os.path.basename(path))[0]
+        if det is None:
+            logger.error("Detection failed on %s, continuing", path)
+            status = 1
+            continue
+        boxes, scores, cls, ok = det
+        if not ok:
+            # as the per-image path: no outputs, nonzero exit
+            logger.warning("Image %s degenerate, no prediction", path)
+            status = 1
+            continue
+        boxes, scores, cls = merge_detections(
+            boxes, scores, cls, soft_thr=cfg.merge_overlap_iou_thr_soft,
+            hard_thr=cfg.merge_overlap_iou_thr_hard)
+        objs = make_objects(boxes, scores, cls, image_shape=shapes[path],
+                            class_names=cfg.class_names)
+        n_total += len(objs)
+        if cfg.save_catalog:
+            write_json(make_json_results(image_id, objs),
+                       f"out_{image_id}.json")
+        if cfg.save_region:
+            write_ds9_regions(objs, f"out_{image_id}.reg")
+    logger.info("Datalist done: %d images, %d objects (%.2fs)",
+                len(images), n_total, time.time() - t0)
+    return status
+
+
 def run(argv=None):
     """Parse, check and run -> (exit code, the SFinder after its run, or
-    None when the arguments were rejected)."""
+    None for a datalist or when the arguments were rejected)."""
     args = parse_args(argv)
     bad = unported_flags(args)
     if bad:
@@ -205,9 +324,24 @@ def run(argv=None):
 
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
 
-    sf = SFinder(load_model_from_args(args), config_from_args(args),
-                 preprocessor=build_preprocessor_from_args(args),
-                 device=args.devices or None)
+    model = load_model_from_args(args)
+    cfg = config_from_args(args)
+    preproc = build_preprocessor_from_args(args)
+    device = args.devices or None
+    if args.datalist:
+        images = read_filelist(args.datalist)
+        if args.maxnimgs > 0:
+            images = images[:args.maxnimgs]
+        if args.split_img_in_tiles:
+            route = run_datalist_tiled
+        elif (args.detect_outfile or args.detect_outfile_json
+              or (args.xmin >= 0 and args.xmax > 0 and args.ymin >= 0
+                  and args.ymax > 0)):
+            route = run_datalist_serial
+        else:
+            route = run_datalist_batched
+        return route(model, cfg, images, preproc, device), None
+    sf = SFinder(model, cfg, preprocessor=preproc, device=device)
     rc = sf.run_tiled() if args.split_img_in_tiles else sf.run()
     return (0 if rc == 0 else 1), sf
 

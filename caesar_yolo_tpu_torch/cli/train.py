@@ -10,18 +10,22 @@ augmentation config degrees=180, flips 0.5, scale 0.89), on one GPU:
 Runs on CUDA; `--devices=cpu` selects the CPU.  Batches ship at native
 resolution and are letterboxed on the device; augmentation draws and the
 sample order are keyed by (seed, epoch), so `--resume` replays what an
-uninterrupted run drew.  At the end: precise-BN over an augmented epoch,
-the `last` checkpoint, and the EMA weights exported as `last.npz` in the
-reference's npz format (models/convert.save_params).
-
-Validation during training needs the evaluation stack, not ported yet
-(ROADMAP.md, Queue 1 items 5 and 9): a validation source (--val_data, or a
-`val:` split in the dataset YAML) raises NotImplementedError.
+uninterrupted run drew.  With a validation source (--val_data: a
+directory or a filelist; else a `val:` split of the dataset YAML) the EMA
+weights are scored every --val_every epochs, after a precise-BN pass over
+8 batches of the dataset, through a BatchedDetector and evaluate_dataset;
+the best epoch by --gate_metric (source F1, or the fitness
+0.1*mAP50 + 0.9*mAP50-95) is checkpointed as `best`, its metric kept
+across --resume.  At the end: precise-BN over an augmented epoch, the
+final validation on those statistics, the `last` checkpoint, and the EMA
+weights exported as `last.npz` in the reference's npz format
+(models/convert.save_params).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import re
 import sys
@@ -63,12 +67,16 @@ def parse_args(argv=None):
                         "master weights)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--val_data", default="",
-                   help="val images (not ported yet)")
-    p.add_argument("--val_every", type=int, default=10)
+                   help="val images: a directory, a filelist txt, or "
+                        "empty to use the dataset.yaml 'val' split")
+    p.add_argument("--val_every", type=int, default=10,
+                   help="validate every N epochs (0 = only at the end)")
     p.add_argument("--val_score_thr", type=float, default=0.25)
     p.add_argument("--val_iou_match", type=float, default=0.6)
     p.add_argument("--val_max_images", type=int, default=200)
-    p.add_argument("--gate_metric", choices=["f1", "fitness"], default="f1")
+    p.add_argument("--gate_metric", choices=["f1", "fitness"], default="f1",
+                   help="best-checkpoint criterion: source F1 or "
+                        "0.1*mAP50 + 0.9*mAP50-95")
     p.add_argument("--devices", type=str, default="",
                    help="torch device (default cuda; cpu runs on the CPU)")
     return p.parse_args(argv)
@@ -105,20 +113,27 @@ def resolve_resume_checkpoint(path: str) -> str:
         f"or a directory containing last/step_N)")
 
 
-def has_val_source(args) -> bool:
-    """A validation source: --val_data, or an existing `val:` split
-    directory of the dataset YAML."""
-    from caesar_yolo_tpu_torch.train.dataset import parse_dataset_yaml
+def list_val_images(args) -> list[str] | None:
+    """The validation images from --val_data (a directory or a filelist)
+    or the dataset YAML's `val` split; None when there is no source."""
+    from caesar_yolo_tpu_torch.evaluation.evaluate import read_filelist
+    from caesar_yolo_tpu_torch.train.dataset import (
+        list_images,
+        parse_dataset_yaml,
+    )
     if args.val_data:
-        return True
+        if os.path.isdir(args.val_data):
+            return list_images(args.val_data) or None
+        return read_filelist(args.val_data) or None
     if args.data.endswith((".yaml", ".yml")):
         spec = parse_dataset_yaml(args.data)
         if "val" in spec:
             root = spec.get("path", os.path.dirname(args.data))
             rel = spec["val"]
             d = rel if os.path.isabs(rel) else os.path.join(root, rel)
-            return os.path.isdir(d)
-    return False
+            if os.path.isdir(d):
+                return list_images(d) or None
+    return None
 
 
 def epoch_generator(seed: int, epoch: int):
@@ -133,12 +148,8 @@ def epoch_generator(seed: int, epoch: int):
 def run(argv=None):
     """Parse and train -> (exit code, the Trainer after its run)."""
     args = parse_args(argv)
-    if has_val_source(args):
-        raise NotImplementedError(
-            "validation during training needs detect/batch.py and the "
-            "evaluation stack, not ported yet (ROADMAP.md, Queue 1 items 5 "
-            "and 9)")
 
+    import numpy as np
     import torch
 
     from caesar_yolo_tpu_torch.detect.letterbox import letterbox_batch
@@ -209,13 +220,62 @@ def run(argv=None):
                 *draws)
             yield aimgs, labels, aboxes, amasks
 
+    # validation: C/R/F1 and mAP of the EMA weights on the val images; the
+    # best epoch is checkpointed as "best" (the reference's best.pt)
+    val_paths = list_val_images(args)
+    val_detector = None
+    if val_paths:
+        from caesar_yolo_tpu_torch.detect.batch import BatchedDetector
+        val_detector = BatchedDetector(
+            model, img_size=args.imgsz, score_thr=args.val_score_thr,
+            batch_size=min(args.batch, 32), device=device)
+        logger.info("Validating on %d images every %d epoch(s)",
+                    len(val_paths), max(args.val_every, 1))
+
+    def run_validation(epoch, calibrate=True):
+        from caesar_yolo_tpu_torch.evaluation import evaluate_dataset
+        from caesar_yolo_tpu_torch.outputs.catalog import CLASS_NAMES
+        if calibrate:
+            # precise-BN on 8 batches of the dataset, not of the augmented
+            # stream
+            trainer.calibrate_bn(prep_pixels(imgs) for imgs, *_ in
+                                 itertools.islice(iter(dataset), 8))
+        val_detector.engine.update_params(trainer.ema_model())
+        report = evaluate_dataset(
+            None, val_paths, detector=val_detector,
+            score_thr=args.val_score_thr, iou_thr=args.val_iou_match,
+            max_images=args.val_max_images,
+            class_names=dataset.class_names or CLASS_NAMES)
+        f1 = report.f1.get("source", 0.0)
+        if f1 is None or not np.isfinite(f1):
+            f1 = 0.0  # no predictions yet: F1 is 0
+        fitness = 0.0
+        if report.map is not None and np.isfinite(report.map.map50):
+            # ultralytics' best.pt criterion (DetMetrics.fitness)
+            fitness = 0.1 * report.map.map50 + 0.9 * report.map.map50_95
+        logger.info("epoch %d val F1(source)=%.4f fitness=%.4f\n%s",
+                    epoch, f1, fitness, report.summary())
+        metric = fitness if args.gate_metric == "fitness" else f1
+        if metric > trainer.best_metric:
+            trainer.best_metric = metric  # kept in every checkpoint
+            trainer.save_checkpoint(args.checkpoint_dir, step=epoch,
+                                    name="best")
+        return metric
+
     for epoch in range(start_epoch, args.epochs):
         trainer.fit(augmented(epoch), epochs=1, checkpoint_dir=None)
         if args.checkpoint_dir and args.checkpoint_every \
                 and (epoch + 1) % args.checkpoint_every == 0:
             trainer.save_checkpoint(args.checkpoint_dir, step=epoch + 1)
-    # precise-BN over a full augmented epoch, then the 'last' checkpoint
+        if (val_detector is not None and args.val_every
+                and (epoch + 1) % args.val_every == 0
+                and epoch + 1 < args.epochs):
+            run_validation(epoch + 1)
+    # precise-BN over a full augmented epoch; the final validation uses
+    # those statistics (an 8-batch pass would overwrite them), then 'last'
     trainer.calibrate_bn(imgs for imgs, *_ in augmented(args.epochs))
+    if val_detector is not None:
+        run_validation(args.epochs, calibrate=False)
     trainer.save_checkpoint(args.checkpoint_dir, step=args.epochs,
                             name="last")
     out = save_params(trainer.ema_model(),

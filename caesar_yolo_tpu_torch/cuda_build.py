@@ -24,10 +24,11 @@ BUILD_DIR = os.path.normpath(
     os.path.join(os.path.dirname(CSRC), os.pardir, "build", "kernels"))
 
 # Per-source flags.  NMS, the zscale chain, the clip statistics, the
-# histogram equalisation and the row shift must be bit-identical to their
-# plain versions (clip bounds med +- sigma*std, bin positions
-# (x - vmin) / span * 256, the shear lerp), so FMA contraction is off
-# there.  The upsample only moves data and sums in a fixed order.
+# histogram equalisation, CLAHE and the row shift must be bit-identical to
+# their plain versions (clip bounds med +- sigma*std, bin positions
+# (x - vmin) / span * 256, the CLAHE blend, the shear lerp), so FMA
+# contraction is off there.  The upsample only moves data and sums in a
+# fixed order.
 SOURCES = {
     "nms": ["-fmad=false"],
     "attn": [],
@@ -37,6 +38,7 @@ SOURCES = {
     "histeq": ["-fmad=false"],
     "upsample": [],
     "shift": ["-fmad=false"],
+    "clahe": ["-fmad=false"],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

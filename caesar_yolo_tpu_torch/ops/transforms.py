@@ -1,22 +1,23 @@
-"""Preprocessing transforms: the stages `build_preprocessor` can build.
+"""Preprocessing transforms: every stage of the reference's transform set.
 
-Counterpart of caesar_yolo_tpu/ops/transforms.py for the stages a CLI
-flag reaches: background subtraction, sigma clip-shift, sigma clip,
-channel resize, zscale stretch, the chan3 composite and per-channel
-min-max normalisation.  A stage is a function on a tile batch
+Counterpart of caesar_yolo_tpu/ops/transforms.py.  A stage is a function
+on a tile batch
     fn(data[B, H, W, C] f32) -> (data', valid[B] bool)
 with the reference's masking convention: pixels that are exactly 0 or
-non-finite are left out of every statistic and come out as 0.  Each
-stage follows the reference's batch path (its `.batch` function where it
-has one): the sigma-clip statistics run through kernel K5
-(ops/cuda_stats.py) and the histogram equalisation through kernel K6
-(ops/cuda_histeq.py) on CUDA tensors.
+non-finite are left out of every statistic and come out as 0 (with the
+reference's exception in log_stretcher, see there).  Each stage follows
+the reference's batch path (its `.batch` function where it has one, else
+its per-image function over the batch): the sigma-clip statistics run
+through kernel K5 (ops/cuda_stats.py), histogram equalisation through
+kernel K6 (ops/cuda_histeq.py) and its adaptive form (CLAHE) through
+kernel K7 (ops/cuda_clahe.py) on CUDA tensors.
 
 `build_preprocessor(zscale_stretch=True, normalize_minmax=True)` with
 equal contrasts builds a Pipeline that runs the whole chain through the
-fused kernel K3 (ops/cuda_preproc.py) on CUDA tensors.  The factories no
-flag reaches (the scalers, shifters, stretches, resizer, divider and
-hist_equalizer) are not ported yet (ROADMAP.md, Queue 1 item 6).
+fused kernel K3 (ops/cuda_preproc.py) on CUDA tensors.  Stages no CLI
+flag reaches (the scalers, shifters, stretches, border mask, resizer,
+channel divider and hist_equalizer) are built by calling their factories
+and composing a Pipeline, as with the reference's class API.
 """
 
 from __future__ import annotations
@@ -24,14 +25,16 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 
+from caesar_yolo_tpu_torch.ops.cuda_clahe import equalize_adapthist_batch
 from caesar_yolo_tpu_torch.ops.cuda_histeq import equalize_hist_batch
 from caesar_yolo_tpu_torch.ops.cuda_preproc import (
     fused_zscale_minmax,
     minmax_apply,
 )
 from caesar_yolo_tpu_torch.ops.cuda_stats import clip_stats
-from caesar_yolo_tpu_torch.ops.stats import valid_mask
+from caesar_yolo_tpu_torch.ops.stats import masked_max, masked_min, valid_mask
 from caesar_yolo_tpu_torch.ops.zscale import zscale_apply, zscale_limits
 
 Transform = Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
@@ -67,13 +70,26 @@ def _stage(fn, uniform: bool, reshapes: bool = False):
     return fn
 
 
-def _per_channel(data: torch.Tensor, chid: int, fn):
+def _ones(data: torch.Tensor) -> torch.Tensor:
+    return torch.ones(data.shape[0], dtype=torch.bool, device=data.device)
+
+
+def _center_box(h: int, w: int, fract: float, device) -> torch.Tensor:
+    """[H, W] bool: the centre box of the mask-box options."""
+    y0, y1, x0, x1 = center_box_slices(h, w, fract)
+    box = torch.zeros((h, w), dtype=torch.bool, device=device)
+    box[y0:y1, x0:x1] = True
+    return box
+
+
+def _per_channel(data: torch.Tensor, chid: int, fn, skip: bool = False):
     """Apply fn(planes[B*k, H, W]) -> (planes', valid[B*k]) to the channels
-    chid selects (-1: all) of data [B, H, W, C] in one call; the others
-    pass through as valid."""
+    chid selects (-1: all; with skip=True every channel but chid) of data
+    [B, H, W, C] in one call; the others pass through as valid."""
     b, c = data.shape[0], data.shape[-1]
-    chans = [i for i in range(c) if chid in (-1, i)]
-    valid = torch.ones(b, dtype=torch.bool, device=data.device)
+    chans = [i for i in range(c)
+             if chid == -1 or (i != chid if skip else i == chid)]
+    valid = _ones(data)
     if not chans:
         return data, valid
     sel = data[..., chans]
@@ -96,6 +112,311 @@ def min_max_normalizer(norm_min: float = 0.0,
         ok = torch.isfinite(lims[:, 0]) & (lims[:, 1] != lims[:, 0])
         return _unplanes(out, data.shape[0]), ok.reshape(
             data.shape[0], -1).all(dim=1)
+
+    return _stage(fn, uniform=True)
+
+
+def abs_min_max_normalizer(norm_min: float = 0.0,
+                           norm_max: float = 1.0) -> Transform:
+    """Min-max normalisation over all channels together (reference
+    preprocessing.py:116-145)."""
+
+    def fn(data):
+        cond = valid_mask(data)
+        lo = masked_min(data, cond, dim=(1, 2, 3))[:, None, None, None]
+        hi = masked_max(data, cond, dim=(1, 2, 3))[:, None, None, None]
+        span = hi - lo
+        out = ((data - lo) / torch.where(span != 0, span, 1.0)
+               * (norm_max - norm_min) + norm_min)
+        return (torch.where(cond, out, 0.0),
+                (cond.sum(dim=(1, 2, 3)) > 0) & (span.flatten() != 0))
+
+    return _stage(fn, uniform=False)
+
+
+def max_scaler() -> Transform:
+    """Divide each channel by its own masked max (reference
+    preprocessing.py:152-176)."""
+
+    def fn(data):
+        cond = valid_mask(data)
+        mx = masked_max(data, cond, dim=(1, 2))[:, None, None, :]
+        out = data / torch.where(mx != 0, mx, 1.0)
+        return (torch.where(cond, out, 0.0),
+                (cond.sum(dim=(1, 2)) > 0).all(dim=-1))
+
+    return _stage(fn, uniform=True)
+
+
+def abs_max_scaler(use_mask_box: bool = False,
+                   mask_fract: float = 0.5) -> Transform:
+    """Divide by the masked max over all channels, optionally within the
+    centre box (reference preprocessing.py:182-226)."""
+
+    def fn(data):
+        cond = valid_mask(data)
+        cond_max = cond
+        if use_mask_box:
+            box = _center_box(*data.shape[1:3], mask_fract, data.device)
+            cond_max = cond & box[None, :, :, None]
+        mx = masked_max(data, cond_max, dim=(1, 2, 3))[:, None, None, None]
+        out = data / torch.where(mx != 0, mx, 1.0)
+        return torch.where(cond, out, 0.0), cond_max.sum(dim=(1, 2, 3)) > 0
+
+    return _stage(fn, uniform=False)
+
+
+def chan_max_scaler(chref: int = 0, use_mask_box: bool = False,
+                    mask_fract: float = 0.5) -> Transform:
+    """Divide every channel by the reference channel's masked max
+    (reference preprocessing.py:232-289); invalid when any channel's max is
+    not positive and finite."""
+
+    def fn(data):
+        region = data
+        if use_mask_box:
+            y0, y1, x0, x1 = center_box_slices(*data.shape[1:3], mask_fract)
+            region = data[:, y0:y1, x0:x1, :]
+        cond_region = valid_mask(region)
+        ref = region[..., chref]
+        cond_ref = cond_region[..., chref]
+        mx = masked_max(ref, cond_ref, dim=(1, 2))
+        ch_max = masked_max(region, cond_region, dim=(1, 2))
+        valid = ((cond_ref.sum(dim=(1, 2)) > 0)
+                 & ((ch_max > 0) & torch.isfinite(ch_max)).all(dim=-1))
+        out = data / torch.where(mx != 0, mx, 1.0)[:, None, None, None]
+        return torch.where(valid_mask(data), out, 0.0), valid
+
+    return _stage(fn, uniform=False)
+
+
+def _channel_values(values: Sequence[float]):
+    """The per-channel constants of scaler/shifter/standardizer and whether
+    they treat every channel alike."""
+    values = [float(v) for v in values]
+    return values, len(set(values)) == 1
+
+
+def _channel_tensor(values, uniform: bool, data: torch.Tensor, name: str):
+    """values as a [C] tensor for data's C channels: a gray tile taking
+    the one-plane route of a channel-uniform chain takes the one value."""
+    c = data.shape[-1]
+    if c != len(values) and not (uniform and c == 1):
+        raise ValueError(f"{name}: {len(values)} values for {c} channels")
+    return torch.tensor(values[:c], dtype=torch.float32, device=data.device)
+
+
+def scaler(scale_factors: Sequence[float]) -> Transform:
+    """Multiply channels by fixed factors (reference preprocessing.py:
+    446-474, with its self-assignment bug fixed as in the reference
+    package)."""
+    factors, uniform = _channel_values(scale_factors)
+
+    def fn(data):
+        return (data * _channel_tensor(factors, uniform, data, "scaler"),
+                _ones(data))
+
+    return _stage(fn, uniform=uniform)
+
+
+def min_shifter(chid: int = -1) -> Transform:
+    """Subtract the masked min per channel (reference preprocessing.py:
+    294-327); chid selects one channel."""
+
+    def planes_fn(x):
+        cond = valid_mask(x)
+        lo = masked_min(x, cond, dim=(1, 2))[:, None, None]
+        return torch.where(cond, x - lo, 0.0), cond.sum(dim=(1, 2)) > 0
+
+    return _stage(lambda data: _per_channel(data, chid, planes_fn),
+                  uniform=chid == -1)
+
+
+def shifter(offsets: Sequence[float]) -> Transform:
+    """Subtract fixed per-channel offsets (reference preprocessing.py:
+    333-363)."""
+    offs, uniform = _channel_values(offsets)
+
+    def fn(data):
+        off = _channel_tensor(offs, uniform, data, "shifter")
+        return torch.where(valid_mask(data), data - off, 0.0), _ones(data)
+
+    return _stage(fn, uniform=uniform)
+
+
+def standardizer(means: Sequence[float],
+                 sigmas: Sequence[float]) -> Transform:
+    """(x - mean) / sigma with fixed per-channel statistics (reference
+    preprocessing.py:369-403)."""
+    mus, same_mu = _channel_values(means)
+    sds, same_sd = _channel_values(sigmas)
+    if len(mus) != len(sds):
+        raise ValueError(f"standardizer: {len(mus)} means, {len(sds)} "
+                         f"sigmas")
+    uniform = same_mu and same_sd
+
+    def fn(data):
+        mu = _channel_tensor(mus, uniform, data, "standardizer")
+        sd = _channel_tensor(sds, uniform, data, "standardizer")
+        return (torch.where(valid_mask(data), (data - mu) / sd, 0.0),
+                _ones(data))
+
+    return _stage(fn, uniform=uniform)
+
+
+def negative_data_fixer() -> Transform:
+    """Shift a channel with no positive pixel by its masked min (reference
+    preprocessing.py:408-440)."""
+
+    def planes_fn(x):
+        cond = valid_mask(x)
+        lo = masked_min(x, cond, dim=(1, 2))[:, None, None]
+        hi = masked_max(x, cond, dim=(1, 2))[:, None, None]
+        shifted = torch.where(cond, x - lo, 0.0)
+        return (torch.where(hi > 0, x, shifted),
+                _ones(x))
+
+    return _stage(lambda data: _per_channel(data, -1, planes_fn),
+                  uniform=True)
+
+
+def log_stretcher(chid: int = -1, minmaxnorm: bool = False,
+                  data_norm_min: float = -6.0, data_norm_max: float = 6.0,
+                  clip_neg: bool = False) -> Transform:
+    """log10 stretch (reference preprocessing.py:480-539), with two of the
+    reference's behaviours kept: chid names the channel to SKIP, and with
+    minmaxnorm=False masked pixels come out at the channel's log minimum,
+    not at 0 (preprocessing.py:524)."""
+
+    def planes_fn(x):
+        badpix = (x == 0) | ~torch.isfinite(x)
+        cond = (x > 0) & torch.isfinite(x)
+        lg = torch.where(cond, torch.log10(torch.where(cond, x, 1.0)), 0.0)
+        lg_min = masked_min(lg, cond, dim=(1, 2))[:, None, None]
+        lg = torch.where(cond, lg, lg_min)
+        if minmaxnorm:
+            lg = (lg - data_norm_min) / (data_norm_max - data_norm_min)
+            if clip_neg:
+                lg = torch.where(lg < 0, 0.0, lg)
+            lg = torch.where(badpix, 0.0, lg)
+        return lg, cond.sum(dim=(1, 2)) > 0
+
+    return _stage(lambda data: _per_channel(data, chid, planes_fn, skip=True),
+                  uniform=chid == -1)
+
+
+def border_masker(mask_fract: float = 0.7) -> Transform:
+    """Zero every pixel outside the centre box (reference
+    preprocessing.py:544-586)."""
+
+    def fn(data):
+        box = _center_box(*data.shape[1:3], mask_fract, data.device)
+        return torch.where(box[None, :, :, None], data, 0.0), _ones(data)
+
+    return _stage(fn, uniform=True)
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] weights of jax.image.resize's "linear" method along one
+    axis (scale_and_translate with a triangle kernel, widened by the scale
+    when it shrinks: antialiased), normalised per output sample; computed
+    on the CPU in f32 as the reference computes them."""
+    inv = 1.0 / (n_out / n_in)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
+            ).abs() / max(inv, 1.0)
+    w = (1 - dist).clamp(min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0).to(device)
+
+
+def resizer(resize_size: int, upscale: bool = False,
+            set_pad_val_to_min: bool = True) -> Transform:
+    """Aspect-preserving resize and centred zero pad to a square (reference
+    preprocessing.py:776-857).  upscale=False pads a small image instead of
+    scaling it up.  The resize is jax.image.resize's linear one, written
+    out as its weight matrices (antialiased when it shrinks; a NaN spreads
+    over its whole plane, as the reference's contraction spreads it);
+    set_pad_val_to_min then sets every masked pixel to its channel's masked
+    min."""
+
+    def fn(data):
+        _, h, w, _ = data.shape
+        scale = 1.0
+        if upscale:
+            scale = max(1.0, resize_size / min(h, w))
+        if round(max(h, w) * scale) > resize_size:
+            scale = resize_size / max(h, w)
+        nh, nw = round(h * scale), round(w * scale)
+        out = data
+        if scale != 1.0 and nh != h:
+            out = torch.einsum("bhwc,hi->biwc", out,
+                               _resize_weights(h, nh, data.device))
+        if scale != 1.0 and nw != w:
+            out = torch.einsum("bhwc,wj->bhjc", out,
+                               _resize_weights(w, nw, data.device))
+        top, left = (resize_size - nh) // 2, (resize_size - nw) // 2
+        out = F.pad(out, (0, 0, left, resize_size - nw - left,
+                          top, resize_size - nh - top))
+        if set_pad_val_to_min:
+            cond = valid_mask(out)
+            mins = masked_min(out, cond, dim=(1, 2))[:, None, None, :]
+            out = torch.where(cond, out, mins)
+        return out, _ones(data)
+
+    return _stage(fn, uniform=True)
+
+
+def chan_divider(chref: int = 0, logtransf: bool = False,
+                 strip_chref: bool = False, trim: bool = False,
+                 trim_min: float = -6.0, trim_max: float = 6.0) -> Transform:
+    """Divide the channels by a reference channel (reference
+    preprocessing.py:864-928), optionally log10 of the ratios (trimmed),
+    optionally dropping the reference channel (whose branch the reference
+    package implements correctly)."""
+
+    def fn(data):
+        c = data.shape[-1]
+        cond = valid_mask(data)
+        ref = data[..., chref]
+        cond_ref = valid_mask(ref)
+        denom = torch.where(ref == 0, 1.0, ref)
+        chans = [ref if i == chref
+                 else torch.where(cond_ref, data[..., i] / denom, 0.0)
+                 for i in range(c)]
+        out = torch.where(cond, torch.stack(chans, dim=-1), 0.0)
+        if logtransf:
+            tr = torch.log10(torch.where(out <= 0, 1.0, out))
+            tr = torch.where(cond, tr, 0.0)
+            if trim:
+                tr = tr.clamp(trim_min, trim_max)
+            keep_ref = torch.zeros(c, dtype=torch.bool, device=data.device)
+            keep_ref[chref] = True
+            out = torch.where(keep_ref, out, tr)
+        if strip_chref:
+            out = out[..., [i for i in range(c) if i != chref]]
+        return out, _ones(data)
+
+    return _stage(fn, uniform=False, reshapes=strip_chref)
+
+
+def hist_equalizer(adaptive: bool = False,
+                   clip_limit: float = 0.03) -> Transform:
+    """Per-channel histogram equalisation (reference preprocessing.py:
+    977-1012): 256-bin global (kernel K6) or, with adaptive=True, CLAHE
+    (kernel K7; skimage equalize_adapthist); masked pixels 0."""
+
+    def eq(planes):
+        if adaptive:
+            return equalize_adapthist_batch(planes, clip_limit=clip_limit)
+        return equalize_hist_batch(planes)
+
+    def fn(data):
+        out = _unplanes(eq(_planes(data)), data.shape[0])
+        return torch.where(valid_mask(data), out, 0.0), _ones(data)
 
     return _stage(fn, uniform=True)
 
@@ -161,7 +482,7 @@ def chan_resizer(nchans: int) -> Transform:
 
     def fn(data):
         cur = data.shape[-1]
-        ok = torch.ones(data.shape[0], dtype=torch.bool, device=data.device)
+        ok = _ones(data)
         if nchans > cur:
             extra = data[..., cur - 1:cur].expand(-1, -1, -1, nchans - cur)
             return torch.cat([data, extra], dim=-1), ok
@@ -186,9 +507,7 @@ def zscale_transformer(contrasts: Sequence[float] = (0.25, 0.25, 0.25)
             vmin, vmax = zscale_limits(x, contrast=float(contrasts[i]))
             z = zscale_apply(x, vmin[:, None, None], vmax[:, None, None])
             chans.append(torch.where(valid_mask(x), z, 0.0))
-        return (torch.stack(chans, dim=-1),
-                torch.ones(data.shape[0], dtype=torch.bool,
-                           device=data.device))
+        return torch.stack(chans, dim=-1), _ones(data)
 
     return _stage(fn, uniform=len({float(c) for c in contrasts}) == 1)
 
@@ -263,7 +582,7 @@ class Pipeline:
                                           norm_min=norm_min,
                                           norm_max=norm_max)
             return _unplanes(out, b), ok.reshape(b, -1).all(dim=1)
-        valid = torch.ones(b, dtype=torch.bool, device=data.device)
+        valid = _ones(data)
         for stage in self.stages:
             data, v = stage(data)
             valid = valid & v
@@ -286,7 +605,7 @@ def prepare_tiles(tiles: torch.Tensor, preprocessor: Pipeline | None,
         imgs, ok = preprocessor.apply_batch(x)
     else:
         imgs = x
-        ok = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        ok = _ones(x)
     if imgs.shape[-1] == 1 and nchan > 1:
         imgs = imgs.expand(-1, -1, -1, nchan)
     cmin = imgs.amin(dim=(1, 2))

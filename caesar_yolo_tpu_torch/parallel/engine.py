@@ -64,12 +64,23 @@ class TileEngine:
         self.relay_dtype = (torch.bfloat16
                             if str(relay_dtype) in ("bfloat16", "bf16")
                             else torch.float32)
-        self.model = prepare_model(model, fuse=fuse, dtype=compute_dtype,
-                                   device=self.device)
-        self._step = make_tile_step(
-            self.model, preprocessor=preprocessor, img_size=img_size,
+        self._fuse = fuse
+        self.compute_dtype = compute_dtype
+        self._step_kwargs = dict(
+            preprocessor=preprocessor, img_size=img_size,
             score_thr=score_thr, iou_thr=iou_thr, max_det=max_det,
             pre_nms=pre_nms)
+        self.update_params(model)
+
+    def update_params(self, model: YOLO) -> None:
+        """Swap in the weights `model` carries (e.g. a trainer's EMA model,
+        for validation during training) with the same treatment as at
+        construction: prepare_model copies it, folds BatchNorm and casts,
+        so the caller's modules are never changed."""
+        self.model = prepare_model(model, fuse=self._fuse,
+                                   dtype=self.compute_dtype,
+                                   device=self.device)
+        self._step = make_tile_step(self.model, **self._step_kwargs)
 
     def put_tiles(self, tiles: np.ndarray) -> torch.Tensor:
         """Stage a host tile batch on the device in the relay dtype

@@ -1,9 +1,12 @@
 """Synthetic radio mosaics (testing and benchmarking): Gaussian noise plus
 elliptical-Gaussian sources with their ground-truth boxes, in memory or
 as a FITS file.  A copy of caesar_yolo_tpu/utils/synth.py, drawing the
-same numbers from the same seed."""
+same numbers from the same seed, plus `write_labelled_cutouts`, a
+labelled cutout set in the ultralytics layout."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -58,3 +61,37 @@ def write_mosaic_fits(path: str, nx: int = 1024, ny: int = 1024,
     header["BUNIT"] = "JY/BEAM"
     write_fits(img, path, header)
     return boxes
+
+
+def write_labelled_cutouts(root: str, n: int, sizes=(132,), seed: int = 0,
+                           label: int | None = None,
+                           **mosaic_kwargs) -> list[str]:
+    """n FITS cutouts with 1-3 Gaussian sources each under root/images and
+    their YOLO label files (class cx cy w h, normalised, the 2-sigma boxes
+    clipped to the cutout) under root/labels.  Cutout i has size
+    sizes[i % len(sizes)], seed `seed + i`, and its j-th source the class
+    `label`, or (i + j) % 5 when label is None.  make_mosaic's keywords
+    default to noise 0.1, amplitudes 2-10 and widths 2-5 px.  Returns the
+    image paths."""
+    kw = dict(noise_sigma=0.1, amp_range=(2.0, 10.0),
+              sigma_range=(2.0, 5.0))
+    kw.update(mosaic_kwargs)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "labels"), exist_ok=True)
+    paths = []
+    for i in range(n):
+        s = sizes[i % len(sizes)]
+        img, boxes = make_mosaic(s, s, n_sources=1 + i % 3, seed=seed + i,
+                                 **kw)
+        path = os.path.join(root, "images", f"c{i:03d}.fits")
+        write_fits(img, path)
+        rows = []
+        for j, (x1, y1, x2, y2) in enumerate(np.clip(boxes, 0, s)):
+            cls = (i + j) % 5 if label is None else label
+            rows.append(f"{cls} {(x1 + x2) / 2 / s:.6f} "
+                        f"{(y1 + y2) / 2 / s:.6f} {(x2 - x1) / s:.6f} "
+                        f"{(y2 - y1) / s:.6f}")
+        with open(os.path.join(root, "labels", f"c{i:03d}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        paths.append(path)
+    return paths

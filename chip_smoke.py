@@ -8,10 +8,16 @@ Phases (any failure exits non-zero before the last line):
             started together)
   parity    each kernel against its plain PyTorch version on the card, at
             the main paths' shapes (K2's backward, K4 and K8 at the training
-            path's)
+            path's; K7 at the eval path's cutout planes, the tile size and
+            an odd shape, with zero, NaN and constant planes)
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
+  golden-eval
+            the port's evaluate_dataset in f32 (TF32 off), raw and with the
+            CLAHE Pipeline (K7), against the JAX evaluate_dataset's outputs
+            (tests/fixtures/torch_port_golden_eval_v8n96.npz), by
+            tests/test_torch_eval_golden.golden_mismatch
   golden-mosaic
             the port's SFinder.run_tiled in f32 (TF32 off) on the committed
             mosaic against the JAX SFinder's catalog (tests/fixtures/
@@ -32,13 +38,21 @@ Phases (any failure exits non-zero before the last line):
             batch from yolov8n_synth96 against the JAX Trainer's numbers
             (tests/fixtures/torch_port_golden_train_v8n96.npz), by
             tests/test_torch_train_golden.golden_mismatch
+  eval      96 seeded FITS cutouts of 132 px with YOLO labels (3 batches of
+            32), yolo11l@640 bf16 with seeded weights: cli.evaluate with the
+            README preprocessing (K3), evaluate_dataset from Python with
+            Pipeline([hist_equalizer(adaptive=True)]) (K7), and cli.run
+            --datalist (batched route, out_<stem>.json/.reg per image);
+            each must launch its kernels once per batch; images/s
   train     the training CLI (cli.train) on yolo11l@640 bf16, batch 16, on
-            a seeded set of 48 FITS cutouts of 132 px: 2 epochs of 3 steps,
-            precise-BN over an augmented epoch, the `last` checkpoint and
-            its npz export (loaded into a TileEngine for one batch), then a
-            --resume from step_1 that runs epoch 2 again; K2, K2-backward,
-            K4 (forward and backward) and K8 must have launched as often as
-            the steps imply; step time and images/s
+            a seeded set of 48 FITS cutouts of 132 px, validating on 32
+            held-out cutouts after every epoch: 2 epochs of 3 steps,
+            precise-BN over an augmented epoch, the `best` and `last`
+            checkpoints and the npz export (loaded into a TileEngine for
+            one batch), then a --resume from step_2 that runs a third epoch
+            and keeps the best metric; K1, K2, K2-backward, K4 (forward and
+            backward) and K8 must have launched as often as the steps and
+            validations imply; step time, images/s and validation time
   upsample-ab
             main-path and mosaic tiles/s with K4 and with the plain
             broadcast upsample, in turns (plain, K4, K4, plain)
@@ -110,6 +124,16 @@ MOSAIC_SIGMAS = ((3.0, 3.0), (0.0, 20.0), (1.0, 20.0))  # bkg, chan3 clips
 PER_FORWARD = {"stats": 3, "histeq": 1, "nms": 1, "attn": 2, "upsample": 2}
 # kernels only the training path launches
 TRAIN_ONLY = ("attn_bwd", "upsample_bwd", "shift")
+# K7's two launches, which only a CLAHE stage reaches
+CLAHE = ("clahe_hist", "clahe_blend")
+# the eval phase: 96 cutouts of 132 px, 3 batches of 32; the training
+# phase validates on 32 more, in batches of min(16, 32)
+EVAL_IMAGES = 96
+VAL_IMAGES = 32
+# K7's parity shapes: the eval path's cutout planes, the tile size, and an
+# odd shape that reflect-pads both axes
+CLAHE_SHAPES = ((MAIN_BATCH, TRAIN_CUTOUT, TRAIN_CUTOUT),
+                (MAIN_BATCH, MAIN_SIZE, MAIN_SIZE), (4, 96, 100))
 # the random model's class scores sit at its head's bias priors (~2.5e-3
 # at stride 32): at 3e-3 its catalog is empty, at 1e-3 each tile keeps one
 # detection after NMS and the merge, so the catalog has 100 sources and
@@ -314,7 +338,65 @@ def phase_parity(torch):
     errs["histeq"] = err
     inputs["histeq"] = x
     parity_train_kernels(torch, dev, errs, inputs)
+    parity_clahe(torch, dev, errs, inputs)
     return errs, inputs
+
+
+def clahe_planes(dev, p, h, w, seed, edge_cases):
+    """Noise planes with a bright source each; with edge_cases, plane 0 all
+    zero, plane 1 holding a NaN and plane 2 constant."""
+    import torch
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (p, h, w)).astype(np.float32)
+    x[:, h // 3:h // 3 + 6, w // 2:w // 2 + 6] += 150.0
+    if edge_cases:
+        x[0] = 0.0
+        x[1, h // 2, 3] = np.nan
+        x[2] = 7.0
+    return torch.from_numpy(x).to(dev)
+
+
+def parity_clahe(torch, dev, errs, inputs):
+    """K7's histogram and blend launches and the whole CLAHE against the
+    plain version, bit for bit, at CLAHE_SHAPES and clip limits 0.03 and
+    0.01; every output finite in [0, 1]."""
+    from caesar_yolo_tpu_torch.ops import clahe, cuda_clahe
+
+    bad, err = 0, 0.0
+    for p, h, w in CLAHE_SHAPES:
+        x = clahe_planes(dev, p, h, w, seed=h + w, edge_cases=True)
+        vmin, span = clahe.value_range(x)
+        th, tw = clahe.tile_size(h, w)
+        hist = cuda_clahe.tile_histograms(x, vmin, span)
+        torch.cuda.synchronize()
+        hist_ok = (torch.equal(hist, clahe.tile_histograms_plain(x, vmin, span))
+                   and bool((hist.sum(dim=-1) == th * tw).all()))
+        for clip_limit in (0.03, 0.01):
+            cdf = clahe.cdf_tables(hist, th * tw, clip_limit)
+            got = cuda_clahe.blend(x, vmin, span, cdf)
+            out = cuda_clahe.equalize_adapthist_batch(x, clip_limit)
+            torch.cuda.synchronize()
+            e = max((got - clahe.blend_plain(x, vmin, span, cdf)
+                     ).abs().max().item(),
+                    (out - clahe.equalize_adapthist_plain(x, clip_limit)
+                     ).abs().max().item())
+            in_range = (bool(torch.isfinite(out).all())
+                        and out.min().item() >= 0.0
+                        and out.max().item() <= 1.0)
+            log(f"parity K7 CLAHE {(p, h, w)} clip {clip_limit}: histograms "
+                f"equal {hist_ok}, blend and whole max abs err {e:.3g} "
+                f"(tolerance 0), finite in [0, 1] {in_range}")
+            bad += (not hist_ok) + (e != 0) + (not in_range)
+            err = max(err, e)
+    require(bad == 0, "CLAHE kernels differ from the plain version")
+    errs["clahe_hist"], errs["clahe_blend"] = 0.0, err
+    # timing inputs: the eval path's planes, cutouts with sources
+    x = clahe_planes(dev, *CLAHE_SHAPES[0], seed=1, edge_cases=False)
+    vmin, span = clahe.value_range(x)
+    th, tw = clahe.tile_size(*x.shape[1:])
+    cdf = clahe.cdf_tables(cuda_clahe.tile_histograms(x, vmin, span),
+                           th * tw, 0.03)
+    inputs["clahe"] = (x, vmin, span, cdf)
 
 
 def parity_train_kernels(torch, dev, errs, inputs):
@@ -479,27 +561,58 @@ def phase_golden_train(torch):
     require(why is None, f"golden-train: {why}")
 
 
+def phase_golden_eval(torch, counters, tmp):
+    """The port's evaluate_dataset in f32 on the card, raw and through the
+    CLAHE Pipeline, against the JAX evaluate_dataset's committed outputs
+    (tests/test_torch_eval_golden.py writes them and holds the rule)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_torch_eval_golden as golden_eval
+
+    golden = golden_eval.load_golden()
+    paths = golden_eval.write_set(os.path.join(tmp, "golden_eval"), golden)
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for c in counters.values():
+        c.launches = 0
+    try:
+        got = golden_eval.port_outputs(paths, device="cuda")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    batches = -(-len(paths) // golden_eval.CONFIG["batch_size"])
+    launches = {k: counters[k].launches for k in CLAHE}
+    require(all(n == batches for n in launches.values()),
+            f"golden-eval: K7 launches {launches}, expected {batches} each")
+    why = golden_eval.golden_mismatch(golden, got)
+    log(f"golden-eval: yolov8n_synth96 @96 f32 on {len(paths)} cutouts, "
+        + "; ".join(f"{run}: {int(got[f'{run}_per_image'].sum())} detections,"
+                    f" matched sources {int(got[f'{run}_counts'][0, 1])}/"
+                    f"{int(got[f'{run}_counts'][0, 0])}, mAP50/50-95 "
+                    f"{got[f'{run}_maps'].tolist()} vs JAX "
+                    f"{golden[f'{run}_maps'].tolist()}"
+                    for run in golden_eval.RUNS)
+        + f"; K7 launches {launches} -> {why or 'ok'}")
+    require(why is None, f"golden-eval: {why}")
+
+
+def write_cutouts(root, n, seed):
+    """n seeded FITS cutouts of 132 px with 1-3 Gaussian sources each and
+    their YOLO label files; returns the path of a filelist of them."""
+    from caesar_yolo_tpu_torch.utils.synth import write_labelled_cutouts
+
+    paths = write_labelled_cutouts(root, n, sizes=(TRAIN_CUTOUT,), seed=seed)
+    filelist = os.path.join(root, "filelist.txt")
+    with open(filelist, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return filelist
+
+
 def write_train_set(root):
     """48 seeded FITS cutouts of 132 px with 1-3 Gaussian sources each,
     YOLO label files and a dataset.yaml with a train split only."""
-    from caesar_yolo_tpu_torch.utils.fits import write_fits
-    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
-
-    os.makedirs(os.path.join(root, "images"))
-    os.makedirs(os.path.join(root, "labels"))
-    s = TRAIN_CUTOUT
-    for i in range(TRAIN_IMAGES):
-        img, boxes = make_mosaic(s, s, n_sources=1 + i % 3, noise_sigma=0.1,
-                                 seed=3000 + i, amp_range=(2.0, 10.0),
-                                 sigma_range=(2.0, 5.0))
-        write_fits(img, os.path.join(root, "images", f"c{i:03d}.fits"))
-        rows = []
-        for j, (x1, y1, x2, y2) in enumerate(np.clip(boxes, 0, s)):
-            rows.append(f"{(i + j) % 5} {(x1 + x2) / 2 / s:.6f} "
-                        f"{(y1 + y2) / 2 / s:.6f} {(x2 - x1) / s:.6f} "
-                        f"{(y2 - y1) / s:.6f}")
-        with open(os.path.join(root, "labels", f"c{i:03d}.txt"), "w") as f:
-            f.write("\n".join(rows) + "\n")
+    write_cutouts(root, TRAIN_IMAGES, seed=3000)
     path = os.path.join(root, "dataset.yaml")
     with open(path, "w") as f:
         f.write(f"path: {root}\ntrain: images\nnames: [spurious, compact, "
@@ -508,8 +621,9 @@ def write_train_set(root):
 
 
 def phase_train(torch, counters, tmp, card):
-    """cli.train on yolo11l@640 bf16, then a resume; returns the first
-    run's launches."""
+    """cli.train on yolo11l@640 bf16 with validation, then a resume;
+    returns the first run's launches."""
+    from caesar_yolo_tpu_torch import evaluation
     from caesar_yolo_tpu_torch.cli import train as cli_train
     from caesar_yolo_tpu_torch.detect.letterbox import letterbox_batch
     from caesar_yolo_tpu_torch.models.convert import load_model
@@ -518,43 +632,92 @@ def phase_train(torch, counters, tmp, card):
     from caesar_yolo_tpu_torch.train.augment import (augment_batch,
                                                      draw_augment_params)
     from caesar_yolo_tpu_torch.train.dataset import DetectionDataset
+    from caesar_yolo_tpu_torch.train.trainer import Trainer
 
     data = write_train_set(os.path.join(tmp, "trainset"))
+    val = write_cutouts(os.path.join(tmp, "valset"), VAL_IMAGES, seed=4000)
     ck = os.path.join(tmp, "runs")
     args = [f"--data={data}", "--model=yolo11l", f"--imgsz={MAIN_SIZE}",
-            f"--batch={TRAIN_BATCH}", f"--epochs={TRAIN_EPOCHS}",
-            f"--checkpoint_dir={ck}", "--checkpoint_every=1", "--seed=0"]
+            f"--batch={TRAIN_BATCH}", f"--checkpoint_dir={ck}",
+            "--checkpoint_every=1", "--seed=0", f"--val_data={val}",
+            "--val_every=1", f"--val_score_thr={MOSAIC_SCORE_THR}"]
     per_epoch = TRAIN_IMAGES // TRAIN_BATCH
-    runs = {"train": (args, TRAIN_EPOCHS * per_epoch),
-            "resume": (args + [f"--resume={os.path.join(ck, 'step_1')}"],
-                       per_epoch)}
+    val_batches = -(-VAL_IMAGES // min(TRAIN_BATCH, 32))
+    calib = min(8, per_epoch)       # precise-BN batches before a validation
+    # name: (argv, steps, validations, of which intermediate)
+    runs = {"train": (args + [f"--epochs={TRAIN_EPOCHS}"],
+                      TRAIN_EPOCHS * per_epoch, TRAIN_EPOCHS,
+                      TRAIN_EPOCHS - 1),
+            "resume": (args + [f"--epochs={TRAIN_EPOCHS + 1}",
+                               f"--resume={os.path.join(ck, 'step_2')}"],
+                       per_epoch, 1, 0)}
+    real_evaluate = evaluation.evaluate_dataset
+    reports = []
+
+    def timed_evaluate(*a, **kw):
+        t0 = time.perf_counter()
+        report = real_evaluate(*a, **kw)
+        torch.cuda.synchronize()
+        reports.append((report, time.perf_counter() - t0))
+        return report
+
+    def metric(report):
+        f1 = report.f1.get("source", 0.0)
+        return f1 if f1 is not None and np.isfinite(f1) else 0.0
+
     launches = {}
     torch.cuda.reset_peak_memory_stats()
-    for name, (argv, steps) in runs.items():
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        rc, trainer = cli_train.run(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[name] = {k: c.launches for k, c in counters.items()}
-        require(rc == 0, f"train {name} run failed")
-        forwards = steps + per_epoch          # + the precise-BN epoch
-        expect = {"attn": 2 * forwards, "upsample": 2 * forwards,
-                  "attn_bwd": 2 * steps, "upsample_bwd": 2 * steps,
-                  "shift": 2 * forwards, "nms": 0, "preproc": 0,
-                  "stats": 0, "histeq": 0}
-        log(f"train {name} launches: {launches[name]} (expected {expect}: "
-            f"{steps} steps and {per_epoch} precise-BN forwards, every batch "
-            f"augmented)")
-        require(launches[name] == expect,
-                f"train {name} run did not launch the kernels as expected")
-        losses = [float(l) for _, l in trainer.loss_log]
-        require(len(losses) == steps and np.isfinite(losses).all(),
-                f"train {name} losses {losses}")
-        log(f"train {name}: {steps} steps, losses {[round(l, 4) for l in losses]}"
-            f", optimizer step {trainer.step}, {wall:.1f} s end to end")
-    require(trainer.step == TRAIN_EPOCHS * per_epoch, "resume step")
+    evaluation.evaluate_dataset = timed_evaluate
+    try:
+        for name, (argv, steps, n_val, n_inter) in runs.items():
+            for c in counters.values():
+                c.launches = 0
+            reports.clear()
+            t0 = time.perf_counter()
+            rc, trainer = cli_train.run(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[name] = {k: c.launches for k, c in counters.items()}
+            require(rc == 0, f"train {name} run failed")
+            aug = steps + per_epoch          # + the precise-BN epoch
+            plain = calib * n_inter + val_batches * n_val
+            expect = {k: 0 for k in counters}
+            expect.update({"attn": 2 * (aug + plain),
+                           "upsample": 2 * (aug + plain),
+                           "attn_bwd": 2 * steps, "upsample_bwd": 2 * steps,
+                           "shift": 2 * aug, "nms": val_batches * n_val})
+            log(f"train {name} launches: {launches[name]} (expected {expect}:"
+                f" {steps} steps, {per_epoch} precise-BN forwards, every "
+                f"batch augmented; {n_val} validations of {val_batches} "
+                f"batches, {n_inter} after {calib} precise-BN batches of the "
+                f"dataset)")
+            require(launches[name] == expect,
+                    f"train {name} run did not launch the kernels as expected")
+            losses = [float(l) for _, l in trainer.loss_log]
+            require(len(losses) == steps and np.isfinite(losses).all(),
+                    f"train {name} losses {losses}")
+            require(len(reports) == n_val and all(
+                r.completeness["source"].n > 0 for r, _ in reports),
+                f"train {name}: {len(reports)} validations")
+            metrics = [metric(r) for r, _ in reports]
+            log(f"train {name} ({card}): {steps} steps, losses "
+                f"{[round(l, 4) for l in losses]}, optimizer step "
+                f"{trainer.step}, {wall:.1f} s end to end; validation F1 "
+                f"(source) {metrics}, evaluate_dataset "
+                f"{[round(s, 3) for _, s in reports]} s for {VAL_IMAGES} "
+                f"images each; best_metric {trainer.best_metric}")
+            if name == "train":
+                best = Trainer.load_checkpoint(os.path.join(ck, "best"))
+                kept = Trainer.load_checkpoint(os.path.join(ck, "step_2"))
+                require(best["best_metric"] == max(metrics)
+                        == trainer.best_metric, "train: best checkpoint")
+                require(kept["best_metric"] == metrics[0],
+                        "train: step_2 does not carry the best metric")
+        require(trainer.best_metric == max(kept["best_metric"], metrics[0]),
+                f"resume lost the best metric {kept['best_metric']}")
+        require(trainer.step == (TRAIN_EPOCHS + 1) * per_epoch, "resume step")
+    finally:
+        evaluation.evaluate_dataset = real_evaluate
 
     last = torch.load(os.path.join(ck, "last"), map_location="cpu",
                       weights_only=True)
@@ -706,7 +869,7 @@ def phase_main(torch, counters):
     require(launches["nms"] == forwards and launches["preproc"] == forwards
             and launches["attn"] == 2 * forwards
             and launches["upsample"] == 2 * forwards
-            and not any(launches[k] for k in TRAIN_ONLY),
+            and not any(launches[k] for k in TRAIN_ONLY + CLAHE),
             f"main path did not run every kernel as expected: {launches}")
 
     n_det = 0
@@ -788,7 +951,7 @@ def phase_mosaic(torch, counters, tmp):
             f"kernels)")
         require(all(launches[name][k] == n for k, n in expect.items())
                 and launches[name]["preproc"] == 0
-                and not any(launches[name][k] for k in TRAIN_ONLY),
+                and not any(launches[name][k] for k in TRAIN_ONLY + CLAHE),
                 f"mosaic {name} run did not launch the kernels as expected")
         with open(out_json) as f:
             cat = json.load(f)
@@ -817,6 +980,103 @@ def phase_mosaic(torch, counters, tmp):
             log(f"mosaic serial: 640x640 crop in {wall:.3f} s, "
                 f"{len(objs)} objects")
     return launches, tps
+
+
+def phase_eval(torch, counters, tmp, card):
+    """Dataset evaluation and datalist detection with yolo11l@640 bf16 on
+    96 labelled cutouts: cli.evaluate (README preprocessing, K3),
+    evaluate_dataset with the CLAHE Pipeline (K7) and cli.run --datalist
+    (batched route).  Returns each run's launches."""
+    from caesar_yolo_tpu_torch.cli import evaluate as cli_evaluate
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+    from caesar_yolo_tpu_torch.evaluation import evaluate_dataset
+    from caesar_yolo_tpu_torch.models.convert import load_model
+    from caesar_yolo_tpu_torch.ops.transforms import Pipeline, hist_equalizer
+
+    root = os.path.join(tmp, "evalset")
+    filelist = write_cutouts(root, EVAL_IMAGES, seed=5000)
+    labels = os.path.join(root, "labels")
+    n_gt = 0
+    for name in os.listdir(labels):
+        with open(os.path.join(labels, name)) as f:
+            n_gt += sum(1 for line in f if line.strip())
+    weights = os.path.join(tmp, "yolo11l_seed0.npz")
+    readme = ["--preprocessing", "--zscale_stretch", "--normalize_minmax"]
+    common = [f"--weights={weights}", f"--imgsize={MAIN_SIZE}",
+              f"--scoreThr={MOSAIC_SCORE_THR}", f"--batch_size={MAIN_BATCH}"]
+    out_dir = os.path.join(tmp, "datalist_out")
+    os.makedirs(out_dir)
+
+    def api_clahe():
+        model, _ = load_model(weights)
+        return 0, evaluate_dataset(
+            model, filelist, img_size=MAIN_SIZE, score_thr=MOSAIC_SCORE_THR,
+            batch_size=MAIN_BATCH,
+            preprocessor=Pipeline([hist_equalizer(adaptive=True)]))
+
+    def datalist():
+        cwd = os.getcwd()
+        os.chdir(out_dir)       # the batched route writes out_<stem>.*
+        try:
+            return cli_run.run([f"--datalist={filelist}", *common, *readme])
+        finally:
+            os.chdir(cwd)
+
+    runs = {"cli.evaluate": (lambda: cli_evaluate.run(
+                [f"--filelist={filelist}", *common, *readme]), ("preproc",)),
+            "evaluate_dataset+CLAHE": (api_clahe, CLAHE),
+            "cli.run --datalist": (datalist, ("preproc",))}
+    batches = -(-EVAL_IMAGES // MAIN_BATCH)
+    launches = {}
+    for name, (fn, stages) in runs.items():
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc, report = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {k: c.launches for k, c in counters.items()}
+        require(rc == 0, f"eval {name} failed")
+        expect = {k: 0 for k in counters}
+        expect.update({k: batches * n for k, n in PER_FORWARD.items()
+                       if k in ("nms", "attn", "upsample")})
+        expect.update({k: batches for k in stages})
+        log(f"eval {name} launches: {launches[name]} (expected {expect} "
+            f"over {batches} batches)")
+        require(launches[name] == expect,
+                f"eval {name} did not launch the kernels as expected")
+        if report is not None:
+            # per class ("source" sums the source classes)
+            n_lab, n_det, n_hit = (sum(
+                getattr(c, attr) for k, c in counts.items() if k != "source")
+                for counts, attr in ((report.completeness, "n"),
+                                     (report.reliability, "n"),
+                                     (report.completeness, "n_matched")))
+            require(n_lab == n_gt and n_det > 0
+                    and np.isfinite(report.map.map50_95),
+                    f"eval {name}: {n_lab}/{n_gt} labels, {n_det} "
+                    f"predictions, mAP50-95 {report.map.map50_95}")
+            what = (f"{n_det} merged detections, {n_hit}/{n_lab} labelled "
+                    f"objects matched, mAP50-95 {report.map.map50_95:.4g}")
+        else:
+            outs = sorted(os.listdir(out_dir))
+            n_obj = 0
+            for i in range(EVAL_IMAGES):
+                with open(os.path.join(out_dir, f"out_c{i:03d}.json")) as f:
+                    objs = json.load(f)["objs"]
+                boxes = catalog_arrays(objs)[0]
+                require(np.isfinite(boxes).all() and (boxes >= 0).all()
+                        and (boxes <= TRAIN_CUTOUT).all(),
+                        f"datalist out_c{i:03d}.json boxes")
+                n_obj += len(objs)
+            require(len(outs) == 2 * EVAL_IMAGES,
+                    f"datalist wrote {len(outs)} files")
+            what = f"{n_obj} objects in {len(outs)} out_<stem>.json/.reg files"
+        log(f"eval {name} ({card}): {EVAL_IMAGES} cutouts of {TRAIN_CUTOUT} "
+            f"px, yolo11l@{MAIN_SIZE} bf16, batch {MAIN_BATCH}: {wall:.3f} s "
+            f"from the call to the report = {EVAL_IMAGES / wall:.2f} "
+            f"images/s; {what}")
+    return launches
 
 
 class plain_upsample:
@@ -885,7 +1145,7 @@ def phase_timing(torch, mods, inputs, engine, batches):
     import torch.nn.functional as F
 
     (cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq,
-     cuda_upsample, cuda_shift) = mods
+     cuda_upsample, cuda_shift, cuda_clahe) = mods
     rows = {}
 
     boxes_t, valid = inputs["nms"]
@@ -982,6 +1242,41 @@ def phase_timing(torch, mods, inputs, engine, batches):
         bound=bound_ms(2 * imgs.numel() * 4 + shifts.numel() * 4,
                        4 * imgs.numel(), "float32"))
 
+    # K7 at the eval path's planes; the tile size's times are logged.  Bytes:
+    # hist reads the planes and writes the counts, blend reads the planes
+    # and the CDF tables and writes the output; operations: 3 flops a pixel
+    # to bin it, blend 9 more for its taps and lerps
+    from caesar_yolo_tpu_torch.ops import clahe
+    x, vmin, span, cdf = inputs["clahe"]
+    dev = x.device
+    for shape in (tuple(x.shape), (MAIN_BATCH, MAIN_SIZE, MAIN_SIZE)):
+        if shape != tuple(x.shape):
+            x = clahe_planes(dev, *shape, seed=2, edge_cases=False)
+            vmin, span = clahe.value_range(x)
+            th, tw = clahe.tile_size(*shape[1:])
+            cdf = clahe.cdf_tables(cuda_clahe.tile_histograms(x, vmin, span),
+                                   th * tw, 0.03)
+        px, table = x.numel(), cdf.numel() * 4
+        hist = dict(
+            ms=time_ms(torch, lambda: cuda_clahe.tile_histograms(
+                x, vmin, span)),
+            plain_ms=time_ms(torch, lambda: clahe.tile_histograms_plain(
+                x, vmin, span), iters=5),
+            library_ms=None,
+            bound=bound_ms(4 * px + table, 3 * px, "float32"))
+        blend = dict(
+            ms=time_ms(torch, lambda: cuda_clahe.blend(x, vmin, span, cdf)),
+            plain_ms=time_ms(torch, lambda: clahe.blend_plain(
+                x, vmin, span, cdf), iters=5),
+            library_ms=None,
+            bound=bound_ms(8 * px + table, 12 * px, "float32"))
+        log(f"timing K7 CLAHE {shape}: hist {hist['ms']:.4f} ms (plain "
+            f"{hist['plain_ms']:.4f}, bound {hist['bound'][0]:.4f}), blend "
+            f"{blend['ms']:.4f} ms (plain {blend['plain_ms']:.4f}, bound "
+            f"{blend['bound'][0]:.4f})")
+        if "clahe_hist" not in rows:
+            rows["clahe_hist"], rows["clahe_blend"] = hist, blend
+
     staged = [engine.put_tiles(bt) for bt in batches]
     device_tps = staged_tps(torch, engine, staged)
     t0 = time.perf_counter()
@@ -1015,6 +1310,10 @@ KERNELS = {
     "shift": ("fractional_row_shift_batch",
               "caesar_yolo_tpu_torch/csrc/shift.cu",
               "caesar_yolo_tpu/ops/pallas_shift.py:54"),
+    "clahe_hist": ("clahe_hist", "caesar_yolo_tpu_torch/csrc/clahe.cu",
+                   "caesar_yolo_tpu/ops/pallas_clahe.py:54"),
+    "clahe_blend": ("clahe_blend", "caesar_yolo_tpu_torch/csrc/clahe.cu",
+                    "caesar_yolo_tpu/ops/pallas_clahe.py:93"),
 }
 
 
@@ -1045,16 +1344,16 @@ def main() -> int:
         from caesar_yolo_tpu_torch import cuda_build
         from caesar_yolo_tpu_torch.detect import cuda_nms
         from caesar_yolo_tpu_torch.models import cuda_attn
-        from caesar_yolo_tpu_torch.ops import (cuda_histeq, cuda_preproc,
-                                               cuda_shift, cuda_stats,
-                                               cuda_upsample)
+        from caesar_yolo_tpu_torch.ops import (cuda_clahe, cuda_histeq,
+                                               cuda_preproc, cuda_shift,
+                                               cuda_stats, cuda_upsample)
 
         t0 = time.perf_counter()
         cuda_build.build()
         log(f"build: {sorted(cuda_build.SOURCES)} in "
             f"{time.perf_counter() - t0:.1f} s")
         mods = (cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq,
-                cuda_upsample, cuda_shift)
+                cuda_upsample, cuda_shift, cuda_clahe)
         counters = {"nms": cuda_nms.nms_suppress,
                     "attn": cuda_attn.attention,
                     "preproc": cuda_preproc.zscale_minmax,
@@ -1063,15 +1362,19 @@ def main() -> int:
                     "attn_bwd": cuda_attn.attention_backward,
                     "upsample": cuda_upsample.upsample2x_forward,
                     "upsample_bwd": cuda_upsample.upsample2x_backward,
-                    "shift": cuda_shift.fractional_row_shift_batch}
+                    "shift": cuda_shift.fractional_row_shift_batch,
+                    "clahe_hist": cuda_clahe.tile_histograms,
+                    "clahe_blend": cuda_clahe.blend}
 
         errs, inputs = phase_parity(torch)
         phase_golden(torch)
         phase_golden_train(torch)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_golden_eval(torch, counters, tmp)
             phase_golden_mosaic(torch, tmp)
             engine, batches, launches = phase_main(torch, counters)
             mosaic_launches, _ = phase_mosaic(torch, counters, tmp)
+            eval_launches = phase_eval(torch, counters, tmp, card)
             train_launches = phase_train(torch, counters, tmp, card)
             phase_upsample_ab(torch, engine, batches, tmp)
         rows = phase_timing(torch, mods, inputs, engine, batches)
@@ -1082,9 +1385,12 @@ def main() -> int:
 
     # each kernel's launches on the path that runs it: K3 on the README
     # main path, K1, K2, K5 and K6 on the mosaic CLI path's tiled run, K4
-    # and the training kernels on the training CLI's first run
+    # and the training kernels on the training CLI's first run, K7 on the
+    # eval phase's CLAHE run
     launches = {k: (launches[k] if k == "preproc"
                     else train_launches[k] if k in TRAIN_ONLY + ("upsample",)
+                    else eval_launches["evaluate_dataset+CLAHE"][k]
+                    if k in CLAHE
                     else mosaic_launches["tiled"][k]) for k in KERNELS}
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():

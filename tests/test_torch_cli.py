@@ -107,10 +107,20 @@ def test_max_ntasks_guard(tmp_path):
     "--resume", "--spool_path=s.jsonl", "--profile_dir=prof",
     "--preproc_context=global", "--device_tiling=on", "--save_tile_img",
     ".pt"])
-def test_unported_flags_raise(tmp_path, flag):
+def test_unported_flags_raise(tmp_path, monkeypatch, flag):
+    """Each unported flag raises; --datalist is ported and runs its list
+    (here the mosaic, whole-image through the BatchedDetector, writing
+    out_mosaic.json and .reg into the working directory)."""
     path = _mosaic(tmp_path)
     weights = WEIGHTS
     argv = [f"--image={path}", "--devices=cpu", "--imgsize=96"]
+    if flag.startswith("--datalist"):
+        (tmp_path / "list.txt").write_text(path + "\n")
+        monkeypatch.chdir(tmp_path)
+        assert main([*argv, flag, f"--weights={weights}"]) == 0
+        assert (tmp_path / "out_mosaic.json").exists()
+        assert (tmp_path / "out_mosaic.reg").exists()
+        return
     if flag == ".pt":
         weights = str(tmp_path / "w.pt")
         open(weights, "w").close()

@@ -12,6 +12,8 @@ import torch
 from caesar_yolo_tpu_torch.detect import cuda_nms
 from caesar_yolo_tpu_torch.models import cuda_attn
 from caesar_yolo_tpu_torch.ops import (
+    clahe,
+    cuda_clahe,
     cuda_histeq,
     cuda_preproc,
     cuda_shift,
@@ -212,3 +214,53 @@ def test_row_shift_kernel_bit_equal(dev, shape, pad, pad_val):
     torch.cuda.synchronize()
     ref = cuda_shift.row_shift_plain(imgs, shifts, pad, pad_val)
     assert torch.equal(got, ref)
+
+
+def _clahe_planes(dev, p, h, w, seed):
+    """Noise planes with a bright source each, and the edge cases of the
+    CLAHE binning: an all-zero plane, a plane holding a NaN, a constant
+    plane."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (p, h, w)).astype(np.float32)
+    x[:, h // 3:h // 3 + 6, w // 2:w // 2 + 6] += 150.0
+    x[0] = 0.0
+    x[1, h // 2, 3] = np.nan
+    x[2] = 7.0
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("clip_limit", [0.03, 0.01])
+@pytest.mark.parametrize("shape", [(32, 132, 132), (32, 640, 640),
+                                   (4, 96, 100), (3, 128, 256)])
+def test_clahe_kernels_bit_equal(dev, shape, clip_limit):
+    """K7's histogram and blend launches each equal their plain version bit
+    for bit, and so does the whole CLAHE; NaN, zero and constant planes
+    come out finite in [0, 1]."""
+    x = _clahe_planes(dev, *shape, seed=shape[1] + shape[2])
+    vmin, span = clahe.value_range(x)
+    hist = cuda_clahe.tile_histograms(x, vmin, span)
+    torch.cuda.synchronize()
+    assert torch.equal(hist, clahe.tile_histograms_plain(x, vmin, span))
+    th, tw = clahe.tile_size(*shape[1:])
+    assert bool((hist.sum(dim=-1) == th * tw).all())
+    cdf = clahe.cdf_tables(hist, th * tw, clip_limit)
+    got = cuda_clahe.blend(x, vmin, span, cdf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clahe.blend_plain(x, vmin, span, cdf))
+    out = cuda_clahe.equalize_adapthist_batch(x, clip_limit)
+    torch.cuda.synchronize()
+    assert torch.equal(out, clahe.equalize_adapthist_plain(x, clip_limit))
+    assert bool(torch.isfinite(out).all())
+    assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+
+
+def test_clahe_kernels_reject_what_they_cannot_take(dev):
+    x = torch.randn(2, 32, 32, device=dev)
+    vmin, span = clahe.value_range(x)
+    with pytest.raises(ValueError):
+        cuda_clahe.tile_histograms(x.double(), vmin, span)
+    with pytest.raises(ValueError):
+        cuda_clahe.blend(x, vmin, span, torch.zeros(2, 64, 128, device=dev))
+    with pytest.raises(ValueError):
+        cuda_clahe.equalize_adapthist_batch(torch.randn(1, 4, 64,
+                                                        device=dev))

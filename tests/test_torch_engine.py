@@ -215,7 +215,8 @@ need = {"parallel.sfinder", "parallel.stitch", "cli.run", "cli.preproc_args",
         "ops.stats", "ops.cuda_stats", "ops.histeq", "ops.cuda_histeq",
         "utils.fits", "utils.tiling", "ops.cuda_upsample", "ops.cuda_shift",
         "train.loss", "train.augment", "train.dataset", "train.trainer",
-        "cli.train"}
+        "cli.train", "ops.clahe", "ops.cuda_clahe", "detect.batch",
+        "evaluation.metrics", "evaluation.evaluate", "cli.evaluate"}
 assert {pkg.__name__ + "." + n for n in need} <= set(names), names
 print(len(names))
 """
@@ -231,8 +232,8 @@ print(len(names))
 def test_kernel_build_command(monkeypatch, tmp_path):
     """Each CUDA source builds for sm_90a into its own library whose name
     follows the source and flags; NMS, preprocessing, the clip statistics,
-    histogram equalisation and the row shift keep FMA contraction off
-    (their outputs must equal the plain versions)."""
+    histogram equalisation, CLAHE and the row shift keep FMA contraction
+    off (their outputs must equal the plain versions)."""
     from caesar_yolo_tpu_torch import cuda_build
 
     monkeypatch.setattr(cuda_build.shutil, "which", lambda _: "/bin/true")
@@ -241,9 +242,9 @@ def test_kernel_build_command(monkeypatch, tmp_path):
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert cmd[-1].endswith(os.path.join("csrc", f"{name}.cu"))
         assert ("-fmad=false" in cmd) == (
-            name in ("nms", "preproc", "stats", "histeq", "shift"))
-    assert {"stats", "histeq", "attn_bwd", "upsample", "shift"} <= set(
-        cuda_build.SOURCES)
+            name in ("nms", "preproc", "stats", "histeq", "shift", "clahe"))
+    assert {"stats", "histeq", "attn_bwd", "upsample", "shift",
+            "clahe"} <= set(cuda_build.SOURCES)
     path = cuda_build.library_path("nms")
     monkeypatch.setitem(cuda_build.SOURCES, "nms", [])
     assert cuda_build.library_path("nms") != path

@@ -193,7 +193,8 @@ def test_full_chain_gray_once_equals_repeat_first(case):
 
 def test_unported_stages_raise(tmp_path):
     """Every preprocessing flag now builds its stage; what is still
-    unported raises at the CLI, naming the ROADMAP."""
+    unported raises at the CLI, naming the ROADMAP.  --datalist is ported:
+    a missing filelist is an argument error, not a refusal."""
     from caesar_yolo_tpu_torch.cli.run import main
 
     pipe = build_preprocessor(subtract_bkg=True, clip_shift_data=True,
@@ -201,7 +202,9 @@ def test_unported_stages_raise(tmp_path):
                               zscale_stretch=True, chan3_preproc=True,
                               normalize_minmax=True)
     assert len(pipe.stages) == 7
-    for flag in ("--int8", "--datalist=l.txt", "--draw_plots", "--save_plots"):
+    argv = [f"--image={tmp_path / 'x.fits'}", "--weights=w.npz",
+            "--devices=cpu"]
+    for flag in ("--int8", "--draw_plots", "--save_plots"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main([f"--image={tmp_path / 'x.fits'}", "--weights=w.npz",
-                  "--devices=cpu", flag])
+            main([*argv, flag])
+    assert main([*argv, f"--datalist={tmp_path / 'l.txt'}"]) == 1

@@ -453,7 +453,7 @@ def test_cli_train_cpu_writes_last_and_npz(tmp_path):
     on it are within 2e-4 of the port's, relative to each map's largest
     value (precise-BN over three tiny batches leaves variances far below
     1, so the trained raw maps reach the hundreds).  --resume from the checkpoint
-    directory runs on; a val split is refused."""
+    directory runs on; a val split is validated on."""
     from caesar_yolo_tpu.models.convert import load_params
     from caesar_yolo_tpu_torch.cli import train as cli_train
     from caesar_yolo_tpu_torch.models.convert import load_model
@@ -485,6 +485,15 @@ def test_cli_train_cpu_writes_last_and_npz(tmp_path):
     assert cli_train.main(args + ["--epochs=3", f"--resume={ck}"]) == 0
     with open(os.path.join(ck, "last.step")) as f:
         assert int(f.read()) == 9
+    # a `val:` split of the dataset YAML is the validation source (the
+    # model has as many classes as the YAML names): the final validation
+    # writes `best`
     val = _write_dataset(tmp_path / "v", yaml_val=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 items 5 and 9"):
-        cli_train.main([f"--data={val}", "--devices=cpu"])
+    vck = str(tmp_path / "vck")
+    assert cli_train.main([f"--data={val}", "--devices=cpu",
+                           "--model=yolo11n", "--num_classes=2",
+                           "--imgsz=64", "--batch=2", "--epochs=1", "--fp32",
+                           "--no_augment", f"--checkpoint_dir={vck}",
+                           "--max_gt=4", "--val_score_thr=0.001"]) == 0
+    for name in ("best", "best.step", "last"):
+        assert os.path.exists(os.path.join(vck, name)), name
