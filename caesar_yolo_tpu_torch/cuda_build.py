@@ -3,8 +3,9 @@
 Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, at first use, under
 ``build/kernels/`` at the repository root, and loaded with ``ctypes``.
-The library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and a stale library is never loaded.
+The library's file name carries a hash of its source, the headers it
+includes and its flags, so an edited source is rebuilt and a stale
+library is never loaded.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.
@@ -40,6 +41,12 @@ SOURCES = {
     "shift": ["-fmad=false"],
     "clahe": ["-fmad=false"],
 }
+# The shared headers each source includes: their text is hashed into the
+# library's name with the source's, so editing one rebuilds its includers.
+HEADERS = {
+    "attn": ["mma_bf16.cuh"],
+    "attn_bwd": ["mma_bf16.cuh"],
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -60,8 +67,10 @@ def _command(name: str, out: str) -> list[str]:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(SOURCES[name]).encode())
+    digest = hashlib.sha256(" ".join(SOURCES[name]).encode())
+    for fname in [f"{name}.cu", *HEADERS.get(name, [])]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -7,16 +7,19 @@ max-subtracted f32 softmax, probabilities normalised and THEN cast to
 the compute dtype, f32 accumulation of the PV product, output in the
 compute dtype.
 
-On a CUDA tensor it launches the hand-written kernel in
-csrc/attn.cu (one block per tile of query rows, the score rows kept in
-shared memory; see the source for its design and bound).  On a CPU
-tensor it runs `attention_plain`, the same function in PyTorch.
+On a CUDA tensor it launches the hand-written kernel in csrc/attn.cu: on
+bf16, tensor-core MMAs with each query row's whole f32 score row kept on
+chip; on f32, scalar FMAs (see the source for its design and bound).  On
+a CPU tensor it runs `attention_plain`, the same function in PyTorch.
 
 `fused_attention` is the differentiable form the model calls: an
 autograd Function whose forward is `attention` and whose backward is
-`attention_backward`, the kernel in csrc/attn_bwd.cu on CUDA and, on the
-CPU, autograd through `attention_plain` -- the reference's custom VJP,
-which recomputes through `_attention_ref` (pallas_attn.py:106-128).
+`attention_backward`, the two launches of csrc/attn_bwd.cu on CUDA (no
+[N, N] tensor in device memory; dS fed to the tensor cores as a hi + lo
+pair of bf16 values) and, on the CPU, autograd through `attention_plain`
+-- the reference's custom VJP, which recomputes through `_attention_ref`
+(pallas_attn.py:106-128).  tests/test_torch_attn_tc.py emulates the
+kernels' bf16 arithmetic on the CPU against the rules below.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ BF16_MAX_CHANGED_SHARE = 1e-2
 # to the neighbouring bf16 value; each such flip moves dS by p * ulp(dP)
 # and reaches the dq and dk elements of its row or column.  So a gradient
 # may differ by one bf16 ulp of its largest magnitude (2^-8 of max |ref|)
-# on a small share of its elements (on the H100 at [16,4,400,32/64]: at
-# most 0.07% changed, max 2^-9).
+# on a small share of its elements (the tensor-core kernel on the H100 at
+# [16,4,400,32/64]: 0.27% of dq and dk, 0.08% of dv changed).
 BWD_BF16_REL_ATOL = 2 ** -8
 BWD_BF16_MAX_CHANGED_SHARE = 1e-2
 
@@ -170,17 +173,18 @@ def attention_backward(q, k, v, g, scale):
             f"v{tuple(v.shape)} dO{tuple(g.shape)} {q.dtype}/{g.dtype}")
     q, k, v, g = (t.contiguous() for t in (q, k, v, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ds = torch.empty((b, h, n, n), dtype=torch.float32, device=q.device)
-    pc = torch.empty_like(ds)
+    # per query row the softmax max m, its sum l and D = rowsum(p dP), from
+    # the first launch to the second: no [B, H, N, N] tensor
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
     fn = cuda_build.load("attn_bwd").cy_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     attention_backward.launches += 1
     cuda_build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), ds.data_ptr(), pc.data_ptr(), b, h, n,
-                        kd, hd, _DTYPE_CODES[q.dtype], float(scale),
+                        dv.data_ptr(), stats.data_ptr(), b, h, n, kd, hd,
+                        _DTYPE_CODES[q.dtype], float(scale),
                         cuda_build.stream_ptr(q.device)),
                      "attention backward kernel")
     return dq, dk, dv

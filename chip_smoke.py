@@ -7,9 +7,10 @@ Phases (any failure exits non-zero before the last line):
   build     the hand-written kernels (csrc/*.cu, one nvcc per source, all
             started together)
   parity    each kernel against its plain PyTorch version on the card, at
-            the main paths' shapes (K2's backward, K4 and K8 at the training
-            path's; K7 at the eval path's cutout planes, the tile size and
-            an odd shape, with zero, NaN and constant planes)
+            the main paths' shapes (K2 at yolo11l's N = 400 and the mosaic
+            tiles' N = 256; K2's backward, K4 and K8 at the training path's;
+            K7 at the eval path's cutout planes, the tile size and an odd
+            shape, with zero, NaN and constant planes)
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
@@ -57,7 +58,10 @@ Phases (any failure exits non-zero before the last line):
             main-path and mosaic tiles/s with K4 and with the plain
             broadcast upsample, in turns (plain, K4, K4, plain)
   timing    each kernel, its plain version and (where one exists) the
-            PyTorch library call, by CUDA events; tiles/s of the main path
+            PyTorch library call, by CUDA events (K2 and its backward also
+            by device time under torch.profiler, K2 at both N, and the
+            backward's peak memory beyond its inputs and outputs); tiles/s
+            of the main path
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line {"ok": true, "device": {...}}.  Needs one card; never imports
@@ -117,6 +121,9 @@ NECK_SHAPES = ((512, 20, 20), (512, 40, 40))
 # shapes, 3 + 1 + 1 + 1 = 6 batches of 32
 MOSAIC_SIZE = 2560
 MOSAIC_TILE = 512
+# K2's sequence lengths: yolo11l's C2PSA at 640 px (20 x 20) and at the
+# mosaic's 512 px tiles (16 x 16)
+ATTN_NS = ((MAIN_SIZE // 32) ** 2, (MOSAIC_TILE // 32) ** 2)
 MOSAIC_SIGMAS = ((3.0, 3.0), (0.0, 20.0), (1.0, 20.0))  # bkg, chan3 clips
 # per batch (or serial image): one K5 launch for the background, one for
 # each chan3 clip; one K6 launch for chan3's third channel; one NMS; two
@@ -168,6 +175,24 @@ def time_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters=20, by_kernel=False):
+    """Device time of fn() in ms: the time of the kernels it launches under
+    torch.profiler over iters calls, over iters (no host launch gaps); with
+    by_kernel, {kernel name: ms a call}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] += e.device_time_total / 1e3 / iters
+    return dict(names) if by_kernel else sum(names.values())
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -244,39 +269,41 @@ def phase_parity(torch):
     require(mismatches == 0, f"NMS kernel mask differs ({mismatches} bits)")
     errs["nms"] = float(mismatches)
 
-    # K2: C2PSA attention of yolo11l at 640 px
-    b, h, n, kd, hd = MAIN_BATCH, 4, (MAIN_SIZE // 32) ** 2, 32, 64
+    # K2: C2PSA attention of yolo11l at 640 px (N = 400) and at the mosaic's
+    # 512 px tiles (N = 256)
     g = torch.Generator(device=dev).manual_seed(0)
-    q, k_, v = (torch.randn(b, h, n, d, device=dev, generator=g)
-                for d in (kd, kd, hd))
-    scale = kd ** -0.5
-    args = (q, k_, v, scale)
-    got = cuda_attn.attention(*args)
-    torch.cuda.synchronize()
-    err = (got - cuda_attn.attention_plain(*args)).abs().max().item()
-    log(f"parity K2 attention f32: max abs err {err:.3g} (tolerance "
-        f"{ATTN_F32_TOL})")
-    require(err <= ATTN_F32_TOL, f"attention kernel f32 err {err}")
-    args = (q.bfloat16(), k_.bfloat16(), v.bfloat16(), scale)
-    got = cuda_attn.attention(*args)
-    torch.cuda.synchronize()
-    ref = cuda_attn.attention_plain(*args)
-    diff = (got.float() - ref.float()).abs()
-    err = diff.max().item()
-    why = cuda_attn.bf16_mismatch(got, ref)
-    log(f"parity K2 attention bf16: max abs err {err:.3g}, changed share "
-        f"{(diff > 0).float().mean().item():.3g} (limits "
-        f"{cuda_attn.BF16_ATOL}, {cuda_attn.BF16_MAX_CHANGED_SHARE}; "
-        f"max |out| {ref.float().abs().max().item():.3g})")
-    require(why is None, f"attention kernel bf16: {why}")
-    # the rule can see a kernel that rounds p before normalising
-    online = online_softmax_attention(*args)
-    why_online = cuda_attn.bf16_mismatch(online, ref)
-    log(f"parity K2 rule on an online softmax (plain PyTorch): "
-        f"{why_online}")
-    require(why_online is not None, "bf16 rule passes an online softmax")
-    errs["attn"] = err
-    inputs["attn"] = (q.bfloat16(), k_.bfloat16(), v.bfloat16(), scale)
+    b, h, kd, hd = MAIN_BATCH, 4, 32, 64
+    for n in ATTN_NS:
+        q, k_, v = (torch.randn(b, h, n, d, device=dev, generator=g)
+                    for d in (kd, kd, hd))
+        scale = kd ** -0.5
+        args = (q, k_, v, scale)
+        got = cuda_attn.attention(*args)
+        torch.cuda.synchronize()
+        err = (got - cuda_attn.attention_plain(*args)).abs().max().item()
+        log(f"parity K2 attention f32 N={n}: max abs err {err:.3g} "
+            f"(tolerance {ATTN_F32_TOL})")
+        require(err <= ATTN_F32_TOL, f"attention kernel f32 N={n} err {err}")
+        args = (q.bfloat16(), k_.bfloat16(), v.bfloat16(), scale)
+        got = cuda_attn.attention(*args)
+        torch.cuda.synchronize()
+        ref = cuda_attn.attention_plain(*args)
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        why = cuda_attn.bf16_mismatch(got, ref)
+        log(f"parity K2 attention bf16 N={n}: max abs err {err:.3g}, changed "
+            f"share {(diff > 0).float().mean().item():.3g} (limits "
+            f"{cuda_attn.BF16_ATOL}, {cuda_attn.BF16_MAX_CHANGED_SHARE}; "
+            f"max |out| {ref.float().abs().max().item():.3g})")
+        require(why is None, f"attention kernel bf16 N={n}: {why}")
+        # the rule can see a kernel that rounds p before normalising
+        online = online_softmax_attention(*args)
+        why_online = cuda_attn.bf16_mismatch(online, ref)
+        log(f"parity K2 rule on an online softmax N={n} (plain PyTorch): "
+            f"{why_online}")
+        require(why_online is not None, "bf16 rule passes an online softmax")
+        errs["attn"] = max(errs.get("attn", 0.0), err)
+        inputs[f"attn{n}"] = args
 
     # K3: 32 planes of 640x640, one all zero, one holding a NaN
     x = torch.from_numpy(rng.normal(0, 1, (MAIN_BATCH, MAIN_SIZE, MAIN_SIZE))
@@ -1159,18 +1186,30 @@ def phase_timing(torch, mods, inputs, engine, batches):
         library_ms=None,
         bound=bound_ms(nbytes, 14 * pairs, "float32"))
 
-    q, k, v, scale = inputs["attn"]
-    b, h, n, kd = q.shape
-    hd = v.shape[-1]
-    flops = 2 * b * h * n * n * (kd + hd) + 5 * b * h * n * n
-    nbytes = (q.numel() + k.numel() + 2 * v.numel()) * 2
-    rows["attn"] = dict(
-        ms=time_ms(torch, lambda: cuda_attn.attention(q, k, v, scale)),
-        plain_ms=time_ms(torch, lambda: cuda_attn.attention_plain(
-            q, k, v, scale)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale)),
-        bound=bound_ms(nbytes, flops, "bfloat16"))
+    # K2 at yolo11l's N = 400 (the kernels line) and the mosaic's N = 256;
+    # beside the CUDA-event times, each call's device time under the
+    # profiler (host launch gaps left out)
+    for n in ATTN_NS:
+        q, k, v, scale = inputs[f"attn{n}"]
+        b, h, _, kd = q.shape
+        hd = v.shape[-1]
+        flops = 2 * b * h * n * n * (kd + hd) + 5 * b * h * n * n
+        nbytes = (q.numel() + k.numel() + 2 * v.numel()) * 2
+        kernel = lambda: cuda_attn.attention(q, k, v, scale)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+        row = dict(
+            ms=time_ms(torch, kernel),
+            plain_ms=time_ms(torch, lambda: cuda_attn.attention_plain(
+                q, k, v, scale)),
+            library_ms=time_ms(torch, sdpa),
+            bound=bound_ms(nbytes, flops, "bfloat16"))
+        log(f"timing K2 attention {tuple(q.shape)}/{tuple(v.shape)} bf16: "
+            f"{row['ms']:.5f} ms (device {device_ms(torch, kernel):.5f}), "
+            f"plain {row['plain_ms']:.5f}, SDPA {row['library_ms']:.5f} "
+            f"(device {device_ms(torch, sdpa):.5f}), bound "
+            f"{row['bound'][0]:.5f} ({row['bound'][1]})")
+        if n == ATTN_NS[0]:
+            rows["attn"] = row
 
     x, vlims = inputs["preproc"]
     nbytes = 2 * x.numel() * 4 + 2 * vlims.numel() * 4
@@ -1205,14 +1244,31 @@ def phase_timing(torch, mods, inputs, engine, batches):
     nbytes = (4 * q.numel() + 3 * v.numel()) * 2   # q,k,v,dO in; dq,dk,dv out
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+    kernel = lambda: cuda_attn.attention_backward(q, k, v, g, scale)
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa, (ql, kl, vl), g,
+                                           retain_graph=True)
     rows["attn_bwd"] = dict(
-        ms=time_ms(torch, lambda: cuda_attn.attention_backward(
-            q, k, v, g, scale)),
+        ms=time_ms(torch, kernel),
         plain_ms=time_ms(torch, lambda: cuda_attn.attention_backward_plain(
             q, k, v, g, scale), iters=5),
-        library_ms=time_ms(torch, lambda: torch.autograd.grad(
-            sdpa, (ql, kl, vl), g, retain_graph=True)),
+        library_ms=time_ms(torch, sdpa_bwd),
         bound=bound_ms(nbytes, flops, "bfloat16"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = kernel()
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base
+             - sum(t.numel() * t.element_size() for t in grads))
+    r = rows["attn_bwd"]
+    split = {name.split("::")[-1].split("<")[0].split("(")[0]: round(ms, 5)
+             for name, ms in device_ms(torch, kernel, by_kernel=True).items()}
+    log(f"timing K2-bwd attention {tuple(q.shape)}/{tuple(v.shape)} bf16: "
+        f"{r['ms']:.5f} ms (device {sum(split.values()):.5f}: {split}), plain "
+        f"{r['plain_ms']:.5f}, SDPA's backward {r['library_ms']:.5f} (device "
+        f"{device_ms(torch, sdpa_bwd):.5f}), bound {r['bound'][0]:.5f} "
+        f"({r['bound'][1]}); peak device memory of one call beyond its "
+        f"inputs and outputs {extra / 2**20:.3f} MiB")
 
     x, gy = inputs["upsample"]
     xl = x.detach().clone().requires_grad_()

@@ -39,11 +39,12 @@ sys.path.insert(0, REPO)
 BATCH, BATCHES, SIZE = 32, 4, 640
 TRAIN_BATCH = 16
 MOSAIC_TILE = 512
-PORT_KERNELS = ("nms_suppress_kernel", "attn_fwd_kernel", "zlims_init_kernel",
-                "reduce_kernel", "apply_kernel", "minmax_kernel",
-                "hist_kernel", "init_kernel", "attn_bwd_dq_kernel",
-                "attn_bwd_dkdv_kernel", "up2_fwd_kernel", "up2_bwd_kernel",
-                "row_shift_kernel")
+PORT_KERNELS = ("nms_suppress_kernel", "attn_fwd_mma_kernel",
+                "attn_fwd_kernel", "zlims_init_kernel", "reduce_kernel",
+                "apply_kernel", "minmax_kernel", "hist_kernel", "init_kernel",
+                "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel",
+                "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
+                "up2_fwd_kernel", "up2_bwd_kernel", "row_shift_kernel")
 LIBRARY_MARKS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "sm90_",
                  "implicit", "winograd", "fprop", "nhwc")
 

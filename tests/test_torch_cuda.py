@@ -53,11 +53,25 @@ def test_nms_kernel_bit_equal(dev, k, spread):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,n,kd,hd", [(32, 4, 400, 32, 64),
+                                         (32, 4, 256, 32, 64),
                                          (2, 2, 16, 16, 32),
+                                         (2, 2, 8, 32, 64),
                                          (1, 6, 2048, 32, 64),
-                                         (2, 1, 64, 64, 128)])
+                                         (2, 1, 64, 64, 128),
+                                         (1, 2, 24, 16, 1),
+                                         (3, 2, 40, 16, 24),
+                                         (2, 1, 72, 64, 160),
+                                         (1, 1, 2048, 64, 256),
+                                         (1, 2, 424, 64, 64),
+                                         (1, 2, 432, 64, 64),
+                                         (1, 1, 1768, 64, 64)])
 def test_attention_kernel_matches_plain(dev, dtype, b, h, n, kd, hd):
-    """f32 within 1e-5; bf16 by cuda_attn's bf16 parity rule."""
+    """f32 within 1e-5; bf16 by cuda_attn's bf16 parity rule.  The shapes
+    reach the kernels' less common paths: ragged N (padded keys), head
+    widths padded to 16 (hd 1, 24) and copied element by element (hd % 8),
+    several 64-column V passes with a ragged last one (hd 160, 256), and
+    kd = 64 at the N (424, 432, 1768) where the shortest V stage holds
+    fewer than 16 K rows."""
     g = torch.Generator(device=dev).manual_seed(n)
     q, k, v = (torch.randn(b, h, n, d, device=dev, generator=g).to(dtype)
                for d in (kd, kd, hd))
@@ -152,9 +166,16 @@ def test_histeq_kernel_bit_equal(dev, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,n,kd,hd", [(16, 4, 400, 32, 64),
+                                         (16, 4, 256, 32, 64),
                                          (2, 2, 16, 16, 32),
+                                         (2, 2, 8, 32, 64),
                                          (1, 2, 2048, 32, 64),
-                                         (2, 1, 72, 64, 160)])
+                                         (2, 1, 72, 64, 160),
+                                         (1, 2, 24, 16, 1),
+                                         (3, 2, 40, 16, 24),
+                                         (1, 1, 2048, 64, 256),
+                                         (1, 2, 424, 64, 64),
+                                         (1, 1, 1768, 64, 64)])
 def test_attention_backward_kernel_matches_plain(dev, dtype, b, h, n, kd, hd):
     """dq, dk, dv against autograd of attention_plain: f32 within 1e-5 of
     each gradient's largest value; bf16 by cuda_attn.bwd_bf16_mismatch."""
@@ -169,6 +190,38 @@ def test_attention_backward_kernel_matches_plain(dev, dtype, b, h, n, kd, hd):
             assert (x - r).abs().max().item() <= 1e-5 * r.abs().max().item()
     else:
         assert cuda_attn.bwd_bf16_mismatch(got, ref) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernel_repeats_bit_for_bit(dev, dtype):
+    """No atomics: two calls on the same inputs give equal dq, dk, dv."""
+    g_ = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, g = (torch.randn(16, 4, 400, d, device=dev, generator=g_)
+                  .to(dtype) for d in (32, 32, 64, 64))
+    first = cuda_attn.attention_backward(q, k, v, g, 32 ** -0.5)
+    second = cuda_attn.attention_backward(q, k, v, g, 32 ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_backward_kernel_has_no_nxn_scratch(dev):
+    """One bf16 backward call at the training shape [16,4,400,32/64] raises
+    the peak device memory by less than 10 MB beyond its inputs and its
+    outputs (the row statistics are 0.3 MB; an [N, N] f32 tensor per head
+    would be 41 MB)."""
+    g_ = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, g = (torch.randn(16, 4, 400, d, device=dev, generator=g_)
+                  .bfloat16() for d in (32, 32, 64, 64))
+    cuda_attn.attention_backward(q, k, v, g, 32 ** -0.5)   # build, warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    grads = cuda_attn.attention_backward(q, k, v, g, 32 ** -0.5)
+    torch.cuda.synchronize()
+    outputs = sum(t.numel() * t.element_size() for t in grads)
+    extra = torch.cuda.max_memory_allocated(dev) - base - outputs
+    assert extra < 10 * 2 ** 20, extra
 
 
 def test_fused_attention_autograd_launches_both_kernels(dev):
