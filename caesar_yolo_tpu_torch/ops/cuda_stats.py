@@ -7,15 +7,20 @@ n_valid) over the valid pixels (finite and != 0), with an exact median
 subtraction and both clips of the chan3 chain.
 
 On a CUDA tensor `clip_stats` launches the hand-written kernel in
-csrc/stats.cu (one block per plane; see the source for its design and
-bound).  On a CPU tensor it runs `ops.stats.clip_stats_plain`, the same
-arithmetic in PyTorch.  The kernel derives the mask from the values, so
-an explicit mask is taken on the CPU only.
+csrc/stats.cu: one thread-block cluster per plane, four bisection rounds
+a pass (see the source for its design and bound).  `plan` picks its
+route by the plane's size alone: the cluster route holds each plane in
+the cluster's shared memory; a plane too large for it takes the stream
+route, which reads it from device memory on every pass.  On a CPU tensor
+it runs `ops.stats.clip_stats_plain`, the same arithmetic in PyTorch.
+The kernel derives the mask from the values, so an explicit mask is
+taken on the CPU only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,38 +28,96 @@ from caesar_yolo_tpu_torch import cuda_build
 from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
 
 
+# The kernel's configuration (csrc/stats.cu), chosen by measurement on an
+# H100 (scripts/torch_kernel_tune.py, PERF.md): clusters of up to CLUSTER
+# blocks; a plane of the cluster route is spread so that a block holds
+# about BLOCK_VALUES values, and at most MAX_BLOCK_VALUES (208 KB of the
+# 227 KB of shared memory a block may use; the rest holds the
+# reductions), in blocks of CLUSTER_THREADS threads; the stream route
+# runs blocks of STREAM_THREADS.
+CLUSTER = 16
+CLUSTER_THREADS = 512
+STREAM_THREADS = 1024
+BLOCK_VALUES = 16384
+MAX_BLOCK_VALUES = 53248
+UNSCHEDULABLE = -1      # the C entry point's code for a refused cluster
+
+
+def plan(hw: int, max_cluster: int = CLUSTER) -> tuple[str, int, int]:
+    """(route, cluster size, threads a block) for planes of hw values, by
+    size alone: "cluster" holds the plane in the cluster's shared memory,
+    the smallest power-of-two cluster (up to max_cluster) that gives each
+    block at most BLOCK_VALUES values; "stream", for planes of more than
+    max_cluster * MAX_BLOCK_VALUES values, reads them from device
+    memory on every pass."""
+    if hw > max_cluster * MAX_BLOCK_VALUES:
+        return "stream", max_cluster, STREAM_THREADS
+    cluster = 1
+    while cluster < max_cluster and -(-hw // cluster) > BLOCK_VALUES:
+        cluster *= 2
+    return "cluster", cluster, CLUSTER_THREADS
+
+
 def clip_stats(values: torch.Tensor, sigma_low: float, sigma_up: float,
                maxiters: int = 5, mask: torch.Tensor | None = None):
     """values [P, H, W] f32 -> (stats [P, 5] f32 = mean, median, std,
     lower, upper; counts [P, 2] int32 = n_valid, final kept count).
-    CUDA tensors launch the kernel; CPU tensors take `clip_stats_plain`
-    (where `mask` may replace the values' own valid mask)."""
+    CUDA tensors launch the kernel on the route `plan` picks (one launch a
+    call, counted in `clip_stats.launches` and in the route's counter
+    `clip_stats.cluster_launches` or `clip_stats.stream_launches`); CPU
+    tensors take `clip_stats_plain` (where `mask` may replace the values'
+    own valid mask)."""
     if not values.is_cuda:
         return clip_stats_plain(values, mask, sigma_low, sigma_up, maxiters)
-    if mask is not None or values.ndim != 3 or values.dtype != torch.float32:
+    if (mask is not None or values.ndim != 3
+            or values.dtype != torch.float32 or values.shape[0] > 65535):
         raise ValueError(
             f"sigma-clip kernel does not take values {tuple(values.shape)} "
             f"{values.dtype}{' with an explicit mask' if mask is not None else ''}"
-            f" (it reads f32 planes [P, H, W] and derives their mask)")
+            f" (it reads up to 65535 f32 planes [P, H, W] and derives their "
+            f"mask)")
+    return launch(values, sigma_low, sigma_up, maxiters,
+                  *plan(values[0].numel()))
+
+
+def launch(values, sigma_low, sigma_up, maxiters, route, cluster, threads):
+    """One launch of the kernel on CUDA planes [P, H, W] f32 with the given
+    route, cluster size and block size (`clip_stats` passes `plan`'s)."""
     p = values.shape[0]
     hw = values[0].numel()
     values = values.contiguous()
     stats = torch.empty((p, 5), dtype=torch.float32, device=values.device)
     counts = torch.empty((p, 2), dtype=torch.int32, device=values.device)
-    fn = cuda_build.load("stats").cy_sigma_clip_stats
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     clip_stats.launches += 1
-    cuda_build.check(fn(values.data_ptr(), stats.data_ptr(),
-                        counts.data_ptr(), p, hw, float(sigma_low),
-                        float(sigma_up), int(maxiters),
-                        cuda_build.stream_ptr(values.device)),
-                     "sigma-clip kernel")
+    if route == "stream":
+        clip_stats.stream_launches += 1
+    else:
+        clip_stats.cluster_launches += 1
+    code = _entry()(values.data_ptr(), stats.data_ptr(), counts.data_ptr(),
+                    p, hw, float(sigma_low), float(sigma_up), int(maxiters),
+                    cluster, threads, int(route == "stream"),
+                    cuda_build.stream_ptr(values.device))
+    if code == UNSCHEDULABLE:
+        raise RuntimeError(f"sigma-clip kernel: a cluster of {cluster} blocks "
+                           f"of {threads} threads cannot be scheduled")
+    cuda_build.check(code, "sigma-clip kernel")
     return stats, counts
 
 
+@functools.cache
+def _entry():
+    """The C entry point, its argument types set once."""
+    fn = cuda_build.load("stats").cy_sigma_clip_stats
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 clip_stats.launches = 0
+clip_stats.cluster_launches = 0
+clip_stats.stream_launches = 0
 
 
 # The kernel against its plain version: n_valid equal; where the final

@@ -7,10 +7,14 @@ Phases (any failure exits non-zero before the last line):
   build     the hand-written kernels (csrc/*.cu, one nvcc per source, all
             started together)
   parity    each kernel against its plain PyTorch version on the card, at
-            the main paths' shapes (K2 at yolo11l's N = 400 and the mosaic
-            tiles' N = 256; K2's backward, K4 and K8 at the training path's;
+            the main paths' shapes (K1 at K = 512 and 2048; K2 at yolo11l's
+            N = 400 and the mosaic tiles' N = 256; K2's backward, K4 and K8
+            at the training path's; K5 at the mosaic's tiles, a truncated
+            group, the serial crop and the eval cutouts on its cluster
+            route and at [2, 2048, 2048] on its stream route, its route
+            counters checked; K5 and K7 with zero, NaN and constant planes;
             K7 at the eval path's cutout planes, the tile size and an odd
-            shape, with zero, NaN and constant planes)
+            shape)
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
@@ -58,10 +62,11 @@ Phases (any failure exits non-zero before the last line):
             main-path and mosaic tiles/s with K4 and with the plain
             broadcast upsample, in turns (plain, K4, K4, plain)
   timing    each kernel, its plain version and (where one exists) the
-            PyTorch library call, by CUDA events (K2 and its backward also
-            by device time under torch.profiler, K2 at both N, and the
-            backward's peak memory beyond its inputs and outputs); tiles/s
-            of the main path
+            PyTorch library call, by CUDA events (K1, K2, K2's backward and
+            K5 also by device time under torch.profiler, K1 and K2's
+            backward per launch, K2 at both N, K5 also at the serial crop,
+            and the backward's peak memory beyond its inputs and outputs);
+            tiles/s of the main path
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line {"ok": true, "device": {...}}.  Needs one card; never imports
@@ -125,6 +130,14 @@ MOSAIC_TILE = 512
 # mosaic's 512 px tiles (16 x 16)
 ATTN_NS = ((MAIN_SIZE // 32) ** 2, (MOSAIC_TILE // 32) ** 2)
 MOSAIC_SIGMAS = ((3.0, 3.0), (0.0, 20.0), (1.0, 20.0))  # bkg, chan3 clips
+# K5's parity shapes: the mosaic's tiles and a truncated group, the serial
+# crop, the eval cutouts (cluster route), and a plane too large for a
+# cluster's shared memory (stream route)
+K5_SHAPES = ((MAIN_BATCH, MOSAIC_TILE, MOSAIC_TILE),
+             (MAIN_BATCH, MOSAIC_TILE // 2, MOSAIC_TILE),
+             (1, MAIN_SIZE, MAIN_SIZE),
+             (MAIN_BATCH, TRAIN_CUTOUT, TRAIN_CUTOUT),
+             (2, 2048, 2048))
 # per batch (or serial image): one K5 launch for the background, one for
 # each chan3 clip; one K6 launch for chan3's third channel; one NMS; two
 # C2PSA attentions in yolo11l
@@ -193,6 +206,12 @@ def device_ms(torch, fn, iters=20, by_kernel=False):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             names[e.name] += e.device_time_total / 1e3 / iters
     return dict(names) if by_kernel else sum(names.values())
+
+
+def kernel_split(torch, fn):
+    """{kernel name: device ms a call} of fn() under torch.profiler."""
+    return {name.split("::")[-1].split("(")[0].split("<")[0]: round(ms, 5)
+            for name, ms in device_ms(torch, fn, by_kernel=True).items()}
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -329,29 +348,20 @@ def phase_parity(torch):
     errs["preproc"] = err
     inputs["preproc"] = (x, vlims)
 
-    # K5 and K6 at the mosaic phase's batch shape, with edge-case planes
+    # K5 at the paths' shapes, on both routes, with edge-case planes; K6 at
+    # the mosaic phase's batch shape
     from caesar_yolo_tpu_torch.ops import cuda_histeq, cuda_stats
     from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
-    from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
-    x = mosaic_planes(dev, rng)
     err = 0.0
-    for sig in MOSAIC_SIGMAS:
-        got = cuda_stats.clip_stats(x, *sig)
-        torch.cuda.synchronize()
-        ref = clip_stats_plain(x, None, *sig)
-        why = cuda_stats.stats_mismatch(got, ref)
-        same = got[1][:, 1] == ref[1][:, 1]
-        e = (got[0] - ref[0]).nan_to_num()[same].abs().max().item()
-        log(f"parity K5 sigma-clip stats {tuple(x.shape)} sigmas {sig}: "
-            f"max abs err {e:.3g}, medians equal "
-            f"{torch.equal(got[0][:, 1].nan_to_num(), ref[0][:, 1].nan_to_num())}"
-            f", kept counts equal on {int(same.sum())}/{len(same)} planes "
-            f"(rule: cuda_stats.stats_mismatch) -> {why or 'ok'}")
-        require(why is None, f"sigma-clip kernel: {why}")
-        require(int(got[1][0, 0]) == 0 and bool(got[0][0].isnan().all()),
-                "an all-zero plane must give NaN statistics")
-        err = max(err, e)
+    for shape in K5_SHAPES:
+        route, cluster, _ = cuda_stats.plan(shape[1] * shape[2])
+        for planes in k5_planes(dev, rng, shape):
+            for sig in (MOSAIC_SIGMAS if shape == K5_SHAPES[0]
+                        else MOSAIC_SIGMAS[::2]):
+                err = max(err, parity_stats(torch, planes, sig, route,
+                                            cluster))
     errs["stats"] = err
+    x = mosaic_planes(dev, rng)
     inputs["stats"] = x
     got = cuda_histeq.equalize_hist_batch(x)
     torch.cuda.synchronize()
@@ -517,6 +527,68 @@ def mosaic_planes(dev, rng):
     x[4, :256] = 0.25
     x[:, :2] = 0.0
     return torch.from_numpy(x).to(dev)
+
+
+def k5_planes(dev, rng, shape):
+    """Planes of the given shape covering the clip statistics' edge cases
+    (all zero, NaN-blanked rows, constant, a bright source, heavy
+    duplicates), spread over as many calls as the plane count needs: the
+    mosaic batch's planes at [32, 512, 512], else noise planes whose i-th
+    of each call takes the next edge case."""
+    import torch
+    if shape == (MAIN_BATCH, MOSAIC_TILE, MOSAIC_TILE):
+        return [mosaic_planes(dev, rng)]
+    p, h, w = shape
+    calls = []
+    for c in range(-(-5 // p)):
+        x = rng.normal(0, 1, shape).astype(np.float32)
+        for i in range(p):
+            case = (c * p + i) % 5
+            if case == 0:
+                x[i] = 0.0
+            elif case == 1:
+                x[i, : h // 4] = np.nan
+            elif case == 2:
+                x[i] = 3.0
+            elif case == 3:
+                x[i, h // 2:h // 2 + 8, w // 2:w // 2 + 8] += 500.0
+            else:
+                x[i, : h // 2] = 0.25
+        x[:, :2] = 0.0
+        calls.append(torch.from_numpy(x).to(dev))
+    return calls
+
+
+def parity_stats(torch, x, sig, route, cluster):
+    """K5 on planes x against its plain version by cuda_stats.stats_mismatch
+    (medians exact); the route's launch counter must show the route ran.
+    Returns the largest abs difference where the kept counts agree."""
+    from caesar_yolo_tpu_torch.ops import cuda_stats
+    from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
+    counter = f"{route}_launches"
+    before = getattr(cuda_stats.clip_stats, counter)
+    got = cuda_stats.clip_stats(x, *sig)
+    torch.cuda.synchronize()
+    require(getattr(cuda_stats.clip_stats, counter) == before + 1,
+            f"sigma-clip kernel {tuple(x.shape)} did not take the {route} "
+            f"route")
+    ref = clip_stats_plain(x, None, *sig)
+    why = cuda_stats.stats_mismatch(got, ref)
+    same = got[1][:, 1] == ref[1][:, 1]
+    e = ((got[0] - ref[0]).nan_to_num()[same].abs().max().item()
+         if bool(same.any()) else 0.0)
+    log(f"parity K5 sigma-clip stats {tuple(x.shape)} ({route} route, "
+        f"cluster {cluster}) sigmas {sig}: max abs err {e:.3g}, medians "
+        f"equal "
+        f"{torch.equal(got[0][:, 1].nan_to_num(), ref[0][:, 1].nan_to_num())}"
+        f", kept counts equal on {int(same.sum())}/{len(same)} planes, "
+        f"all-zero planes NaN "
+        f"{bool(got[0][got[1][:, 0] == 0].isnan().all())} (rule: "
+        f"cuda_stats.stats_mismatch) -> {why or 'ok'}")
+    require(why is None, f"sigma-clip kernel: {why}")
+    require(bool(got[0][got[1][:, 0] == 0].isnan().all()),
+            "an all-zero plane must give NaN statistics")
+    return e
 
 
 def phase_golden(torch):
@@ -1179,12 +1251,17 @@ def phase_timing(torch, mods, inputs, engine, batches):
     nv = valid.sum(dim=1).double()
     pairs = float((nv * (nv - 1) / 2).sum())    # IoU pairs this data needs
     nbytes = boxes_t.numel() * 4 + valid.numel() * 2
-    rows["nms"] = dict(
-        ms=time_ms(torch, lambda: cuda_nms.nms_suppress(boxes_t, valid, 0.5)),
+    kernel = lambda: cuda_nms.nms_suppress(boxes_t, valid, 0.5)
+    rows["nms"] = r = dict(
+        ms=time_ms(torch, kernel),
         plain_ms=time_ms(torch, lambda: cuda_nms.suppress_plain(
             boxes_t.transpose(1, 2), valid, 0.5), iters=5),
         library_ms=None,
         bound=bound_ms(nbytes, 14 * pairs, "float32"))
+    split = kernel_split(torch, kernel)
+    log(f"timing K1 nms {tuple(boxes_t.shape)}: {r['ms']:.5f} ms (device "
+        f"{sum(split.values()):.5f}: {split}), plain {r['plain_ms']:.5f}, "
+        f"bound {r['bound'][0]:.6f} ({r['bound'][1]})")
 
     # K2 at yolo11l's N = 400 (the kernels line) and the mosaic's N = 256;
     # beside the CUDA-event times, each call's device time under the
@@ -1222,14 +1299,25 @@ def phase_timing(torch, mods, inputs, engine, batches):
 
     from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
     from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
-    x = inputs["stats"]
+    # K5 at the mosaic's tiles (the kernels line) and the serial crop
     sig = MOSAIC_SIGMAS[0]
-    rows["stats"] = dict(
-        ms=time_ms(torch, lambda: cuda_stats.clip_stats(x, *sig)),
-        plain_ms=time_ms(torch, lambda: clip_stats_plain(x, None, *sig),
-                         iters=5),
-        library_ms=None,
-        bound=bound_ms(x.numel() * 4, 0, "float32"))
+    x = inputs["stats"]
+    crop = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, MAIN_SIZE, MAIN_SIZE)).astype(np.float32)).to(x.device)
+    for planes in (x, crop):
+        kernel = lambda: cuda_stats.clip_stats(planes, *sig)
+        r = dict(
+            ms=time_ms(torch, kernel),
+            plain_ms=time_ms(torch, lambda: clip_stats_plain(
+                planes, None, *sig), iters=5),
+            library_ms=None,
+            bound=bound_ms(planes.numel() * 4, 0, "float32"))
+        log(f"timing K5 sigma-clip stats {tuple(planes.shape)} "
+            f"({cuda_stats.plan(planes[0].numel())[0]} route): "
+            f"{r['ms']:.5f} ms (device {device_ms(torch, kernel):.5f}), "
+            f"plain {r['plain_ms']:.5f}, bound {r['bound'][0]:.6f} "
+            f"({r['bound'][1]})")
+        rows.setdefault("stats", r)
     x = inputs["histeq"]
     rows["histeq"] = dict(
         ms=time_ms(torch, lambda: cuda_histeq.equalize_hist_batch(x)),
@@ -1261,8 +1349,7 @@ def phase_timing(torch, mods, inputs, engine, batches):
     extra = (torch.cuda.max_memory_allocated() - base
              - sum(t.numel() * t.element_size() for t in grads))
     r = rows["attn_bwd"]
-    split = {name.split("::")[-1].split("<")[0].split("(")[0]: round(ms, 5)
-             for name, ms in device_ms(torch, kernel, by_kernel=True).items()}
+    split = kernel_split(torch, kernel)
     log(f"timing K2-bwd attention {tuple(q.shape)}/{tuple(v.shape)} bf16: "
         f"{r['ms']:.5f} ms (device {sum(split.values()):.5f}: {split}), plain "
         f"{r['plain_ms']:.5f}, SDPA's backward {r['library_ms']:.5f} (device "

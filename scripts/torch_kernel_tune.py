@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Configurations of the cluster-per-plane K5 (csrc/stats.cu) and the
+two-launch K1 (csrc/nms.cu) on one CUDA card.
+
+Prints the card's name and power limit, each kernel's registers, shared
+memory and spills (`nvcc -Xptxas -v`), then:
+  - K5 at the paths' shapes ([32,512,512] mosaic tiles, [32,256,512]
+    truncated tiles, [1,640,640] the serial crop, [32,132,132] eval
+    cutouts, [2,2048,2048] the stream route) for clusters of up to 8 or
+    16 blocks and blocks of 512 or 1024 threads (and, for batches of
+    planes up to 512x512, the stream route, the planes re-read from L2
+    on every pass): agreement with the
+    plain version (cuda_stats.stats_mismatch), the time by CUDA events
+    and the device time under torch.profiler;
+  - K1 at [32,4,512] and [32,4,2048]: bit-equality with the plain
+    version, the wrapper's time by CUDA events, the device time of each
+    of its two launches.
+
+Run from the repository root:  python3 scripts/torch_kernel_tune.py
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+K5_SHAPES = ((32, 512, 512), (32, 256, 512), (1, 640, 640), (32, 132, 132),
+             (2, 2048, 2048))
+
+
+def ptxas(name):
+    from caesar_yolo_tpu_torch import cuda_build
+    out = os.path.join(cuda_build.BUILD_DIR, f"ptxas_{name}.so")
+    cmd = cuda_build._command(name, out)
+    cmd.insert(1, "-Xptxas=-v")
+    log = subprocess.run(cmd, capture_output=True, text=True).stderr
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from caesar_yolo_tpu_torch import cuda_build
+    from caesar_yolo_tpu_torch.detect import cuda_nms, nms
+    from caesar_yolo_tpu_torch.ops import cuda_stats
+    from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device")
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    cuda_build.build(["stats", "nms"])
+    for name in ("stats", "nms"):
+        for ln in ptxas(name):
+            print(f"ptxas {name}: {ln}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    failed = 0
+    sig = cs.MOSAIC_SIGMAS[0]
+    for shape in K5_SHAPES:
+        if shape == (32, 512, 512):
+            x = cs.mosaic_planes(dev, rng)
+        else:
+            x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)
+                                 ).to(dev)
+            x[:, :2] = 0.0
+        ref = clip_stats_plain(x, None, *sig)
+        hw = shape[1] * shape[2]
+        configs = [(*cuda_stats.plan(hw, mc)[:2], t) for mc in (8, 16)
+                   for t in (512, 1024)]
+        if shape[0] > 1 and hw <= 512 * 512:   # planes re-read from L2
+            configs += [("stream", mc, 512) for mc in (8, 16)]
+        for route, cluster, threads in configs:
+            call = (lambda: cuda_stats.launch(x, *sig, 5, route, cluster,
+                                              threads))
+            got = call()
+            torch.cuda.synchronize()
+            why = cuda_stats.stats_mismatch(got, ref)
+            failed += why is not None
+            ms = cs.time_ms(torch, call, iters=10)
+            dms = cs.device_ms(torch, call, iters=10)
+            print(f"K5 {list(shape)} {route} cluster {cluster} threads "
+                  f"{threads}: {ms:.5f} ms (device {dms:.5f}) -> "
+                  f"{why or 'ok'}", flush=True)
+
+    for k in (512, 2048):
+        boxes, scores = cs.synthetic_detections(
+            rng, cs.MAIN_BATCH, sum((640 // s) ** 2 for s in (8, 16, 32)),
+            640.0, tied=False)
+        sel = nms._select_candidates(torch.from_numpy(boxes).to(dev),
+                                     torch.from_numpy(scores).to(dev), 0.25,
+                                     k, False)
+        boxes_t = sel[5].transpose(1, 2).contiguous()
+        valid = sel[3].contiguous()
+        call = lambda: cuda_nms.nms_suppress(boxes_t, valid, 0.5)
+        got = call()
+        torch.cuda.synchronize()
+        ok = torch.equal(got, cuda_nms.suppress_plain(
+            boxes_t.transpose(1, 2), valid, 0.5))
+        failed += not ok
+        split = {n.split("::")[-1].split("(")[0]: round(v, 5) for n, v in
+                 cs.device_ms(torch, call, by_kernel=True).items()}
+        print(f"K1 [32,4,{k}]: {cs.time_ms(torch, call):.5f} ms (device "
+              f"{split}) bit-equal {ok}", flush=True)
+    print("FAIL" if failed else "OK")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

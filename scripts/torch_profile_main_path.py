@@ -39,7 +39,7 @@ sys.path.insert(0, REPO)
 BATCH, BATCHES, SIZE = 32, 4, 640
 TRAIN_BATCH = 16
 MOSAIC_TILE = 512
-PORT_KERNELS = ("nms_suppress_kernel", "attn_fwd_mma_kernel",
+PORT_KERNELS = ("attn_fwd_mma_kernel",
                 "attn_fwd_kernel", "zlims_init_kernel", "reduce_kernel",
                 "apply_kernel", "minmax_kernel", "hist_kernel", "init_kernel",
                 "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel",
@@ -54,10 +54,12 @@ def category(name: str) -> str:
     # PyTorch's own kernels share some of the port's kernel names
     # (reduce_kernel, apply_kernel, init_kernel)
     own = "at::native" not in name
-    if own and "clip_stats_kernel" in name:
+    if own and "clip_stats_cluster_kernel" in name:
         return "port kernel K5 (sigma-clip stats)"
+    if own and ("nms_mask_kernel" in name or "nms_scan_kernel" in name):
+        return "port kernel K1 (NMS: mask, scan)"
     if own and any(k in name for k in PORT_KERNELS):
-        return "port kernels (K1-K4, K6, K8)"
+        return "port kernels (K2-K4, K6, K8)"
     if any(k in low for k in LIBRARY_MARKS):
         return "convolution / GEMM (cuDNN, cuBLAS)"
     return "other PyTorch kernels"

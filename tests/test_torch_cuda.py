@@ -51,6 +51,58 @@ def test_nms_kernel_bit_equal(dev, k, spread):
     assert torch.equal(got, cuda_nms.suppress_plain(boxes, valid, 0.5))
 
 
+def _nms_inputs(dev, b, k, spread, seed):
+    rng = np.random.default_rng(seed)
+    cx, cy = rng.random((2, b, k)) * spread
+    w, h = rng.random((2, b, k)) * 30 + 2
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                     axis=-1).astype(np.float32)
+    valid = torch.from_numpy(rng.random((b, k)) > 0.1).to(dev)
+    return torch.from_numpy(boxes).to(dev), valid
+
+
+@pytest.mark.parametrize("b,k", [(b, k) for b in (1, 32, 64)
+                                 for k in (1, 33, 512, 2048)] + [(2, 4096)])
+def test_nms_kernel_bit_equal_across_shapes(dev, b, k):
+    """The mask launch's stripes and the scan's 32-row steps at ragged and
+    large K, for one to 64 images."""
+    boxes, valid = _nms_inputs(dev, b, k, 100.0 + k / 4, k + b)
+    got = cuda_nms.nms_suppress(boxes.transpose(1, 2), valid, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_nms.suppress_plain(boxes, valid, 0.5))
+
+
+def test_nms_kernel_all_overlapping_window(dev):
+    """Every box overlaps every other (the scan's worst case: every
+    removed word is written by a long chain), plus greedy chains where
+    A kills B and B would have killed C."""
+    rng = np.random.default_rng(3)
+    b, k = 8, 512
+    base = np.array([10.0, 10.0, 60.0, 60.0], np.float32)
+    boxes = np.broadcast_to(base, (b, k, 4)).copy()
+    boxes += rng.random((b, k, 4)).astype(np.float32) * 4.0
+    chain = np.array([[0, 0, 10, 10], [0, 0, 10, 16], [0, 0, 10, 24]],
+                     np.float32) + 200.0
+    boxes[:, 100:103] = chain
+    boxes = torch.from_numpy(boxes).to(dev)
+    valid = torch.ones((b, k), dtype=torch.bool, device=dev)
+    got = cuda_nms.nms_suppress(boxes.transpose(1, 2), valid, 0.5)
+    again = cuda_nms.nms_suppress(boxes.transpose(1, 2), valid, 0.5)
+    torch.cuda.synchronize()
+    ref = cuda_nms.suppress_plain(boxes, valid, 0.5)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    assert bool(ref[:, 100].all()) and not bool(ref[:, 101].any())
+    assert bool(ref[:, 102].all())
+
+
+def test_nms_kernel_repeats_bit_for_bit(dev):
+    boxes, valid = _nms_inputs(dev, 32, 512, 300.0, 9)
+    first = cuda_nms.nms_suppress(boxes.transpose(1, 2), valid, 0.5)
+    second = cuda_nms.nms_suppress(boxes.transpose(1, 2), valid, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,n,kd,hd", [(32, 4, 400, 32, 64),
                                          (32, 4, 256, 32, 64),
@@ -142,6 +194,50 @@ def test_sigma_clip_kernel_matches_plain(dev, shape, sigmas):
     ref = clip_stats_plain(x, None, *sigmas)
     assert cuda_stats.stats_mismatch(got, ref) is None
     assert int(got[1][0, 0]) == 0 and bool(got[0][0].isnan().all())
+
+
+def _route_planes(dev, p, h, w, seed):
+    """Planes for the route tests: noise with heavy duplicates and a
+    NaN-blanked band, edge-case planes where p allows (all zero, constant,
+    a bright source), and the last plane holding exactly one valid pixel."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.normal(0, 1, (p, h, w)) * 64).astype(np.float32) / 64
+    x[:, : h // 16] = np.nan
+    if p > 4:
+        x[1] = 0.0
+        x[2] = 3.0
+        x[3, h // 2:h // 2 + 8, w // 2:w // 2 + 8] += 500.0
+    if p > 1:
+        x[-1] = 0.0
+        x[-1, h // 3, w // 3] = -2.5
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("sigmas", [(3.0, 3.0), (1.0, 20.0)])
+@pytest.mark.parametrize("shape,route", [((32, 512, 512), "cluster"),
+                                         ((1, 640, 640), "cluster"),
+                                         ((32, 132, 132), "cluster"),
+                                         ((5, 33, 47), "cluster"),
+                                         ((2, 2048, 2048), "stream")])
+def test_sigma_clip_kernel_routes(dev, shape, route, sigmas):
+    """Each route against the plain version by cuda_stats.stats_mismatch;
+    plan() picks the route by size and its counter shows it ran; two calls
+    give bit-equal statistics; a one-pixel plane keeps its pixel."""
+    assert cuda_stats.plan(shape[1] * shape[2])[0] == route
+    x = _route_planes(dev, *shape, seed=shape[2])
+    counter = f"{route}_launches"
+    before = getattr(cuda_stats.clip_stats, counter)
+    got = cuda_stats.clip_stats(x, *sigmas)
+    again = cuda_stats.clip_stats(x, *sigmas)
+    torch.cuda.synchronize()
+    assert getattr(cuda_stats.clip_stats, counter) == before + 2
+    assert torch.equal(got[0].nan_to_num(), again[0].nan_to_num())
+    assert torch.equal(got[1], again[1])
+    ref = clip_stats_plain(x, None, *sigmas)
+    assert cuda_stats.stats_mismatch(got, ref) is None
+    if shape[0] > 1:
+        assert got[1][-1].tolist() == [1, 1]
+        assert got[0][-1, 1].item() == -2.5
 
 
 def test_sigma_clip_kernel_rejects_what_it_cannot_take(dev):

@@ -1,0 +1,420 @@
+"""The arithmetic of K5's and K1's card designs, emulated on the CPU in
+plain PyTorch and held to the plain versions, which define the functions.
+
+K5 (csrc/stats.cu) takes the 24 bisection rounds of
+ops/stats.py:_order_stat_pair four at a time: the 15 midpoints of four
+rounds form a tree built with the rounds' own f32 operations; one sweep
+buckets the values inside the bracket by the number of midpoints below
+them (a 4-step search), and the counts at each node (plus the count
+below the bracket) decide the four rounds.  Where the tree is not
+ordered inside its bracket (lo + hi overflows f32) the sweep counts each
+midpoint directly.  The pin takes the smallest bracket member, its
+multiplicity and the next distinct member in one sweep.
+`four_round_search` below does the same; its brackets must equal the
+binary search's bit for bit, and its pinned values the plain version's.
+`kernel_clip_stats` runs the whole clip loop so, a later stats_of's
+first pass counting only the values the kept set lost.
+
+K1 (csrc/nms.cu) builds the kill mask by (row, word) threads, the
+image's columns in shared memory at position l * words + u for column
+32 * u + l and each block's rows interleaved with the other blocks',
+then scans it 32 rows a step: the block's removed word and its rows'
+diagonal words resolve the 32 greedy decisions, and the kept rows'
+later words are ORed into the removed words.  `word_scan` below does the
+same on integer bitmasks; its keep masks must equal `suppress_plain`'s.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from caesar_yolo_tpu_torch.detect import cuda_nms
+from caesar_yolo_tpu_torch.ops import cuda_stats, stats
+from caesar_yolo_tpu_torch.utils.boxes import iou_matrix
+
+torch.set_num_threads(1)
+
+LEVELS = 4                # bisection rounds a pass
+BINS = 1 << LEVELS        # 15 midpoints, 16 buckets
+
+
+def _mid(a, b):
+    return 0.5 * (a + b)  # f32 tensors: one rounded add, an exact halving
+
+
+def tree(lo, hi):
+    """[P] brackets -> [P, 15] midpoints of four rounds, in order."""
+    m = [None] * (BINS - 1)
+    m[7] = _mid(lo, hi)
+    m[3], m[11] = _mid(lo, m[7]), _mid(m[7], hi)
+    m[1], m[5] = _mid(lo, m[3]), _mid(m[3], m[7])
+    m[9], m[13] = _mid(m[7], m[11]), _mid(m[11], hi)
+    ends = [lo, m[1], m[3], m[5], m[7], m[9], m[11], m[13], hi]
+    for j in range(8):
+        m[2 * j] = _mid(ends[j], ends[j + 1])
+    return torch.stack(m, dim=1)
+
+
+def bucket(mids, x):
+    """The kernel's 4-step search for the number of (ordered) midpoints
+    below each value of x [P, N] (m[15] = +inf)."""
+    pad = torch.cat([mids, torch.full_like(mids[:, :1], float("inf"))], 1)
+    r = torch.zeros(x.shape, dtype=torch.int64)
+    for step in (8, 4, 2, 1):
+        probe = torch.gather(pad, 1, r + step - 1)
+        r = r + torch.where(probe < x, step, 0)
+    return r
+
+
+def node_counts(xm, lo, hi, clo, mids):
+    """count(xm <= mids[:, j]) for each node, as the kernel gets it."""
+    ordered = ((lo <= mids[:, 0]) & (mids[:, -1] <= hi)
+               & (mids[:, :-1] <= mids[:, 1:]).all(dim=1))
+    inb = (xm > lo[:, None]) & (xm <= hi[:, None])
+    r = torch.where(inb, bucket(mids, xm), BINS)   # BINS: not counted
+    below = (mids[:, None, :] < xm[:, :, None]).sum(2)
+    assert torch.equal(torch.where(inb & ordered[:, None], r, 0),
+                       torch.where(inb & ordered[:, None], below, 0))
+    hist = torch.stack([(r == j).sum(1) for j in range(BINS - 1)], 1)
+    cum = clo[:, None] + hist.cumsum(1)
+    direct = (xm[:, :, None] <= mids[:, None, :]).sum(1)
+    return torch.where(ordered[:, None], cum, direct), ordered
+
+
+def walk4(mids, c, k, lo, hi, clo):
+    """Four rounds of the binary search from the node counts c [P, 15]."""
+    node = torch.full_like(k, 7)
+    for step in (4, 2, 1, 0):
+        m = torch.gather(mids, 1, node[:, None])[:, 0]
+        cn = torch.gather(c, 1, node[:, None])[:, 0]
+        ge = cn >= k
+        hi = torch.where(ge, m, hi)
+        lo = torch.where(ge, lo, m)
+        clo = torch.where(ge, clo, cn)
+        node = torch.where(ge, node - step, node + step)
+    return lo, hi, clo
+
+
+def four_round_search(xm, k, lo0, hi0, passes=None, start=None):
+    """6 passes of 4 rounds for the k-th order statistic of xm [P, N]
+    (or the given passes from start = (lo, hi, clo)); returns the bracket
+    (lo, hi), the count below it and whether every pass's tree was
+    ordered."""
+    lo, hi, clo = start if start else (lo0.clone(), hi0.clone(),
+                                       torch.zeros_like(k))
+    all_ordered = torch.ones_like(k, dtype=torch.bool)
+    for _ in range(stats.BISECT_ROUNDS // LEVELS if passes is None
+                   else passes):
+        mids = tree(lo, hi)
+        c, ordered = node_counts(xm, lo, hi, clo, mids)
+        all_ordered &= ordered
+        lo, hi, clo = walk4(mids, c, k, lo, hi, clo)
+    return lo, hi, clo, all_ordered
+
+
+def one_pass_pin(xm, lo, hi, clo, k):
+    """The pin from (smallest member, its multiplicity, next distinct
+    member) of each bracket; every value is <= +inf."""
+    inf = torch.tensor(float("inf"))
+    inb = (xm > lo[:, None]) & (xm <= hi[:, None])
+    m1 = torch.where(inb, xm, inf).amin(1)
+    cnt = (inb & (xm == m1[:, None])).sum(1)
+    m2 = torch.where(inb & (xm > m1[:, None]), xm, inf).amin(1)
+    c1 = torch.where(torch.isinf(m1), xm.shape[1], clo + cnt)
+    return torch.where(c1 >= k, m1, torch.where(torch.isfinite(m2), m2, hi))
+
+
+def _plane(case, rng):
+    n = 4096
+    x = rng.normal(0, 1, n)
+    if case == "heavy_duplicates":
+        x = np.round(x * 3) / 3
+    elif case == "constant":
+        x = np.full(n, 2.5)
+    elif case == "two_values":
+        x = np.where(rng.random(n) < 0.5, -1.0, 7.0)
+    elif case == "n1":
+        x = np.zeros(n)
+        x[17] = 3.25
+    elif case == "n2":
+        x = np.zeros(n)
+        x[5], x[900] = -0.5, 0.75
+    elif case == "near_1e30":
+        x = 1e30 * (1 + x * 1e-3)
+    elif case == "subnormal":
+        x = (rng.integers(1, 40, n) * 1e-45) * np.where(rng.random(n) < 0.3,
+                                                         -1, 1)
+    elif case == "all_negative":
+        x = -np.abs(x) - 1e-3
+    elif case == "near_max":     # lo + hi overflows f32: direct counts
+        x = 3.0e38 + np.round(x * 8) * 1e36
+    elif case == "masked_band":
+        x[: n // 3] = np.nan
+        x[n // 3: n // 2] = 0.0
+    return torch.from_numpy(x.astype(np.float32))
+
+
+K5_CASES = ["noise", "heavy_duplicates", "constant", "two_values", "n1",
+            "n2", "near_1e30", "subnormal", "all_negative", "near_max",
+            "masked_band"]
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_four_round_search_equals_binary_search(monkeypatch, case, clip):
+    """Brackets bit-equal to _order_stat_pair's 24-round binary search,
+    pinned k1-th and k2-th values equal to its pinned values; with clip,
+    on a kept set narrowed to [-0.5, 0.5] of the plane's range (masked
+    values are +inf, as the plain version's xm)."""
+    x = _plane(case, np.random.default_rng(K5_CASES.index(case)))[None]
+    m0 = stats.valid_mask(x)
+    vmin = torch.where(m0, x, float("inf")).amin(1)
+    vmax = torch.where(m0, x, -float("inf")).amax(1)
+    span = torch.clamp(vmax - vmin, min=0.0)
+    lo0 = vmin - torch.maximum(span, vmin.abs()) * 1e-5 - 1e-30
+    keep = m0
+    if clip:
+        mid = 0.5 * vmin + 0.5 * vmax
+        keep = m0 & (x >= mid - 0.25 * span) & (x <= mid + 0.25 * span)
+    xm = torch.where(keep, x, float("inf"))
+    ni = keep.sum(1).clamp(min=1)
+    k1, k2 = (ni + 1) // 2, ni // 2 + 1
+
+    brackets = []
+    real_pin = stats._pin
+
+    def spy(xm_, lo, hi, k):
+        brackets.append((lo, hi))
+        return real_pin(xm_, lo, hi, k)
+
+    monkeypatch.setattr(stats, "_pin", spy)
+    ref1, ref2 = stats._order_stat_pair(xm, k1, k2, lo0, vmax)
+    for k, ref, (rlo, rhi) in ((k1, ref1, brackets[0]),
+                               (k2, ref2, brackets[1])):
+        lo, hi, clo, ordered = four_round_search(xm, k, lo0, vmax)
+        assert torch.equal(lo.view(torch.int32), rlo.view(torch.int32))
+        assert torch.equal(hi.view(torch.int32), rhi.view(torch.int32))
+        assert torch.equal(clo, (xm <= lo[:, None]).sum(1))
+        got = one_pass_pin(xm, lo, hi, clo, k)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        assert bool(ordered.all()) == (case != "near_max")
+
+
+def kernel_clip_stats(values, sigma_low, sigma_up, maxiters=5, history=None):
+    """The kernel's clip loop on planes [P, H, W]: a later stats_of's first
+    pass (same tree over (lo0, vmax]) takes the previous counts less those
+    of the values the kept set lost; then five more passes and the
+    one-pass pin.  Returns (median [P], final kept count [P]); history
+    collects each stats_of's (n, median, mean, std)."""
+    history = [] if history is None else history
+    inf = float("inf")
+    p = values.shape[0]
+    x = values.reshape(p, -1).float()
+    m0 = stats.valid_mask(x)
+    vmin = torch.where(m0, x, inf).amin(1)
+    vmax = torch.where(m0, x, -inf).amax(1)
+    span = torch.clamp(vmax - vmin, min=0.0)
+    lo0 = vmin - torch.maximum(span, vmin.abs()) * 1e-5 - 1e-30
+    lo_acc, up_acc = torch.full_like(vmin, -inf), torch.full_like(vmin, inf)
+    zero = torch.zeros(p, dtype=torch.int64)
+    mids = tree(lo0, vmax)
+    prev_c = prev_keep = None
+    for it in range(maxiters + 1):
+        keep = m0 & (x >= lo_acc[:, None]) & (x <= up_acc[:, None])
+        xm = torch.where(keep, x, inf)
+        n = keep.sum(1)
+        ni = n.clamp(min=1)
+        c, ordered = node_counts(xm, lo0, vmax, zero, mids)
+        if it > 0:
+            lost = torch.where(prev_keep & ~keep, x, float("nan"))
+            c_lost, _ = node_counts(lost, lo0, vmax, zero, mids)
+            c = torch.where(ordered[:, None], prev_c - c_lost, c)
+        prev_c, prev_keep = c, keep
+        r = []
+        for k in ((ni + 1) // 2, ni // 2 + 1):
+            start = walk4(mids, c, k, lo0, vmax, zero)
+            lo, hi, clo, _ = four_round_search(xm, k, lo0, vmax, 5, start)
+            r.append(one_pass_pin(xm, lo, hi, clo, k))
+        med = 0.5 * (r[0] + torch.where(ni // 2 + 1 == (ni + 1) // 2, r[0],
+                                         r[1]))
+        v = torch.where(keep, x, 0.0)
+        mean = v.sum(1) / ni.float()
+        std = torch.sqrt(torch.clamp((v * v).sum(1) / ni.float()
+                                     - mean * mean, min=0.0))
+        history.append((n, med, mean, std))
+        if it < maxiters:
+            lo_acc = torch.maximum(lo_acc, med - sigma_low * std)
+            up_acc = torch.minimum(up_acc, med + sigma_up * std)
+    return med, n
+
+
+@pytest.mark.parametrize("sigmas", [(3.0, 3.0), (0.0, 20.0), (1.0, 20.0)])
+def test_kernel_clip_loop_equals_plain(sigmas):
+    """The whole clip loop, incremental first passes included: medians and
+    final kept counts equal clip_stats_plain's on noise, a bright source,
+    heavy duplicates, a masked band and a constant plane; and once a
+    plane's kept count repeats, its statistics repeat too (the kernel
+    stops its loop there)."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(0, 1, (6, 48, 64)).astype(np.float32)
+    x[1, 20:26, 30:36] += 400.0
+    x[2] = np.round(x[2] * 4) / 4
+    x[3, :16] = np.nan
+    x[4] = 1.5
+    x[5, :, :3] = 0.0
+    x = torch.from_numpy(x)
+    history = []
+    med, n = kernel_clip_stats(x, *sigmas, history=history)
+    ref_stats, ref_counts = stats.clip_stats_plain(x, None, *sigmas)
+    assert torch.equal(n, ref_counts[:, 1].long())
+    assert torch.equal(med.view(torch.int32),
+                       ref_stats[:, 1].contiguous().view(torch.int32))
+    # the kernel stops a plane's loop when its kept count repeats: from
+    # there every stats_of repeats bit for bit
+    for (n0, *st0), (n1, *st1) in zip(history, history[1:]):
+        same = n1 == n0
+        for a, b in zip(st0, st1):
+            assert torch.equal(a[same].view(torch.int32),
+                               b[same].view(torch.int32))
+
+
+def test_four_round_tree_reaches_collapsed_brackets():
+    """Adjacent-float brackets, where midpoints round onto an end: the
+    tree stays ordered (non-decreasing) and the walk equals the search."""
+    base = torch.tensor([1.0], dtype=torch.float32)
+    nxt = torch.nextafter(base, torch.tensor([2.0]))
+    x = torch.cat([base.repeat(7), nxt.repeat(9)])[None]
+    k = torch.tensor([8])
+    mids = tree(base, nxt)
+    assert bool((mids[:, :-1] <= mids[:, 1:]).all())
+    assert set(mids.flatten().tolist()) <= {base.item(), nxt.item()}
+    lo, hi, clo, ordered = four_round_search(x, k, base - 1.0, nxt)
+    lo_b, hi_b = base - 1.0, nxt.clone()
+    for _ in range(stats.BISECT_ROUNDS):
+        m = 0.5 * (lo_b + hi_b)
+        ge = (x <= m[:, None]).sum(1) >= k
+        lo_b, hi_b = torch.where(ge, lo_b, m), torch.where(ge, m, hi_b)
+    assert torch.equal(lo, lo_b) and torch.equal(hi, hi_b)
+    assert bool(ordered.all())
+    assert one_pass_pin(x, lo, hi, clo, k).item() == nxt.item()
+
+
+@pytest.mark.parametrize("hw,route,cluster", [
+    (512 * 512, "cluster", 16), (256 * 512, "cluster", 8),
+    (640 * 640, "cluster", 16), (132 * 132, "cluster", 2),
+    (33 * 47, "cluster", 1), (2048 * 2048, "stream", 16),
+    (16 * cuda_stats.MAX_BLOCK_VALUES, "cluster", 16),
+    (16 * cuda_stats.MAX_BLOCK_VALUES + 1, "stream", 16)])
+def test_stats_route_by_size(hw, route, cluster):
+    """The route and cluster size come from the plane's size alone, and a
+    block of the cluster route never holds more than its share."""
+    assert cuda_stats.plan(hw, 16)[:2] == (route, cluster)
+    if route == "cluster":
+        chunk = (-(-hw // cluster) + 3) // 4 * 4
+        assert chunk <= cuda_stats.MAX_BLOCK_VALUES
+
+
+# ---------------------------------------------------------------- K1
+
+
+def kill_words(boxes, valid, thr):
+    """[K, words] python-int kill mask: bit l of word w of row j when j,
+    if alive, kills i = 32 w + l (the plain version's suppression)."""
+    k = boxes.shape[0]
+    words = -(-k // 32)
+    iou = iou_matrix(boxes, boxes)
+    js = torch.arange(k)
+    kill = ((iou > torch.tensor(thr)) & (js[:, None] < js[None, :])
+            & valid[:, None] & valid[None, :])
+    out = [[0] * words for _ in range(k)]
+    for j, i in kill.nonzero().tolist():
+        out[j][i >> 5] |= 1 << (i & 31)
+    return out
+
+
+def word_scan(mask, valid):
+    """The scan kernel's steps on one image: per 32-row block, the removed
+    word of the block, the rows' diagonal words and a chain of 32 greedy
+    decisions, then the kept rows' later words ORed in."""
+    k = len(mask)
+    words = -(-k // 32)
+    removed = [0] * words
+    alive = [False] * k
+    for c in range(words):
+        rows = range(32 * c, min(32 * c + 32, k))
+        vb = sum(1 << (r - 32 * c) for r in rows if valid[r])
+        diag = [mask[r][c] for r in rows]
+        rw = removed[c]
+        for i, d in enumerate(diag):
+            if (vb & ~rw) >> i & 1:
+                rw |= d
+        keep = vb & ~rw
+        for i, r in enumerate(rows):
+            alive[r] = bool(keep >> i & 1)
+            if keep >> i & 1:
+                for w in range(c + 1, words):
+                    removed[w] |= mask[r][w]
+    return torch.tensor(alive)
+
+
+def mask_layout(k, words, rows):
+    """The mask launch's index arithmetic: block b of nb = ceil(k / rows)
+    takes rows b, b + nb, ..., one (row, word) a thread; shared memory
+    holds column 32 u + l at position l * words + u.  Returns
+    {(j, w): [column read for each l]} over the threads that write."""
+    nb = -(-k // rows)
+    cols = [32 * (p % words) + p // words for p in range(32 * words)]
+    out = {}
+    for blk in range(nb):
+        for t in range(rows * words):
+            j, w = blk + nb * (t // words), t % words
+            if j >= k or w < (j >> 5):
+                continue
+            assert (j, w) not in out
+            assert cols[(j & 31) * words + (j >> 5)] == j
+            out[(j, w)] = [cols[l_ * words + w] for l_ in range(32)]
+    return out
+
+
+def _boxes(case, k, rng):
+    cx, cy = rng.random((2, k)) * (40 + 3 * k)
+    w, h = rng.random((2, k)) * 30 + 2
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    valid = rng.random(k) > 0.1
+    if case == "chains":            # A kills B, B would have killed C
+        for a in range(0, k - 2, 3):
+            boxes[a:a + 3] = [[0, 0, 10, 10], [0, 0, 10, 16], [0, 0, 10, 24]]
+            boxes[a:a + 3] += 50.0 * a
+        valid[:] = True
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "overlapping":
+        boxes = np.array([10, 10, 60, 60]) + rng.random((k, 4)) * 4
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("k", [1, 31, 33, 100])
+@pytest.mark.parametrize("case", ["random", "chains", "all_invalid",
+                                  "overlapping"])
+def test_word_scan_equals_suppress_plain(case, k):
+    boxes, valid = _boxes(case, k, np.random.default_rng(k))
+    ref = cuda_nms.suppress_plain(boxes[None], valid[None], 0.5)[0]
+    got = word_scan(kill_words(boxes, valid, 0.5), valid.tolist())
+    assert torch.equal(got, ref)
+    if case == "chains" and k >= 3:    # greedy, not one-pass, suppression
+        assert ref[:3].tolist() == [True, False, True]
+
+
+@pytest.mark.parametrize("k", [1, 33, 100, 512, 2048])
+def test_mask_layout_covers_every_needed_word(k):
+    """Every (row, word) the scan reads (the diagonal word and later
+    ones) is written by exactly one thread, reading columns 32 w .. 32 w
+    + 31 in order."""
+    words = -(-k // 32)
+    rows = max(1, min(32, 512 // words))
+    out = mask_layout(k, words, rows)
+    need = {(j, w) for j in range(k) for w in range(j >> 5, words)}
+    assert set(out) == need
+    for (j, w), cols in out.items():
+        assert cols == list(range(32 * w, 32 * w + 32))
