@@ -46,6 +46,8 @@ SOURCES = {
 HEADERS = {
     "attn": ["mma_bf16.cuh"],
     "attn_bwd": ["mma_bf16.cuh"],
+    "histeq": ["async_copy.cuh"],
+    "shift": ["async_copy.cuh"],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -161,10 +161,11 @@ def _rot_scale_sample_batch(imgs: torch.Tensor, angles: torch.Tensor,
            + (1.0 - wx.sum(-1))[:, None, :, None] * pad_val)
     out = (torch.einsum("boy,byxc->boxc", wy, out)
            + (1.0 - wy.sum(-1))[:, :, None, None] * pad_val)
-    out = out.transpose(1, 2).contiguous()                    # y-shear
-    out = fractional_row_shift_batch(out, ll[:, None] * ys[None], pad,
-                                     pad_val)
-    out = out.transpose(1, 2)
+    # y-shear: the row shift of the transposed view (the kernel reads the
+    # canvas in place; the output keeps the view's strides)
+    out = fractional_row_shift_batch(out.transpose(1, 2),
+                                     ll[:, None] * ys[None], pad,
+                                     pad_val).transpose(1, 2)
     return out[:, m:m + h, m:m + w].contiguous()
 
 

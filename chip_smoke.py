@@ -8,13 +8,18 @@ Phases (any failure exits non-zero before the last line):
             started together)
   parity    each kernel against its plain PyTorch version on the card, at
             the main paths' shapes (K1 at K = 512 and 2048; K2 at yolo11l's
-            N = 400 and the mosaic tiles' N = 256; K2's backward, K4 and K8
-            at the training path's; K5 at the mosaic's tiles, a truncated
+            N = 400 and the mosaic tiles' N = 256; K2's backward and K4 at
+            the training path's; K5 at the mosaic's tiles, a truncated
             group, the serial crop and the eval cutouts on its cluster
-            route and at [2, 2048, 2048] on its stream route, its route
-            counters checked; K5 and K7 with zero, NaN and constant planes;
-            K7 at the eval path's cutout planes, the tile size and an odd
-            shape)
+            route and at [2, 2048, 2048] on its stream route; K6 at the
+            mosaic's tiles, the serial crop, the eval cutouts and two odd
+            shapes on its cluster route and at [2, 1024, 1024] on its
+            stream route, with NaN, +-inf, constant and all-but-one planes;
+            K8 on its row and column routes at the training canvas, at a
+            row of W*C not a multiple of 4 and at C = 1, on random shifts
+            and shears; route counters checked; K5 and K7 with zero, NaN
+            and constant planes; K7 at the eval path's cutout planes, the
+            tile size and an odd shape)
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
@@ -61,12 +66,17 @@ Phases (any failure exits non-zero before the last line):
   upsample-ab
             main-path and mosaic tiles/s with K4 and with the plain
             broadcast upsample, in turns (plain, K4, K4, plain)
+  shear-ab  augment_batch ms at the training batch with the y-shear as a
+            transposed copy and a row launch and on K8's column route, in
+            turns (transpose, column, column, transpose); the same bits
   timing    each kernel, its plain version and (where one exists) the
-            PyTorch library call, by CUDA events (K1, K2, K2's backward and
-            K5 also by device time under torch.profiler, K1 and K2's
-            backward per launch, K2 at both N, K5 also at the serial crop,
-            and the backward's peak memory beyond its inputs and outputs);
-            tiles/s of the main path
+            PyTorch library call, by CUDA events (K1, K2, K2's backward,
+            K5, K6 and K8 also by device time under torch.profiler, K1,
+            K2's backward, K6 and K8 per launch, K2 at both N, K5 and K6
+            also at the serial crop, K6 on both routes, K8 on both routes
+            and as the transposed copy the column route replaces, and the
+            backward's peak memory beyond its inputs and outputs); tiles/s
+            of the main path
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line {"ok": true, "device": {...}}.  Needs one card; never imports
@@ -118,6 +128,12 @@ TRAIN_TIMED_STEPS = 5
 # the row shift's pad (augment._rot_scale_sample_batch)
 SHIFT_CANVAS = 1092
 SHIFT_PAD = SHIFT_CANVAS // 2 + 2
+# K8's parity shapes: the training canvas, a row of W*C floats that is not a
+# multiple of 4, and one channel
+SHIFT_SHAPES = (((TRAIN_BATCH, SHIFT_CANVAS, SHIFT_CANVAS, 3), SHIFT_PAD),
+                ((2, 30, 21, 3), 12), ((2, 30, 21, 1), 12))
+# augment_batch calls timed in each turn of the y-shear A/B
+AB_AUGMENTS = 10
 # yolo11l's two neck upsamples at 640 px: [B, 512, 20, 20] and [B, 512, 40, 40]
 NECK_SHAPES = ((512, 20, 20), (512, 40, 40))
 
@@ -138,6 +154,13 @@ K5_SHAPES = ((MAIN_BATCH, MOSAIC_TILE, MOSAIC_TILE),
              (1, MAIN_SIZE, MAIN_SIZE),
              (MAIN_BATCH, TRAIN_CUTOUT, TRAIN_CUTOUT),
              (2, 2048, 2048))
+# K6's parity shapes: the mosaic's tiles, the serial crop, the eval
+# cutouts, two odd shapes (cluster route) and planes past the cluster
+# route's limit (stream route)
+HISTEQ_SHAPES = ((MAIN_BATCH, MOSAIC_TILE, MOSAIC_TILE),
+                 (1, MAIN_SIZE, MAIN_SIZE),
+                 (MAIN_BATCH, TRAIN_CUTOUT, TRAIN_CUTOUT), (6, 96, 100),
+                 (5, 33, 47), (2, 1024, 1024))
 # per batch (or serial image): one K5 launch for the background, one for
 # each chan3 clip; one K6 launch for chan3's third channel; one NMS; two
 # C2PSA attentions in yolo11l
@@ -363,20 +386,71 @@ def phase_parity(torch):
     errs["stats"] = err
     x = mosaic_planes(dev, rng)
     inputs["stats"] = x
-    got = cuda_histeq.equalize_hist_batch(x)
-    torch.cuda.synchronize()
-    ref = equalize_hist(x)
-    err = (got.nan_to_num() - ref.nan_to_num()).abs().max().item()
-    log(f"parity K6 hist-eq {tuple(x.shape)}: max abs err {err:.3g} "
-        f"(tolerance 0), NaN planes equal "
-        f"{torch.equal(got.isnan(), ref.isnan())}")
-    require(err == 0 and torch.equal(got.isnan(), ref.isnan()),
-            "hist-eq kernel differs")
-    errs["histeq"] = err
+    bad = 0
+    for shape in HISTEQ_SHAPES:
+        route = cuda_histeq.plan(shape[1] * shape[2])[0]
+        planes = x if shape == HISTEQ_SHAPES[0] else histeq_planes(dev, rng,
+                                                                   shape)
+        counter = f"{route}_launches"
+        before = getattr(cuda_histeq.equalize_hist_batch, counter)
+        got = cuda_histeq.equalize_hist_batch(planes)
+        torch.cuda.synchronize()
+        ran = getattr(cuda_histeq.equalize_hist_batch, counter) == before + 1
+        ref = equalize_hist(planes)
+        err = (got.nan_to_num() - ref.nan_to_num()).abs().max().item()
+        same_nan = torch.equal(got.isnan(), ref.isnan())
+        log(f"parity K6 hist-eq {tuple(planes.shape)} ({route} route, "
+            f"counted {ran}): max abs err {err:.3g} (tolerance 0), NaN "
+            f"planes equal {same_nan}")
+        bad += not (ran and err == 0 and same_nan)
+    require(bad == 0, "hist-eq kernel differs")
+    errs["histeq"] = 0.0
     inputs["histeq"] = x
     parity_train_kernels(torch, dev, errs, inputs)
     parity_clahe(torch, dev, errs, inputs)
     return errs, inputs
+
+
+def histeq_planes(dev, rng, shape):
+    """Noise planes with K6's edge cases where the plane count allows: a
+    NaN (it poisons its plane), +inf, -inf, a constant plane, all values
+    equal but one, a bright source."""
+    import torch
+    p, h, w = shape
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    cases = [lambda a: a.__setitem__((h // 2, 3), np.nan),
+             lambda a: a.__setitem__((1, 1), np.inf),
+             lambda a: a.__setitem__((2, 2), -np.inf),
+             lambda a: a.fill(7.0),
+             lambda a: (a.fill(2.0), a.__setitem__((h - 1, w - 1), 5.0)),
+             lambda a: a.__setitem__((slice(h // 3, h // 3 + 6),
+                                      slice(w // 2, w // 2 + 6)), 300.0)]
+    for i, case in enumerate(cases[:p] if p > 1 else []):
+        case(x[i])
+    return torch.from_numpy(x).to(dev)
+
+
+def shift_case(dev, g_, shape, pad, way, kind):
+    """K8's inputs: imgs [B, H, W, C] (contiguous for the row route, the
+    transposed view of a contiguous [B, W, H, C] canvas for the column
+    route) and shifts [B, H], random past the clip or the augmentation's
+    shears tan(r) * (y - centre), |r| <= 45 degrees; the clip limits on
+    the first rows."""
+    import torch
+    b, h, w, c = shape
+    if way == "row":
+        imgs = torch.rand(shape, device=dev, generator=g_)
+    else:
+        imgs = torch.rand(b, w, h, c, device=dev, generator=g_).transpose(1, 2)
+    if kind == "random":
+        shifts = (torch.rand(b, h, device=dev, generator=g_) * 2 - 1) * (
+            pad + 2)
+    else:
+        r = (torch.rand(b, device=dev, generator=g_) * 2 - 1) * (np.pi / 4)
+        ys = torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) / 2
+        shifts = torch.tan(r)[:, None] * ys[None]
+    shifts[0, :3] = torch.tensor([0.0, -pad, pad - 1.0])
+    return imgs, shifts
 
 
 def clahe_planes(dev, p, h, w, seed, edge_cases):
@@ -495,22 +569,37 @@ def parity_train_kernels(torch, dev, errs, inputs):
     errs["upsample"] = errs["upsample_bwd"] = 0.0
     inputs["upsample"] = (x.bfloat16(), gy.bfloat16())
 
-    imgs = torch.rand(TRAIN_BATCH, SHIFT_CANVAS, SHIFT_CANVAS, 3, device=dev,
-                      generator=g_)
-    shifts = (torch.rand(TRAIN_BATCH, SHIFT_CANVAS, device=dev, generator=g_)
-              * 2 - 1) * (SHIFT_PAD + 2)
-    shifts[0, :3] = torch.tensor([0.0, -SHIFT_PAD, SHIFT_PAD - 1.0])
-    for pad_val in (114.0 / 255.0, 0.0):
-        got = cuda_shift.fractional_row_shift_batch(imgs, shifts, SHIFT_PAD,
-                                                    pad_val)
-        torch.cuda.synchronize()
-        ref = cuda_shift.row_shift_plain(imgs, shifts, SHIFT_PAD, pad_val)
-        err = (got - ref).abs().max().item()
-        log(f"parity K8 row shift {tuple(imgs.shape)} pad {SHIFT_PAD} "
-            f"pad_val {pad_val:.4f}: max abs err {err:.3g} (tolerance 0)")
-        require(err == 0, "row shift kernel differs")
+    # K8 on both routes, random shifts and shears; each route's counter
+    # must show it ran, and the output keeps the input's strides
+    bad = 0
+    for shape, pad in SHIFT_SHAPES:
+        for way in ("row", "column"):
+            for kind in ("random", "shear"):
+                imgs, shifts = shift_case(dev, g_, shape, pad, way, kind)
+                for pad_val in (114.0 / 255.0, 0.0):
+                    counter = f"{way}_launches"
+                    before = getattr(cuda_shift.fractional_row_shift_batch,
+                                     counter)
+                    got = cuda_shift.fractional_row_shift_batch(
+                        imgs, shifts, pad, pad_val)
+                    torch.cuda.synchronize()
+                    ran = getattr(cuda_shift.fractional_row_shift_batch,
+                                  counter) == before + 1
+                    ref = cuda_shift.row_shift_plain(imgs, shifts, pad,
+                                                     pad_val)
+                    err = (got - ref).abs().max().item()
+                    ok = (ran and err == 0 and torch.equal(got, ref)
+                          and got.stride() == imgs.stride())
+                    log(f"parity K8 row shift {tuple(imgs.shape)} pad {pad} "
+                        f"{way} route ({kind} shifts, counted {ran}) pad_val "
+                        f"{pad_val:.4f}: max abs err {err:.3g} (tolerance "
+                        f"0), strides kept {got.stride() == imgs.stride()}")
+                    bad += not ok
+                if shape == SHIFT_SHAPES[0][0] and kind == "shear":
+                    inputs[f"shift_{way}"] = (imgs, shifts)
+                del imgs, shifts, got, ref
+    require(bad == 0, "row shift kernel differs")
     errs["shift"] = 0.0
-    inputs["shift"] = (imgs, shifts)
 
 
 def mosaic_planes(dev, rng):
@@ -1238,6 +1327,57 @@ def phase_upsample_ab(torch, engine, batches, tmp):
             f"{[round(x, 2) for x in r['mosaic']]}")
 
 
+class transpose_yshear:
+    """Context manager: augment_batch's y-shear takes a transposed copy of
+    the canvas and the row route (the design before the column route)."""
+
+    def __enter__(self):
+        from caesar_yolo_tpu_torch.ops import cuda_shift
+        from caesar_yolo_tpu_torch.train import augment
+        self.mod, self.prev = augment, augment.fractional_row_shift_batch
+        augment.fractional_row_shift_batch = (
+            lambda imgs, *a: cuda_shift.fractional_row_shift_batch(
+                imgs.contiguous(), *a))
+
+    def __exit__(self, *exc):
+        self.mod.fractional_row_shift_batch = self.prev
+        return False
+
+
+def phase_shear_ab(torch, card):
+    """augment_batch ms at the training batch (16 images of 640 px) with
+    the y-shear as a transposed copy and a row launch and on the column
+    route, in turns (transpose, column, column, transpose); both routes
+    must give the same bits."""
+    from caesar_yolo_tpu_torch.train.augment import (augment_batch,
+                                                     draw_augment_params)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    imgs = torch.rand(TRAIN_BATCH, MAIN_SIZE, MAIN_SIZE, 3, device="cuda",
+                      generator=g)
+    boxes = torch.tensor([[[100.0, 100.0, 220.0, 180.0]]]).repeat(
+        TRAIN_BATCH, 1, 1)
+    masks = torch.ones(TRAIN_BATCH, 1, dtype=torch.bool)
+    draws = draw_augment_params(torch.Generator().manual_seed(0), TRAIN_BATCH)
+    ms, first = {"transpose": [], "column": []}, {}
+    for variant in ("transpose", "column", "column", "transpose"):
+        with transpose_yshear() if variant == "transpose" else nullcontext():
+            first.setdefault(variant, augment_batch(imgs, boxes, masks,
+                                                    *draws))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(AB_AUGMENTS):
+                augment_batch(imgs, boxes, masks, *draws)
+            torch.cuda.synchronize()
+            ms[variant].append((time.perf_counter() - t0) * 1e3 / AB_AUGMENTS)
+    same = all(torch.equal(a, b) for a, b in zip(first["transpose"],
+                                                 first["column"]))
+    log(f"y-shear A/B ({card}): augment_batch [{TRAIN_BATCH}, {MAIN_SIZE}, "
+        f"{MAIN_SIZE}, 3] ms, mean of {AB_AUGMENTS}: transpose copy + row "
+        f"route {[round(x, 3) for x in ms['transpose']]}, column route "
+        f"{[round(x, 3) for x in ms['column']]}; same bits {same}")
+    require(same, "augment_batch differs between the y-shear routes")
+
+
 def phase_timing(torch, mods, inputs, engine, batches):
     """Kernel, plain and library times at the main path's shapes, bounds
     from this run's inputs, and the main path's tiles/s."""
@@ -1318,12 +1458,24 @@ def phase_timing(torch, mods, inputs, engine, batches):
             f"plain {r['plain_ms']:.5f}, bound {r['bound'][0]:.6f} "
             f"({r['bound'][1]})")
         rows.setdefault("stats", r)
-    x = inputs["histeq"]
-    rows["histeq"] = dict(
-        ms=time_ms(torch, lambda: cuda_histeq.equalize_hist_batch(x)),
-        plain_ms=time_ms(torch, lambda: equalize_hist(x), iters=5),
-        library_ms=None,
-        bound=bound_ms(2 * x.numel() * 4, 0, "float32"))
+    # K6 at the mosaic's tiles (the kernels line), the serial crop (cluster
+    # route) and planes past the cluster route's limit (stream route)
+    rng, dev = np.random.default_rng(2), inputs["histeq"].device
+    for planes in (inputs["histeq"],
+                   histeq_planes(dev, rng, (1, MAIN_SIZE, MAIN_SIZE)),
+                   histeq_planes(dev, rng, HISTEQ_SHAPES[-1])):
+        kernel = lambda: cuda_histeq.equalize_hist_batch(planes)
+        r = dict(
+            ms=time_ms(torch, kernel),
+            plain_ms=time_ms(torch, lambda: equalize_hist(planes), iters=5),
+            library_ms=None,
+            bound=bound_ms(2 * planes.numel() * 4, 0, "float32"))
+        log(f"timing K6 hist-eq {tuple(planes.shape)} "
+            f"({cuda_histeq.plan(planes[0].numel())[0]} route): "
+            f"{r['ms']:.5f} ms (device {kernel_split(torch, kernel)}), plain "
+            f"{r['plain_ms']:.5f}, bound {r['bound'][0]:.6f} "
+            f"({r['bound'][1]})")
+        rows.setdefault("histeq", r)
 
     q, k, v, g, scale = inputs["attn_bwd"]
     b, h, n, kd = q.shape
@@ -1375,15 +1527,36 @@ def phase_timing(torch, mods, inputs, engine, batches):
         bound=bound_ms(5 * x.numel() * x.element_size(), 3 * x.numel(),
                        "float32"))
 
-    imgs, shifts = inputs["shift"]
+    # K8 at the training canvas on the augmentation's shears: the row route
+    # (the x-shear), the column route on the transposed view (the y-shear)
+    # and, for the y-shear, the transposed copy and row launch it replaces.
+    # The kernels line takes the mean of the two routes, which the path
+    # launches once each an augmented batch.
+    way_rows = {}
+    for way in ("row", "column"):
+        imgs, shifts = inputs[f"shift_{way}"]
+        kernel = lambda: cuda_shift.fractional_row_shift_batch(
+            imgs, shifts, SHIFT_PAD, 114.0 / 255.0)
+        way_rows[way] = r = dict(
+            ms=time_ms(torch, kernel),
+            plain_ms=time_ms(torch, lambda: cuda_shift.row_shift_plain(
+                imgs, shifts, SHIFT_PAD, 114.0 / 255.0), iters=5),
+            library_ms=None,
+            bound=bound_ms(2 * imgs.numel() * 4 + shifts.numel() * 4,
+                           4 * imgs.numel(), "float32"))
+        log(f"timing K8 row shift {tuple(imgs.shape)} {way} route: "
+            f"{r['ms']:.5f} ms (device {kernel_split(torch, kernel)}), plain "
+            f"{r['plain_ms']:.5f}, bound {r['bound'][0]:.5f} "
+            f"({r['bound'][1]})")
+    copy = lambda: cuda_shift.fractional_row_shift_batch(
+        imgs.contiguous(), shifts, SHIFT_PAD, 114.0 / 255.0)
+    log(f"timing K8 y-shear as a transposed copy and a row launch: "
+        f"{time_ms(torch, copy):.5f} ms (device {kernel_split(torch, copy)})")
     rows["shift"] = dict(
-        ms=time_ms(torch, lambda: cuda_shift.fractional_row_shift_batch(
-            imgs, shifts, SHIFT_PAD, 114.0 / 255.0)),
-        plain_ms=time_ms(torch, lambda: cuda_shift.row_shift_plain(
-            imgs, shifts, SHIFT_PAD, 114.0 / 255.0), iters=5),
-        library_ms=None,
-        bound=bound_ms(2 * imgs.numel() * 4 + shifts.numel() * 4,
-                       4 * imgs.numel(), "float32"))
+        ms=(way_rows["row"]["ms"] + way_rows["column"]["ms"]) / 2,
+        plain_ms=(way_rows["row"]["plain_ms"]
+                  + way_rows["column"]["plain_ms"]) / 2,
+        library_ms=None, bound=way_rows["row"]["bound"])
 
     # K7 at the eval path's planes; the tile size's times are logged.  Bytes:
     # hist reads the planes and writes the counts, blend reads the planes
@@ -1520,6 +1693,7 @@ def main() -> int:
             eval_launches = phase_eval(torch, counters, tmp, card)
             train_launches = phase_train(torch, counters, tmp, card)
             phase_upsample_ab(torch, engine, batches, tmp)
+            phase_shear_ab(torch, card)
         rows = phase_timing(torch, mods, inputs, engine, batches)
     except Exception:  # report every failure before exiting non-zero
         traceback.print_exc()

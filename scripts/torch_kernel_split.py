@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Split the time of K5 (csrc/stats.cu) and K1 (csrc/nms.cu) on one CUDA
-card, for either design: the one-block-per-plane K5 and one-block-per-
-image K1 up to commit 0a0e8d7, or the cluster-per-plane K5 and the
-two-launch K1 after it (told apart by their sources).
+"""Split the time of K5 (csrc/stats.cu), K1 (csrc/nms.cu), K6
+(csrc/histeq.cu) and K8 (csrc/shift.cu) on one CUDA card, for either
+design of K5 and K1: the one-block-per-plane K5 and one-block-per-image
+K1 up to commit 0a0e8d7, or the cluster-per-plane K5 and the two-launch
+K1 after it (told apart by their sources).
 
 For each kernel, at the mosaic path's shapes (K5 at [32, 512, 512] on
 chip_smoke.py's mosaic planes and at the serial crop's [1, 640, 640];
@@ -24,11 +25,24 @@ K1 at [32, 4, 512] on chip_smoke.py's random candidates):
     memory, the 32 decisions of each step, the keep flags and the kept
     rows' words).
 
-Run from the repository root (default: the checkout's own csrc/), or
-pointing at the csrc/ of another checkout (e.g. the parent unpacked
-with `git archive` into build/):
+K6 and K8 are timed through the checkout's own wrappers (run the script
+of another checkout to split its design):
+  - K6 at [32, 512, 512] (chip_smoke.py's mosaic planes) and at the serial
+    crop's [1, 640, 640]: the wrapper's time by CUDA events, the device
+    time of each of its launches under torch.profiler, and the bound;
+  - K8 at the training canvas [16, 1092, 1092, 3], pad 548, on shears
+    drawn as augment.py draws them (residual angles uniform in +-45
+    degrees): the x-shear on the contiguous canvas and the y-shear on its
+    transposed view (whatever the wrapper does with that view: a copy
+    and a row launch, or a launch that reads the view), each by CUDA
+    events and by device time per launch, with the bytes a second the
+    device time gives for the bound's bytes.
+
+Run from the repository root (default: the checkout's own csrc/ and all
+four kernels), or pointing at the csrc/ of another checkout (e.g. the
+parent unpacked with `git archive` into build/):
     python3 scripts/torch_kernel_split.py \
-        [--csrc <dir>/caesar_yolo_tpu_torch/csrc]
+        [--csrc <dir>/caesar_yolo_tpu_torch/csrc] [--only histeq,shift]
 Writes its results also to build/kernel_split.json.
 """
 
@@ -117,6 +131,27 @@ NMS_PATCH_NEW = [
     ("          if (w == lane + 32 * s) removed[s] |= v;\n      }\n",
      "      CLK(2)\n"),
 ]
+HISTEQ_PATCH_NEW = [
+    ("namespace {\n", READER + CLK_NEW),
+    ("  cg::cluster_group cl = cg::this_cluster();\n", "  CLKSET\n"),
+    ("  // min, max and the NaN flag over the cluster\n", "  CLK(0)\n", True),
+    ("  cl.sync();\n  lo = INFINITY;\n", "  CLK(1)\n", True),
+    ("  // the histogram: per-warp, then the block's into rank 0's\n",
+     "  CLK(2)\n", True),
+    ("[&](int, float v) { atomicAdd(&wh[bin_of(v, l)], 1); });\n"
+     "  __syncthreads();\n", "  CLK(3)\n"),
+    ("    if (t) atomicAdd(cl.map_shared_rank(sm.total, 0) + tid, t);\n  }\n",
+     "  CLK(4)\n"),
+    ("  // the CDF: an inclusive scan", "  CLK(5)\n", True),
+    ("  const Interp q = make_interp(l);\n", "  CLK(6)\n", True),
+    ("  asm volatile(\"barrier.cluster.wait.acquire.aligned;\\n\" ::: "
+     "\"memory\");\n", "  CLK(7)\n"),
+]
+HISTEQ_PHASES_NEW = ("copy into shared memory", "min/max and its push",
+                     "cluster barrier 1 and the combine",
+                     "histogram sweep and block barrier",
+                     "block histogram into rank 0", "cluster barrier 2",
+                     "scan and CDF", "apply, write and the last wait")
 STATS_PHASES = ("min/max", "moments", "bisection", "pin")
 STATS_PHASES_NEW = ("sweep", "block barrier wait", "block combine",
                     "cluster barrier", "cluster combine", "walk and trees",
@@ -138,21 +173,22 @@ def patched(text: str, patch) -> str:
 def is_new(csrc: str, name: str) -> bool:
     with open(os.path.join(csrc, f"{name}.cu")) as f:
         text = f.read()
-    return ("clip_stats_cluster_kernel" in text if name == "stats"
-            else "nms_scan_kernel" in text)
+    return {"stats": "clip_stats_cluster_kernel", "nms": "nms_scan_kernel",
+            "histeq": "histeq_cluster_kernel"}[name] in text
 
 
-def build_all(csrc: str, out_dir: str) -> dict[str, str]:
+def build_all(csrc: str, out_dir: str, names) -> dict[str, str]:
     from caesar_yolo_tpu_torch import cuda_build
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
-    for name in ("stats", "nms"):
+    for name in names:
         with open(os.path.join(csrc, f"{name}.cu")) as f:
             text = f.read()
         new = is_new(csrc, name)
         patch = {("stats", False): STATS_PATCH, ("nms", False): NMS_PATCH,
                  ("stats", True): STATS_PATCH_NEW,
-                 ("nms", True): NMS_PATCH_NEW}[name, new]
+                 ("nms", True): NMS_PATCH_NEW,
+                 ("histeq", True): HISTEQ_PATCH_NEW}[name, new]
         variants = [("plain", text), ("clk", patched(text, patch))]
         for variant, src in variants:
             path = os.path.join(out_dir, f"{name}_{variant}.cu")
@@ -161,7 +197,7 @@ def build_all(csrc: str, out_dir: str) -> dict[str, str]:
             lib = os.path.join(out_dir, f"lib{name}_{variant}.so")
             cmd = [cuda_build._nvcc(), "-gencode",
                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                   "-shared", "-Xcompiler", "-fPIC",
+                   "-shared", "-Xcompiler", "-fPIC", "-I", csrc,
                    *cuda_build.SOURCES[name], "-o", lib, path]
             jobs[f"{name}_{variant}"] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -201,6 +237,71 @@ def clock_shares(torch, lib, call, blocks, phases):
             per_block_max)
 
 
+def split_histeq_shift(torch, cs, dev, rng, kernels, libs, out):
+    """K6 and K8 through the checkout's wrappers: CUDA events, device time
+    per launch, bound and achieved bytes a second; the cluster-route K6's
+    clock64 phases from libs["histeq_clk"] where it was built."""
+    import math
+
+    import numpy as np
+
+    from caesar_yolo_tpu_torch import cuda_build
+    from caesar_yolo_tpu_torch.ops import cuda_histeq, cuda_shift
+    if "histeq" in kernels:
+        crop = torch.from_numpy(rng.normal(0, 1, (1, 640, 640)).astype(
+            np.float32)).to(dev)
+        for shape, x in (("[32,512,512]", cs.mosaic_planes(dev, rng)),
+                         ("[1,640,640]", crop)):
+            call = lambda x=x: cuda_histeq.equalize_hist_batch(x)
+            row = {"ms": cs.time_ms(torch, call),
+                   "launch_ms": cs.kernel_split(torch, call),
+                   "bound_ms": cs.bound_ms(2 * x.numel() * 4, 0,
+                                           "float32")[0]}
+            row["device_ms"] = sum(row["launch_ms"].values())
+            if "histeq_clk" in libs:    # the cluster route's phases
+                route, cluster, threads = cuda_histeq.plan(x[0].numel())
+                lib, fn = load(libs["histeq_clk"], "cy_equalize_hist",
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                               + [ctypes.c_void_p])
+                y = torch.empty_like(x)
+                shares, cyc = clock_shares(
+                    torch, lib, lambda fn=fn, x=x, y=y: fn(
+                        x.data_ptr(), y.data_ptr(), None, None, x.shape[0],
+                        x[0].numel(), cluster, threads, 0,
+                        cuda_build.stream_ptr(dev)),
+                    x.shape[0] * cluster, HISTEQ_PHASES_NEW)
+                row["shares"] = shares
+                row["split_ms"] = {k: v * row["device_ms"]
+                                   for k, v in shares.items()}
+                row["max_block_cycles"] = cyc
+            print(f"K6 {shape}: {json.dumps(row)}", flush=True)
+            out[f"K6 {shape}"] = row
+    if "shift" in kernels:
+        b, hp, pad = cs.TRAIN_BATCH, cs.SHIFT_CANVAS, cs.SHIFT_PAD
+        g = torch.Generator(device=dev).manual_seed(0)
+        imgs = torch.rand(b, hp, hp, 3, device=dev, generator=g)
+        r = (torch.rand(b, device=dev, generator=g) * 2 - 1) * (math.pi / 4)
+        cp = (cs.MAIN_SIZE - 1) / 2.0 + (hp - cs.MAIN_SIZE) // 2
+        ys = torch.arange(hp, dtype=torch.float32, device=dev) - cp
+        nbytes = 2 * imgs.numel() * 4 + b * hp * 4
+        for name, view, shifts in (
+                ("x-shear (rows)", imgs, -torch.tan(r)[:, None] * ys),
+                ("y-shear (transposed view)", imgs.transpose(1, 2),
+                 torch.tan(r)[:, None] * ys)):
+            call = (lambda v=view, s=shifts: cuda_shift
+                    .fractional_row_shift_batch(v, s, pad, 114.0 / 255.0))
+            row = {"ms": cs.time_ms(torch, call),
+                   "launch_ms": cs.kernel_split(torch, call),
+                   "bound_ms": cs.bound_ms(nbytes, 4 * imgs.numel(),
+                                           "float32")[0]}
+            row["device_ms"] = sum(row["launch_ms"].values())
+            row["bound_bytes_per_s_at_device_ms"] = (
+                nbytes / (row["device_ms"] * 1e-3))
+            print(f"K8 [16,1092,1092,3] {name}: {json.dumps(row)}",
+                  flush=True)
+            out[f"K8 {name}"] = row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -211,7 +312,10 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--csrc", default=cuda_build.CSRC)
+    parser.add_argument("--only", default="stats,nms,histeq,shift",
+                        help="comma-separated kernels to split")
     args = parser.parse_args()
+    kernels = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
         return 1
@@ -219,90 +323,99 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card)
-    libs = build_all(args.csrc, os.path.join(REPO, "build", "split"))
+    libs = build_all(args.csrc, os.path.join(REPO, "build", "split"),
+                     [n for n in ("stats", "nms") if n in kernels]
+                     + (["histeq"] if "histeq" in kernels
+                        and is_new(args.csrc, "histeq") else []))
     dev = torch.device("cuda")
     stream = cuda_build.stream_ptr(dev)
     out = {"card": card, "csrc": args.csrc}
 
-    new_k5, new_k1 = is_new(args.csrc, "stats"), is_new(args.csrc, "nms")
-    k5_args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * (
-            4 if new_k5 else 1) + [ctypes.c_void_p]
     rng = np.random.default_rng(0)
-    planes = {"[32,512,512]": cs.mosaic_planes(dev, rng),
-              "[1,640,640]": torch.from_numpy(rng.normal(
-                  0, 1, (1, 640, 640)).astype(np.float32)).to(dev)}
-    for shape, x in planes.items():
-        p, hw = x.shape[0], x[0].numel()
-        stats = torch.empty((p, 5), device=dev)
-        counts = torch.empty((p, 2), dtype=torch.int32, device=dev)
-        extra, blocks, phases = (), p, STATS_PHASES
-        if new_k5:
-            from caesar_yolo_tpu_torch.ops import cuda_stats
-            route, cluster, threads = cuda_stats.plan(hw)
-            extra = (cluster, threads, int(route == "stream"))
-            blocks, phases = p * cluster, STATS_PHASES_NEW
-        row = {}
+    new_k5, new_k1 = is_new(args.csrc, "stats"), is_new(args.csrc, "nms")
+    if "stats" in kernels:
+        k5_args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+            ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * (
+                4 if new_k5 else 1) + [ctypes.c_void_p]
+        planes = {"[32,512,512]": cs.mosaic_planes(dev, rng),
+                  "[1,640,640]": torch.from_numpy(rng.normal(
+                      0, 1, (1, 640, 640)).astype(np.float32)).to(dev)}
+        for shape, x in planes.items():
+            p, hw = x.shape[0], x[0].numel()
+            stats = torch.empty((p, 5), device=dev)
+            counts = torch.empty((p, 2), dtype=torch.int32, device=dev)
+            extra, blocks, phases = (), p, STATS_PHASES
+            if new_k5:
+                from caesar_yolo_tpu_torch.ops import cuda_stats
+                route, cluster, threads = cuda_stats.plan(hw)
+                extra = (cluster, threads, int(route == "stream"))
+                blocks, phases = p * cluster, STATS_PHASES_NEW
+            row = {}
+            for variant in ("plain", "clk"):
+                lib, fn = load(libs[f"stats_{variant}"], "cy_sigma_clip_stats",
+                               k5_args)
+                call = (lambda fn=fn: fn(x.data_ptr(), stats.data_ptr(),
+                                         counts.data_ptr(), p, hw, 3.0, 3.0, 5,
+                                         *extra, stream))
+                if variant == "plain":
+                    row["ms"] = cs.time_ms(torch, call)
+                    row["device_ms"] = cs.device_ms(torch, call)
+                else:
+                    shares, cyc = clock_shares(torch, lib, call, blocks,
+                                               phases)
+                    row["shares"] = shares
+                    row["split_ms"] = {k: v * row["device_ms"]
+                                       for k, v in shares.items()}
+                    row["max_block_cycles"] = cyc
+            print(f"K5 {shape}: {json.dumps(row)}", flush=True)
+            out[f"K5 {shape}"] = row
+
+    if "nms" in kernels:
+        boxes, scores = cs.synthetic_detections(
+            rng, cs.MAIN_BATCH, sum((640 // s) ** 2 for s in (8, 16, 32)),
+            640.0, tied=False)
+        sel = nms._select_candidates(torch.from_numpy(boxes).to(dev),
+                                     torch.from_numpy(scores).to(dev), 0.25,
+                                     cs.PRE_NMS, False)
+        boxes_t = sel[5].transpose(1, 2).contiguous()
+        valid = sel[3].contiguous()
+        b, _, k = boxes_t.shape
+        alive = torch.empty((b, k), dtype=torch.bool, device=dev)
+        scratch = torch.empty((b * k * (-(-k // 32)),), dtype=torch.int32,
+                              device=dev)
+        k1_args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+            ctypes.c_float, ctypes.c_void_p]
+        row = {"wrapper_ms": cs.time_ms(
+            torch, lambda: cuda_nms.nms_suppress(boxes_t, valid, 0.5))}
         for variant in ("plain", "clk"):
-            lib, fn = load(libs[f"stats_{variant}"], "cy_sigma_clip_stats",
-                           k5_args)
-            call = (lambda fn=fn: fn(x.data_ptr(), stats.data_ptr(),
-                                     counts.data_ptr(), p, hw, 3.0, 3.0, 5,
-                                     *extra, stream))
+            lib, fn = load(libs[f"nms_{variant}"], "cy_nms_suppress", k1_args)
+            call = (lambda fn=fn: fn(boxes_t.data_ptr(), valid.data_ptr(),
+                                     alive.data_ptr(), scratch.data_ptr(),
+                                     b, k,
+                                     0.5, stream))
             if variant == "plain":
                 row["ms"] = cs.time_ms(torch, call)
                 row["device_ms"] = cs.device_ms(torch, call)
+                if new_k1:
+                    row["launch_ms"] = {
+                        n.split("::")[-1].split("(")[0]: v for n, v in
+                        cs.device_ms(torch, call, by_kernel=True).items()}
+                ref = cuda_nms.suppress_plain(boxes_t.transpose(1, 2), valid,
+                                              0.5)
+                row["bit_equal"] = bool(torch.equal(alive, ref))
             else:
-                shares, cyc = clock_shares(torch, lib, call, blocks, phases)
+                # new K1: the scan launch's phases, scaled to its device time
+                shares, cyc = clock_shares(
+                    torch, lib, call, b,
+                    NMS_PHASES_NEW if new_k1 else NMS_PHASES)
+                scale = (sum(v for n, v in row["launch_ms"].items()
+                             if "scan" in n) if new_k1 else row["device_ms"])
                 row["shares"] = shares
-                row["split_ms"] = {k: v * row["device_ms"]
-                                   for k, v in shares.items()}
+                row["split_ms"] = {kk: v * scale for kk, v in shares.items()}
                 row["max_block_cycles"] = cyc
-        print(f"K5 {shape}: {json.dumps(row)}", flush=True)
-        out[f"K5 {shape}"] = row
-
-    boxes, scores = cs.synthetic_detections(
-        rng, cs.MAIN_BATCH, sum((640 // s) ** 2 for s in (8, 16, 32)),
-        640.0, tied=False)
-    sel = nms._select_candidates(torch.from_numpy(boxes).to(dev),
-                                 torch.from_numpy(scores).to(dev), 0.25,
-                                 cs.PRE_NMS, False)
-    boxes_t = sel[5].transpose(1, 2).contiguous()
-    valid = sel[3].contiguous()
-    b, _, k = boxes_t.shape
-    alive = torch.empty((b, k), dtype=torch.bool, device=dev)
-    scratch = torch.empty((b * k * (-(-k // 32)),), dtype=torch.int32,
-                          device=dev)
-    k1_args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
-    row = {"wrapper_ms": cs.time_ms(
-        torch, lambda: cuda_nms.nms_suppress(boxes_t, valid, 0.5))}
-    for variant in ("plain", "clk"):
-        lib, fn = load(libs[f"nms_{variant}"], "cy_nms_suppress", k1_args)
-        call = (lambda fn=fn: fn(boxes_t.data_ptr(), valid.data_ptr(),
-                                 alive.data_ptr(), scratch.data_ptr(), b, k,
-                                 0.5, stream))
-        if variant == "plain":
-            row["ms"] = cs.time_ms(torch, call)
-            row["device_ms"] = cs.device_ms(torch, call)
-            if new_k1:
-                row["launch_ms"] = {
-                    n.split("::")[-1].split("(")[0]: v for n, v in
-                    cs.device_ms(torch, call, by_kernel=True).items()}
-            ref = cuda_nms.suppress_plain(boxes_t.transpose(1, 2), valid,
-                                          0.5)
-            row["bit_equal"] = bool(torch.equal(alive, ref))
-        else:
-            # new K1: the scan launch's phases, scaled to its device time
-            shares, cyc = clock_shares(
-                torch, lib, call, b, NMS_PHASES_NEW if new_k1 else NMS_PHASES)
-            scale = (sum(v for n, v in row["launch_ms"].items()
-                         if "scan" in n) if new_k1 else row["device_ms"])
-            row["shares"] = shares
-            row["split_ms"] = {kk: v * scale for kk, v in shares.items()}
-            row["max_block_cycles"] = cyc
-    print(f"K1 [32,4,512]: {json.dumps(row)}", flush=True)
-    out["K1 [32,4,512]"] = row
+        print(f"K1 [32,4,512]: {json.dumps(row)}", flush=True)
+        out["K1 [32,4,512]"] = row
+    split_histeq_shift(torch, cs, dev, rng, kernels, libs, out)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "kernel_split.json"),
               "w") as f:

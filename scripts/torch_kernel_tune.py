@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Configurations of the cluster-per-plane K5 (csrc/stats.cu) and the
-two-launch K1 (csrc/nms.cu) on one CUDA card.
+"""Configurations of the cluster-per-plane K5 (csrc/stats.cu), the
+two-launch K1 (csrc/nms.cu), the cluster-per-plane K6 (csrc/histeq.cu)
+and K8's two routes (csrc/shift.cu) on one CUDA card.
 
 Prints the card's name and power limit, each kernel's registers, shared
 memory and spills (`nvcc -Xptxas -v`), then:
@@ -14,13 +15,25 @@ memory and spills (`nvcc -Xptxas -v`), then:
     and the device time under torch.profiler;
   - K1 at [32,4,512] and [32,4,2048]: bit-equality with the plain
     version, the wrapper's time by CUDA events, the device time of each
-    of its two launches.
+    of its two launches;
+  - K6 at [32,512,512] (chip_smoke.py's mosaic planes), [1,640,640] and
+    [32,132,132] for clusters of up to 4, 8 or 16 blocks of 512 or 1024
+    threads, and the stream route: bit-equality, CUDA events, device
+    time;
+  - K8 at [16,1092,1092,3], pad 548, on the augmentation's shears: the
+    row route (the x-shear), the y-shear as a transposed copy plus a row
+    launch, and the column route on the transposed view for strips of
+    X columns and bands of Y rows: bit-equality, CUDA events, device
+    time.
 
-Run from the repository root:  python3 scripts/torch_kernel_tune.py
+Run from the repository root:
+    python3 scripts/torch_kernel_tune.py [--only stats,nms,histeq,shift]
 """
 
 from __future__ import annotations
 
+import argparse
+import math
 import os
 import subprocess
 import sys
@@ -42,6 +55,80 @@ def ptxas(name):
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
+def tune_histeq(torch, cs, dev, rng) -> int:
+    """K6's configurations; returns the number that differ from the plain
+    version."""
+    import numpy as np
+
+    from caesar_yolo_tpu_torch.ops import cuda_histeq
+    from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
+    failed = 0
+    for shape in ((32, 512, 512), (1, 640, 640), (32, 132, 132)):
+        x = (cs.mosaic_planes(dev, rng) if shape == (32, 512, 512) else
+             torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+             .to(dev))
+        ref = equalize_hist(x).nan_to_num()
+        hw = shape[1] * shape[2]
+        configs = [(*cuda_histeq.plan(hw, mc)[:2], t)
+                   for mc in (4, 8, 16) for t in (512, 1024)]
+        configs = [c for c in dict.fromkeys(configs) if c[0] == "cluster"]
+        for route, cluster, threads in configs + [
+                ("stream", 16, cuda_histeq.STREAM_THREADS)]:
+            call = lambda: cuda_histeq.launch(x, route, cluster, threads)
+            try:
+                ok = torch.equal(call().nan_to_num(), ref)
+            except RuntimeError as err:     # a refused cluster
+                print(f"K6 {list(shape)} {route} cluster {cluster} threads "
+                      f"{threads}: {err}", flush=True)
+                continue
+            failed += not ok
+            ms = cs.time_ms(torch, call)
+            dms = cs.device_ms(torch, call)
+            print(f"K6 {list(shape)} {route} cluster {cluster} threads "
+                  f"{threads}: {ms:.5f} ms (device {dms:.5f}) bit-equal "
+                  f"{ok}", flush=True)
+    return failed
+
+
+def tune_shift(torch, cs, dev) -> int:
+    """K8's routes and the column route's tiles; returns the number of
+    configurations that differ from the plain version."""
+    from caesar_yolo_tpu_torch.ops import cuda_shift
+    b, hp, pad, pad_val = cs.TRAIN_BATCH, cs.SHIFT_CANVAS, cs.SHIFT_PAD, 0.45
+    g = torch.Generator(device=dev).manual_seed(0)
+    canvas = torch.rand(b, hp, hp, 3, device=dev, generator=g)
+    r = (torch.rand(b, device=dev, generator=g) * 2 - 1) * (math.pi / 4)
+    ys = torch.arange(hp, dtype=torch.float32, device=dev) - (hp - 1) / 2
+    shifts = torch.tan(r)[:, None] * ys[None]
+    k0, f = (t.contiguous() for t in cuda_shift._split_shifts(shifts, pad))
+    view = canvas.transpose(1, 2)
+    ref = cuda_shift.row_shift_plain(view, shifts, pad, pad_val)
+    failed = 0
+
+    def report(name, call, want):
+        nonlocal failed
+        ok = torch.equal(call(), want)
+        failed += not ok
+        print(f"K8 {name}: {cs.time_ms(torch, call):.5f} ms (device "
+              f"{cs.device_ms(torch, call):.5f}) bit-equal {ok}", flush=True)
+
+    report("row route (x-shear on the canvas)",
+           lambda: cuda_shift.launch(canvas, k0, f, pad_val, "row"),
+           cuda_shift.row_shift_plain(canvas, shifts, pad, pad_val))
+    report("y-shear, transposed copy + row route",
+           lambda: cuda_shift.launch(view.contiguous(), k0, f, pad_val,
+                                     "row"), ref)
+    for xw in (8, 16, 32, 64):
+        for yh in (16, 32, 64, 128):
+            for threads in (256, 512):
+                report(f"y-shear, column route X {xw} Y {yh} threads "
+                       f"{cuda_shift.col_threads(3, xw, threads)}",
+                       lambda: cuda_shift.launch(view, k0, f, pad_val,
+                                                 "column", xw, yh, threads),
+                       ref)
+    return failed
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -52,21 +139,29 @@ def main() -> int:
     from caesar_yolo_tpu_torch.ops import cuda_stats
     from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
 
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", default="stats,nms,histeq,shift",
+                        help="comma-separated kernels to tune")
+    kernels = parser.parse_args().only.split(",")
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    cuda_build.build(["stats", "nms"])
-    for name in ("stats", "nms"):
+    cuda_build.build(kernels)
+    for name in kernels:
         for ln in ptxas(name):
             print(f"ptxas {name}: {ln}")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     failed = 0
+    if "histeq" in kernels:
+        failed += tune_histeq(torch, cs, dev, rng)
+    if "shift" in kernels:
+        failed += tune_shift(torch, cs, dev)
     sig = cs.MOSAIC_SIGMAS[0]
-    for shape in K5_SHAPES:
+    for shape in K5_SHAPES if "stats" in kernels else ():
         if shape == (32, 512, 512):
             x = cs.mosaic_planes(dev, rng)
         else:
@@ -92,7 +187,7 @@ def main() -> int:
                   f"{threads}: {ms:.5f} ms (device {dms:.5f}) -> "
                   f"{why or 'ok'}", flush=True)
 
-    for k in (512, 2048):
+    for k in (512, 2048) if "nms" in kernels else ():
         boxes, scores = cs.synthetic_detections(
             rng, cs.MAIN_BATCH, sum((640 // s) ** 2 for s in (8, 16, 32)),
             640.0, tied=False)

@@ -248,16 +248,65 @@ def test_sigma_clip_kernel_rejects_what_it_cannot_take(dev):
         cuda_stats.clip_stats(x.double(), 3.0, 3.0)
 
 
-@pytest.mark.parametrize("shape", [(32, 512, 512), (6, 96, 100),
-                                   (5, 33, 47)])
+def _histeq_planes(dev, p, h, w, seed):
+    """_edge_planes, and where p allows a plane holding +inf, one holding
+    -inf, and one whose values are all equal but one."""
+    x = _edge_planes(dev, p, h, w, seed)
+    extra = [lambda a: a.__setitem__((h // 2, w // 2), float("inf")),
+             lambda a: a.__setitem__((h // 3, 1), -float("inf")),
+             lambda a: (a.fill_(2.0), a.__setitem__((h - 1, w - 1), 5.0))]
+    for i, fill in zip(range(5, p), extra):
+        fill(x[i])
+    return x
+
+
+@pytest.mark.parametrize("shape", [(32, 512, 512), (1, 640, 640),
+                                   (32, 132, 132), (6, 96, 100),
+                                   (5, 33, 47), (8, 33, 47)])
 def test_histeq_kernel_bit_equal(dev, shape):
-    x = _edge_planes(dev, *shape, seed=shape[2])
+    """The cluster route, one launch a call, bit-equal to equalize_hist on
+    noise and the edge planes (a NaN poisons its plane; +-inf, constant,
+    all equal but one)."""
+    assert cuda_histeq.plan(shape[1] * shape[2])[0] == "cluster"
+    x = (_histeq_planes(dev, *shape, seed=shape[2]) if shape[0] > 1 else
+         torch.randn(shape, device=dev))
+    before = (cuda_histeq.equalize_hist_batch.launches,
+              cuda_histeq.equalize_hist_batch.cluster_launches)
     got = cuda_histeq.equalize_hist_batch(x)
     torch.cuda.synchronize()
+    assert (cuda_histeq.equalize_hist_batch.launches,
+            cuda_histeq.equalize_hist_batch.cluster_launches) == (
+                before[0] + 1, before[1] + 1)
     ref = equalize_hist(x)
     assert torch.equal(got.isnan(), ref.isnan())
-    assert bool(got[1].isnan().all())            # a NaN poisons its plane
+    if shape[0] > 1:
+        assert bool(got[1].isnan().all())        # a NaN poisons its plane
     assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
+def test_histeq_kernel_stream_route(dev):
+    """Planes past the cluster route's limit take the four-launch stream
+    route, bit-equal too."""
+    shape = (2, 1024, 1024)
+    assert shape[1] * shape[2] > 16 * cuda_histeq.MAX_BLOCK_VALUES
+    assert cuda_histeq.plan(shape[1] * shape[2])[0] == "stream"
+    x = torch.randn(shape, device=dev)
+    x[1, 5, 5] = float("nan")
+    before = cuda_histeq.equalize_hist_batch.stream_launches
+    got = cuda_histeq.equalize_hist_batch(x)
+    torch.cuda.synchronize()
+    assert cuda_histeq.equalize_hist_batch.stream_launches == before + 1
+    ref = equalize_hist(x)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
+def test_histeq_kernel_rejects_what_it_cannot_take(dev):
+    with pytest.raises(ValueError):
+        cuda_histeq.equalize_hist_batch(torch.randn(2, 16, 16, device=dev)
+                                        .double())
+    with pytest.raises(ValueError):
+        cuda_histeq.equalize_hist_batch(torch.randn(16, 16, device=dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -350,19 +399,88 @@ def test_upsample_kernels_bit_equal(dev, dtype, shape):
     assert torch.equal(gx, cuda_upsample.upsample2x_backward_plain(g))
 
 
+def _shift_case(dev, shape, pad, way, kind):
+    """imgs [B, H, W, C] (contiguous for the row route, the transposed view
+    of a contiguous [B, W, H, C] canvas for the column route) and shifts
+    [B, H]: random ones past the clip (far apart within a strip) or the
+    augmentation's shears; the clip limits on the first rows."""
+    b, h, w, c = shape
+    g_ = torch.Generator(device=dev).manual_seed(h + w + c)
+    if way == "row":
+        imgs = torch.rand(shape, device=dev, generator=g_)
+    else:
+        imgs = torch.rand(b, w, h, c, device=dev, generator=g_).transpose(1, 2)
+    if kind == "random":
+        shifts = (torch.rand(b, h, device=dev, generator=g_) * 2 - 1) * (
+            pad + 3)
+    else:
+        r = (torch.rand(b, device=dev, generator=g_) * 2 - 1) * (np.pi / 4)
+        r[0] = np.pi / 4
+        ys = torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) / 2
+        shifts = torch.tan(r)[:, None] * ys[None]
+    shifts[0, :3] = torch.tensor([0.0, -pad, pad - 1.0])
+    return imgs, shifts
+
+
+@pytest.mark.parametrize("kind", ["random", "shear"])
+@pytest.mark.parametrize("way", ["row", "column"])
 @pytest.mark.parametrize("pad_val", [114 / 255, 1.0])
 @pytest.mark.parametrize("shape,pad", [((16, 1092, 1092, 3), 548),
-                                       ((2, 30, 20, 3), 12)])
-def test_row_shift_kernel_bit_equal(dev, shape, pad, pad_val):
-    b, h, w, c = shape
-    g_ = torch.Generator(device=dev).manual_seed(h)
-    imgs = torch.rand(shape, device=dev, generator=g_)
-    shifts = (torch.rand(b, h, device=dev, generator=g_) * 2 - 1) * (pad + 3)
-    shifts[0, :3] = torch.tensor([0.0, -pad, pad - 1.0])
+                                       ((2, 30, 20, 3), 12),
+                                       ((2, 30, 21, 3), 12),
+                                       ((2, 30, 21, 1), 12)])
+def test_row_shift_kernel_bit_equal(dev, shape, pad, pad_val, way, kind):
+    """Both routes bit-equal to row_shift_plain, W*C a multiple of 4 and
+    not, C = 1, shifts at the clip limits -pad and pad - 1; the output
+    keeps the input's strides and the route's counter shows it ran."""
+    imgs, shifts = _shift_case(dev, shape, pad, way, kind)
+    counter = f"{way}_launches"
+    before = getattr(cuda_shift.fractional_row_shift_batch, counter)
     got = cuda_shift.fractional_row_shift_batch(imgs, shifts, pad, pad_val)
     torch.cuda.synchronize()
+    assert getattr(cuda_shift.fractional_row_shift_batch,
+                   counter) == before + 1
+    assert got.stride() == imgs.stride()
     ref = cuda_shift.row_shift_plain(imgs, shifts, pad, pad_val)
     assert torch.equal(got, ref)
+
+
+def test_row_shift_kernel_rejects_layouts(dev):
+    """A layout neither route takes raises; nothing is copied into one."""
+    imgs = torch.rand(2, 8, 6, 3, device=dev)
+    shifts = torch.zeros(2, 8, device=dev)
+    for bad in (imgs.permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2),
+                imgs[:, :, ::2], imgs.permute(1, 0, 2, 3).contiguous()
+                .permute(1, 0, 2, 3)):
+        with pytest.raises(ValueError):
+            cuda_shift.fractional_row_shift_batch(
+                bad, shifts[:, :bad.shape[1]], 4)
+    with pytest.raises(ValueError):
+        cuda_shift.fractional_row_shift_batch(imgs.double(), shifts, 4)
+
+
+def test_augment_batch_column_route_equals_transpose_route(dev, monkeypatch):
+    """augment_batch with the y-shear on the column route (the canvas read
+    in place) gives the same bits as with a transposed copy on the row
+    route (the design before it)."""
+    from caesar_yolo_tpu_torch.train import augment
+
+    g = torch.Generator().manual_seed(3)
+    images = torch.rand(4, 64, 64, 3, generator=g).to(dev)
+    boxes = torch.tensor([[[10.0, 10.0, 30.0, 30.0]]]).repeat(4, 1, 1)
+    masks = torch.ones(4, 1, dtype=torch.bool)
+    draws = augment.draw_augment_params(g, 4)
+    cols = cuda_shift.fractional_row_shift_batch.column_launches
+    got = augment.augment_batch(images, boxes, masks, *draws)
+    assert cuda_shift.fractional_row_shift_batch.column_launches == cols + 1
+    monkeypatch.setattr(
+        augment, "fractional_row_shift_batch",
+        lambda imgs, *a: cuda_shift.fractional_row_shift_batch(
+            imgs.contiguous(), *a))
+    ref = augment.augment_batch(images, boxes, masks, *draws)
+    torch.cuda.synchronize()
+    for x, r in zip(got, ref):
+        assert torch.equal(x, r)
 
 
 def _clahe_planes(dev, p, h, w, seed):

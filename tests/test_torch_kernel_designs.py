@@ -22,6 +22,18 @@ then scans it 32 rows a step: the block's removed word and its rows'
 diagonal words resolve the 32 greedy decisions, and the kept rows'
 later words are ORed into the removed words.  `word_scan` below does the
 same on integer bitmasks; its keep masks must equal `suppress_plain`'s.
+
+K6 (csrc/histeq.cu, cluster route) splits each plane into the cluster's
+blocks, combines their min/max/NaN partials, adds their histograms and
+scans the 256 bins eight warps of 32 at a time; `cluster_histeq` below
+does the same, and its output must equal `equalize_hist`'s bit for bit.
+
+K8 (csrc/shift.cu) indexes a row by j + k*C on the row route, and on
+the column route stages, for each strip of X columns and band of Y
+output rows, only the source rows the band's taps reach (or reads
+device memory when they do not fit); `row_route` and `column_route`
+below do the same, and their outputs must equal `row_shift_plain`'s bit
+for bit.
 """
 
 import numpy as np
@@ -29,7 +41,9 @@ import pytest
 import torch
 
 from caesar_yolo_tpu_torch.detect import cuda_nms
-from caesar_yolo_tpu_torch.ops import cuda_stats, stats
+from caesar_yolo_tpu_torch.ops import (cuda_histeq, cuda_shift, cuda_stats,
+                                       stats)
+from caesar_yolo_tpu_torch.ops.histeq import NBINS, _to_index, equalize_hist
 from caesar_yolo_tpu_torch.utils.boxes import iou_matrix
 
 torch.set_num_threads(1)
@@ -418,3 +432,246 @@ def test_mask_layout_covers_every_needed_word(k):
     assert set(out) == need
     for (j, w), cols in out.items():
         assert cols == list(range(32 * w, 32 * w + 32))
+
+
+# ---------------------------------------------------------------- K6
+
+
+def warp_scan(hist):
+    """The kernel's inclusive scan of [256] counts: each warp of 32 bins
+    scans its own, then adds the totals of the warps before it."""
+    warps = hist.reshape(NBINS // 32, 32).cumsum(dim=1)
+    before = torch.cat([torch.zeros(1, dtype=hist.dtype),
+                        warps[:, -1].cumsum(0)[:-1]])
+    return (warps + before[:, None]).reshape(-1), warps[:, -1].sum()
+
+
+def cluster_histeq(planes, cluster):
+    """K6's cluster route: each plane in `cluster` parts of a 4-aligned
+    chunk (the last parts may be short or empty), partial min/max/NaN and
+    histograms combined over the parts, the warp scan, the apply."""
+    p = planes.shape[0]
+    flat = planes.reshape(p, -1).float()
+    hw = flat.shape[1]
+    chunk = (-(-hw // cluster) + 3) // 4 * 4
+    out = torch.empty_like(flat)
+    for i in range(p):
+        parts = [flat[i, r * chunk:(r + 1) * chunk] for r in range(cluster)]
+        nan = any(bool(v.isnan().any()) for v in parts)
+        real = [v[~v.isnan()] for v in parts]
+        lo = min((float(v.min()) for v in real if len(v)), default=np.inf)
+        hi = max((float(v.max()) for v in real if len(v)), default=-np.inf)
+        vmin = torch.tensor(np.nan if nan else lo, dtype=torch.float32)
+        span = (torch.tensor(1.0) if nan or not hi > lo
+                else torch.tensor(hi, dtype=torch.float32) - vmin)
+        hist = sum(torch.bincount(
+            _to_index((v - vmin) / span * NBINS, NBINS - 1),
+            minlength=NBINS) for v in parts)
+        cum, total = warp_scan(hist)
+        cdf = cum.float() / total.float()
+        step = span / NBINS
+        c0 = vmin + 0.5 * step
+        for r, v in enumerate(parts):
+            pos = torch.clamp((v - c0) / step, 0.0, float(NBINS - 1))
+            i0 = _to_index(pos, NBINS - 2)
+            f = torch.clamp(pos - i0.float(), 0.0, 1.0)
+            out[i, r * chunk:r * chunk + len(v)] = (cdf[i0] * (1.0 - f)
+                                                    + cdf[i0 + 1] * f)
+    return out.reshape(planes.shape)
+
+
+def _histeq_planes(p, h, w, seed):
+    """Noise planes and the edge cases: a NaN, +-inf, a constant plane,
+    all values equal but one, a bright source."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (p, h, w)).astype(np.float32)
+    cases = [("nan", lambda a: a.__setitem__((h // 2, 3), np.nan)),
+             ("inf", lambda a: a.__setitem__((1, 1), np.inf)),
+             ("-inf", lambda a: a.__setitem__((2, 2), -np.inf)),
+             ("const", lambda a: a.fill(7.0)),
+             ("all but one", lambda a: (a.fill(2.0),
+                                        a.__setitem__((h - 1, w - 1), 5.0))),
+             ("source", lambda a: a.__setitem__(
+                 (slice(h // 3, h // 3 + 4), slice(w // 2, w // 2 + 4)),
+                 a[h // 3:h // 3 + 4, w // 2:w // 2 + 4] + 300.0))]
+    for i, (_, fill) in enumerate(cases[:p]):
+        fill(x[i])
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("shape,cluster", [
+    ((6, 64, 64), 16), ((6, 64, 64), 1), ((6, 33, 47), 4), ((6, 5, 7), 16),
+    ((1, 80, 80), 16), ((6, 132, 132), 2)])
+def test_cluster_histeq_equals_plain(shape, cluster):
+    x = _histeq_planes(*shape, seed=sum(shape) + cluster)
+    got = cluster_histeq(x, cluster)
+    ref = equalize_hist(x)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+    assert bool(got[0].isnan().all())          # a NaN poisons its plane
+
+
+def test_warp_scan_equals_cumsum():
+    hist = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 5000, NBINS)).int()
+    cum, total = warp_scan(hist)
+    assert torch.equal(cum, hist.cumsum(0).int())
+    assert int(total) == int(hist.sum())
+
+
+@pytest.mark.parametrize("hw,route,cluster", [
+    (512 * 512, "cluster", 16), (640 * 640, "cluster", 16),
+    (132 * 132, "cluster", 2), (96 * 100, "cluster", 1),
+    (33 * 47, "cluster", 1), (256 * 512, "cluster", 8),
+    (16 * cuda_histeq.MAX_BLOCK_VALUES, "cluster", 16),
+    (16 * cuda_histeq.MAX_BLOCK_VALUES + 1, "stream", 16),
+    (2048 * 2048, "stream", 16)])
+def test_histeq_route_by_size(hw, route, cluster):
+    """K6's route and cluster size come from the plane's size alone, and
+    a block of the cluster route never holds more than its share."""
+    assert cuda_histeq.plan(hw)[:2] == (route, cluster)
+    if route == "cluster":
+        chunk = (-(-hw // cluster) + 3) // 4 * 4
+        assert chunk <= cuda_histeq.MAX_BLOCK_VALUES
+
+
+# ---------------------------------------------------------------- K8
+
+
+def _lerp(a0, a1, f):
+    return a0 * (1.0 - f) + a1 * f
+
+
+def row_route(imgs, k0, f, pad_val):
+    """K8's row route on a contiguous canvas: taps j + k*C and j + (k+1)*C
+    of each row of W*C floats, out of frame outside [0, W*C)."""
+    b, h, w, c = imgs.shape
+    n = w * c
+    rows = imgs.reshape(b * h, n)
+    a = torch.arange(n)[None] + (k0.reshape(-1).long() * c)[:, None]
+    taps = []
+    for t in (a, a + c):
+        inside = (t >= 0) & (t < n)
+        taps.append(torch.where(inside, rows.gather(1, t.clamp(0, n - 1)),
+                                torch.tensor(pad_val)))
+    return _lerp(*taps, f.reshape(-1, 1)).reshape(imgs.shape)
+
+
+def column_route(canvas, k0, f, pad_val, xw, yh):
+    """K8's column route on a canvas [B, N, R, C] shifted along N (one
+    shift per column): strips of xw columns, bands of yh rows, the band's
+    source rows [lo, hi] staged when they fit in yh + xw + 2 rows.
+    Returns the output and how many bands were staged and read directly."""
+    b, n, r, c = canvas.shape
+    cap = yh + xw + 2
+    out = torch.empty_like(canvas)
+    staged = direct = 0
+    for bb in range(b):
+        for x0 in range(0, r, xw):
+            xs = min(xw, r - x0)
+            k = k0[bb, x0:x0 + xs].long()
+            fr = f[bb, x0:x0 + xs][None, :, None]
+            for y0 in range(0, n, yh):
+                ys = min(yh, n - y0)
+                lo = max(0, y0 + int(k.min()))
+                hi = min(n - 1, y0 + ys + int(k.max()))
+                fits = hi - lo + 1 <= cap
+                staged += fits
+                direct += not fits
+                src = (canvas[bb, lo:hi + 1, x0:x0 + xs] if fits
+                       else canvas[bb, :, x0:x0 + xs])
+                base = lo if fits else 0
+                y = torch.arange(y0, y0 + ys)[:, None] + k[None]   # [ys, xs]
+                taps = []
+                for t in (y, y + 1):
+                    inside = (t >= 0) & (t < n)
+                    i = (t - base).clamp(0, src.shape[0] - 1)
+                    if fits:     # every in-frame tap is a staged row
+                        assert bool(((t - base)[inside] < src.shape[0]).all())
+                    v = (src[i, torch.arange(xs)[None]] if len(src)
+                         else torch.zeros(ys, xs, c))   # no tap in frame
+                    taps.append(torch.where(inside[..., None], v,
+                                            torch.tensor(pad_val)))
+                out[bb, y0:y0 + ys, x0:x0 + xs] = _lerp(*taps, fr)
+    return out, staged, direct
+
+
+def _canvas(b, s, c, seed):
+    return torch.from_numpy(np.random.default_rng(seed).random(
+        (b, s, s, c), dtype=np.float32))
+
+
+def _shear_shifts(b, s, seed):
+    """The augmentation's shifts tan(r) * (i - centre), |r| <= 45 deg."""
+    r = (np.random.default_rng(seed).random(b) * 2 - 1) * np.pi / 4
+    r[0] = np.pi / 4
+    ys = np.arange(s, dtype=np.float32) - (s - 1) / 2
+    return torch.from_numpy((np.tan(r)[:, None] * ys[None]).astype(np.float32))
+
+
+@pytest.mark.parametrize("c,w", [(3, 20), (1, 21), (3, 21)])
+def test_row_route_equals_plain(c, w):
+    """The row route's flat index math, shifts at the clip limits and past
+    them, W*C a multiple of 4 and not."""
+    imgs = _canvas(2, w, c, w)
+    pad = w // 2 + 2
+    shifts = (torch.rand(2, w, generator=torch.Generator().manual_seed(c))
+              * 2 - 1) * (pad + 3)
+    shifts[0, :3] = torch.tensor([-pad, pad - 1.0, 0.5])
+    k0, f = cuda_shift._split_shifts(shifts, pad)
+    for pad_val in (114 / 255, 0.0):
+        assert torch.equal(row_route(imgs, k0, f, pad_val),
+                           cuda_shift.row_shift_plain(imgs, shifts, pad,
+                                                      pad_val))
+
+
+@pytest.mark.parametrize("xw,yh", [(16, 64), (4, 8), (8, 16), (3, 5)])
+@pytest.mark.parametrize("c", [3, 1])
+def test_column_route_equals_plain_on_the_view(xw, yh, c):
+    """The column route's tiles on the y-shear (the transposed view of the
+    canvas): the augmentation's shears are staged; random shifts, far
+    apart within a strip, read device memory; both bit-equal."""
+    s = 40 if yh < 32 else 120      # more rows than a band stages
+    canvas = _canvas(3, s, c, xw * yh)
+    pad = s // 2 + 2
+    view = canvas.transpose(1, 2)
+    rand = (torch.rand(3, s, generator=torch.Generator().manual_seed(yh))
+            * 2 - 1) * (pad + 3)
+    rand[0, :2] = torch.tensor([-pad, pad - 1.0])
+    for shifts, expect in ((_shear_shifts(3, s, xw), "staged"),
+                           (rand, "direct")):
+        k0, f = cuda_shift._split_shifts(shifts, pad)
+        ref = cuda_shift.row_shift_plain(view, shifts, pad, 114 / 255)
+        got, staged, direct = column_route(canvas, k0, f, 114 / 255, xw, yh)
+        assert torch.equal(got.transpose(1, 2), ref)
+        if expect == "staged":
+            assert direct == 0
+        else:
+            assert direct > 0
+
+
+@pytest.mark.parametrize("shape,make,want", [
+    ((2, 6, 5, 3), lambda t: t, "row"),
+    ((2, 6, 5, 3), lambda t: t.transpose(1, 2).contiguous().transpose(1, 2),
+     "column"),
+    ((2, 6, 5, 1), lambda t: t.transpose(1, 2).contiguous().transpose(1, 2),
+     "column"),
+    ((2, 1, 5, 3), lambda t: t.transpose(1, 2).contiguous().transpose(1, 2),
+     "row"),
+    ((1, 6, 5, 3), lambda t: t.permute(0, 2, 1, 3).contiguous().permute(
+        0, 2, 1, 3), "column"),
+    ((2, 6, 5, 3), lambda t: t.permute(0, 1, 3, 2).contiguous().permute(
+        0, 1, 3, 2), ValueError),
+    ((2, 6, 5, 3), lambda t: t.permute(1, 0, 2, 3).contiguous().permute(
+        1, 0, 2, 3), ValueError),
+    ((2, 6, 5, 3), lambda t: t[:, :, ::2], ValueError)])
+def test_shift_route_from_strides(shape, make, want):
+    """K8's route comes from the strides alone: a contiguous canvas takes
+    the row route, the transposed view of one the column route; a channel
+    stride that is not 1, or any other layout, is refused."""
+    t = make(torch.zeros(shape))
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            cuda_shift.route(t.shape, t.stride())
+    else:
+        assert cuda_shift.route(t.shape, t.stride()) == want

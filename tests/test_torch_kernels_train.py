@@ -180,3 +180,36 @@ def test_row_shift_matches_reference_forms(monkeypatch, pad_val):
         assert (np.abs(got - r) > 0).mean() < 0.25
     whole = np.floor(shifts) == shifts
     np.testing.assert_array_equal(got[whole], ref[whole])
+
+
+@pytest.mark.parametrize("pad_val", [114 / 255, 0.0])
+@pytest.mark.parametrize("s,c", [(24, 3), (21, 1)])
+def test_row_shift_on_transposed_view_matches_jax_yshear(pad_val, s, c):
+    """The y-shear as the port's augment.py runs it, the row shift of the
+    canvas's transposed view with no copy, against the reference's
+    swapaxes, _row_shift_batch, swapaxes (caesar_yolo_tpu/train/
+    augment.py:237-240) on shears like the augmentation's and whole
+    shifts: bit-equal to the shift of a contiguous transposed copy; to
+    JAX bit-equal where the shift is whole and within one f32 ulp where
+    it has a fraction (XLA's FMA contraction, as above)."""
+    rng = np.random.default_rng(s + c)
+    canvas = rng.random((3, s, s, c), dtype=np.float32)
+    pad = s // 2 + 2
+    ys = np.arange(s, dtype=np.float32) - (s - 1) / 2
+    r = np.array([np.pi / 4, -0.3, 0.0], dtype=np.float32)
+    shifts = (np.tan(r)[:, None] * ys[None]).astype(np.float32)
+    shifts[2] = np.round(rng.random(s) * 2 * (pad + 2) - pad - 2)
+    view = torch.from_numpy(canvas).transpose(1, 2)
+    sh = torch.from_numpy(shifts)
+    got = cuda_shift.fractional_row_shift_batch(view, sh, pad, pad_val)
+    copy = cuda_shift.row_shift_plain(view.contiguous(), sh, pad, pad_val)
+    assert torch.equal(got, copy)
+    got = got.transpose(1, 2).numpy()
+    ref = np.asarray(jnp.swapaxes(_row_shift_batch(
+        jnp.swapaxes(jnp.asarray(canvas), 1, 2), jnp.asarray(shifts), pad,
+        pad_val), 1, 2))
+    assert (np.abs(got - ref) <= np.spacing(np.abs(ref))).all()
+    whole = np.broadcast_to((np.floor(shifts) == shifts)[:, None, :, None],
+                            got.shape)
+    np.testing.assert_array_equal(got[whole], ref[whole])
+    assert whole[2].all()
