@@ -1,7 +1,7 @@
 // Asynchronous copies from device memory into shared memory, shared by the
-// kernels that stage their inputs on chip (shift.cu, histeq.cu): 4- and
-// 16-byte cp.async with commit groups, and bulk copies (cp.async.bulk)
-// whose completion an mbarrier counts in bytes.
+// kernels that stage their inputs on chip (shift.cu, histeq.cu,
+// preproc.cu): 4- and 16-byte cp.async with commit groups, and bulk copies
+// (cp.async.bulk) whose completion an mbarrier counts in bytes.
 #pragma once
 
 #include <cstdint>

@@ -47,6 +47,7 @@ HEADERS = {
     "attn": ["mma_bf16.cuh"],
     "attn_bwd": ["mma_bf16.cuh"],
     "histeq": ["async_copy.cuh"],
+    "preproc": ["async_copy.cuh"],
     "shift": ["async_copy.cuh"],
 }
 

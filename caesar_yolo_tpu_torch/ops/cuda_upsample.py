@@ -7,14 +7,18 @@ kernel on the card in serving and in training, and its gradient too.
 
 `upsample2x(x[B, C, H, W])` is differentiable.  On a CUDA tensor the
 forward and the backward launch the kernels of csrc/upsample.cu, which
-take and return channels_last memory (the port's layout on the card); on
-a CPU tensor they run `upsample2x_plain` (the reference's broadcast form,
+return channels_last memory (the port's layout on the card); the
+backward reads any gradient whose channels are contiguous where it lies
+(in the YOLO neck, a channel slice of the concat's channels_last
+gradient), in vectors of the width `backward_plan` picks.  On a CPU
+tensor they run `upsample2x_plain` (the reference's broadcast form,
 layers.py:475-477) and `upsample2x_backward_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -69,30 +73,69 @@ def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
 upsample2x_forward.launches = 0
 
 
+def backward_plan(shape, strides, offset: int, itemsize: int) -> int:
+    """Bytes of each vector K4's backward moves on a gradient of `shape`
+    [B, C, 2H, 2W] with element `strides` (channel stride 1) and data
+    offset `offset` elements: the widest of 16, 8, 4 and 2 bytes (not
+    below the element) that divides C's bytes, the offset's and the batch,
+    row and pixel strides' bytes."""
+    _, c, _, _ = shape
+    if c > 1 and strides[1] != 1:
+        raise ValueError(f"upsample backward kernel reads channels with "
+                         f"stride 1, not {strides[1]}")
+    terms = (c, offset, strides[0], strides[2], strides[3])
+    return next(vb for vb in (16, 8, 4, 2, itemsize)
+                if vb >= itemsize and all(t * itemsize % vb == 0
+                                          for t in terms))
+
+
 def upsample2x_backward(g: torch.Tensor) -> torch.Tensor:
-    """The gradient alone: the kernel on CUDA, the plain form on the CPU."""
+    """The gradient alone: the kernel on CUDA, the plain form on the CPU.
+    A CUDA gradient whose channels are contiguous is read where it lies;
+    any other is made channels_last first (counted in
+    `upsample2x_backward.copies`)."""
     if not g.is_cuda:
         return upsample2x_backward_plain(g)
-    b, c, h2, w2 = g.shape
+    _, c, h2, w2 = g.shape
     if h2 % 2 or w2 % 2 or g.dtype not in _DTYPE_CODES:
         raise ValueError(f"upsample backward kernel does not take "
                          f"{tuple(g.shape)} {g.dtype}")
-    g = _channels_last(g)
+    if c > 1 and g.stride(1) != 1:
+        g = _channels_last(g)
+        upsample2x_backward.copies += 1
+    return launch_backward(g, backward_plan(g.shape, g.stride(),
+                                            g.storage_offset(),
+                                            g.element_size()))
+
+
+def launch_backward(g, vec_bytes):
+    """One launch of the backward kernel on a CUDA gradient g [B, C, 2H, 2W]
+    with channel stride 1, moving vectors of vec_bytes (`upsample2x_backward`
+    passes `backward_plan`'s)."""
+    b, c, h2, w2 = g.shape
     gx = torch.empty((b, c, h2 // 2, w2 // 2), dtype=g.dtype,
                      device=g.device, memory_format=torch.channels_last)
-    fn = cuda_build.load("upsample").cy_upsample2x_bwd
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     upsample2x_backward.launches += 1
-    cuda_build.check(fn(g.data_ptr(), gx.data_ptr(), b, h2 // 2, w2 // 2, c,
-                        _DTYPE_CODES[g.dtype],
-                        cuda_build.stream_ptr(g.device)),
-                     "upsample backward kernel")
+    cuda_build.check(_bwd_entry()(
+        g.data_ptr(), gx.data_ptr(), b, h2 // 2, w2 // 2, c, g.stride(0),
+        g.stride(2), g.stride(3), _DTYPE_CODES[g.dtype], vec_bytes,
+        cuda_build.stream_ptr(g.device)), "upsample backward kernel")
     return gx
 
 
+@functools.cache
+def _bwd_entry():
+    """The backward's C entry point, its argument types set once."""
+    fn = cuda_build.load("upsample").cy_upsample2x_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 upsample2x_backward.launches = 0
+upsample2x_backward.copies = 0
 
 
 class _Upsample2x(torch.autograd.Function):

@@ -9,7 +9,13 @@ Phases (any failure exits non-zero before the last line):
   parity    each kernel against its plain PyTorch version on the card, at
             the main paths' shapes (K1 at K = 512 and 2048; K2 at yolo11l's
             N = 400 and the mosaic tiles' N = 256; K2's backward and K4 at
-            the training path's; K5 at the mosaic's tiles, a truncated
+            the training path's, K4's backward on the concat's channel
+            slice, at an offset not 16-byte aligned, at a C not a multiple
+            of 8 (no copy) and on an NCHW gradient (one copy); K3 at the
+            main path's tiles and the eval cutouts on its cluster route and
+            at [2, 2048, 2048] on its stream route, with all-zero, NaN,
+            constant and all-masked-but-one planes; K5 at the mosaic's
+            tiles, a truncated
             group, the serial crop and the eval cutouts on its cluster
             route and at [2, 2048, 2048] on its stream route; K6 at the
             mosaic's tiles, the serial crop, the eval cutouts and two odd
@@ -19,7 +25,7 @@ Phases (any failure exits non-zero before the last line):
             row of W*C not a multiple of 4 and at C = 1, on random shifts
             and shears; route counters checked; K5 and K7 with zero, NaN
             and constant planes; K7 at the eval path's cutout planes, the
-            tile size and an odd shape)
+            tile size and an odd shape; K3, K4, K6, K7 and K8 bit-equal)
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
@@ -62,7 +68,9 @@ Phases (any failure exits non-zero before the last line):
             one batch), then a --resume from step_2 that runs a third epoch
             and keeps the best metric; K1, K2, K2-backward, K4 (forward and
             backward) and K8 must have launched as often as the steps and
-            validations imply; step time, images/s and validation time
+            validations imply, and K4's backward must have read every
+            gradient where it lies (no copy); step time, images/s and
+            validation time
   upsample-ab
             main-path and mosaic tiles/s with K4 and with the plain
             broadcast upsample, in turns (plain, K4, K4, plain)
@@ -71,12 +79,15 @@ Phases (any failure exits non-zero before the last line):
             turns (transpose, column, column, transpose); the same bits
   timing    each kernel, its plain version and (where one exists) the
             PyTorch library call, by CUDA events (K1, K2, K2's backward,
-            K5, K6 and K8 also by device time under torch.profiler, K1,
-            K2's backward, K6 and K8 per launch, K2 at both N, K5 and K6
-            also at the serial crop, K6 on both routes, K8 on both routes
-            and as the transposed copy the column route replaces, and the
-            backward's peak memory beyond its inputs and outputs); tiles/s
-            of the main path
+            K3, K5, K6 and K8 also by device time under torch.profiler, K1,
+            K2's backward, K3, K4's backward, K6 and K8 per launch, K2 at
+            both N, K3 also at the eval cutouts, K5 and K6 also at the
+            serial crop, K6 on both routes, K8 on both routes and as the
+            transposed copy the column route replaces, K4's backward at the
+            concat's slice with its time on a contiguous gradient and the
+            channels_last copy of the slice beside it, and K2's backward's
+            peak memory beyond its inputs and outputs); tiles/s of the main
+            path
 
 Prints the card's name and power limit, a `kernels` JSON line, and as the
 last line {"ok": true, "device": {...}}.  Needs one card; never imports
@@ -109,10 +120,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # tolerances of the parity phase (bf16 attention: cuda_attn.bf16_mismatch,
 # at most BF16_ATOL and a changed share of at most BF16_MAX_CHANGED_SHARE;
-# clip statistics: cuda_stats.stats_mismatch, medians exact; histogram
-# equalisation: bit-equal)
+# clip statistics: cuda_stats.stats_mismatch, medians exact; zscale +
+# min-max and histogram equalisation: bit-equal)
 ATTN_F32_TOL = 1e-5
-PREPROC_TOL = 1e-6
 # K2 backward in f32: within 1e-5 of each gradient's largest value; in bf16
 # by cuda_attn.bwd_bf16_mismatch.  K4 and K8: bit-equal.
 ATTN_BWD_F32_REL_TOL = 1e-5
@@ -154,6 +164,11 @@ K5_SHAPES = ((MAIN_BATCH, MOSAIC_TILE, MOSAIC_TILE),
              (1, MAIN_SIZE, MAIN_SIZE),
              (MAIN_BATCH, TRAIN_CUTOUT, TRAIN_CUTOUT),
              (2, 2048, 2048))
+# K3's parity shapes: the main path's tiles, the eval cutouts (cluster
+# route) and planes past the cluster route's limit (stream route; two edge
+# planes and a noise plane)
+PREPROC_SHAPES = ((MAIN_BATCH, MAIN_SIZE, MAIN_SIZE),
+                  (MAIN_BATCH, TRAIN_CUTOUT, TRAIN_CUTOUT), (3, 2048, 2048))
 # K6's parity shapes: the mosaic's tiles, the serial crop, the eval
 # cutouts, two odd shapes (cluster route) and planes past the cluster
 # route's limit (stream route)
@@ -347,29 +362,36 @@ def phase_parity(torch):
         errs["attn"] = max(errs.get("attn", 0.0), err)
         inputs[f"attn{n}"] = args
 
-    # K3: 32 planes of 640x640, one all zero, one holding a NaN
-    x = torch.from_numpy(rng.normal(0, 1, (MAIN_BATCH, MAIN_SIZE, MAIN_SIZE))
-                         .astype(np.float32)).to(dev)
-    x[3] = 0.0
-    x[5, 0, 0] = float("nan")
-    x[7, 100:200, 100:200] = 0.0
-    vmin, vmax = zscale_limits(x)
-    vlims = torch.stack([vmin, vmax], dim=1)
-    out, zl = cuda_preproc.zscale_minmax(x, vlims)
-    torch.cuda.synchronize()
-    ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims)
-    valid = torch.isfinite(zl[:, 0]) & (zl[:, 1] > zl[:, 0])
-    rvalid = torch.isfinite(rzl[:, 0]) & (rzl[:, 1] > rzl[:, 0])
-    err = (out - ref).abs().max().item()
-    log(f"parity K3 zscale+minmax: max abs err {err:.3g} (tolerance "
-        f"{PREPROC_TOL}), valid equal {torch.equal(valid, rvalid)}, "
-        f"invalid planes {(~valid).nonzero().flatten().tolist()}")
-    require(err <= PREPROC_TOL and torch.equal(valid, rvalid),
-            "zscale+minmax kernel differs")
-    require(not bool(valid[3]) and not bool(valid[5]),
-            "zero / NaN planes must be invalid")
-    errs["preproc"] = err
-    inputs["preproc"] = (x, vlims)
+    # K3 on both routes with the edge planes, bit-equal, the route counted:
+    # the main path's tiles take one draw of rng (the later checks' planes
+    # follow it), the other shapes their own generator
+    bad = 0
+    own = np.random.default_rng(3)
+    for shape in PREPROC_SHAPES:
+        route = cuda_preproc.plan(shape[1] * shape[2])[0]
+        x = preproc_planes(dev, rng if shape == PREPROC_SHAPES[0] else own,
+                           shape)
+        vmin, vmax = zscale_limits(x)
+        vlims = torch.stack([vmin, vmax], dim=1)
+        counter = f"{route}_launches"
+        before = getattr(cuda_preproc.zscale_minmax, counter)
+        out, zl = cuda_preproc.zscale_minmax(x, vlims)
+        torch.cuda.synchronize()
+        ran = getattr(cuda_preproc.zscale_minmax, counter) == before + 1
+        ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims)
+        valid = torch.isfinite(zl[:, 0]) & (zl[:, 1] > zl[:, 0])
+        same = torch.equal(out, ref) and torch.equal(zl, rzl)
+        err = (out - ref).abs().max().item()
+        log(f"parity K3 zscale+minmax {tuple(shape)} ({route} route, counted "
+            f"{ran}): max abs err {err:.3g} (tolerance 0), bit-equal {same}, "
+            f"invalid planes {(~valid).nonzero().flatten().tolist()}")
+        bad += not (ran and same and not bool(valid[0] | valid[1])
+                    and bool(valid[-1]))
+        if shape == PREPROC_SHAPES[0]:
+            inputs["preproc"] = (x, vlims)
+    require(bad == 0, "zscale+minmax kernel differs (the all-zero and NaN "
+            "planes must be invalid, the last noise plane valid)")
+    errs["preproc"] = 0.0
 
     # K5 at the paths' shapes, on both routes, with edge-case planes; K6 at
     # the mosaic phase's batch shape
@@ -428,6 +450,38 @@ def histeq_planes(dev, rng, shape):
     for i, case in enumerate(cases[:p] if p > 1 else []):
         case(x[i])
     return torch.from_numpy(x).to(dev)
+
+
+def preproc_planes(dev, rng, shape, offset=0):
+    """Noise planes [P, H, W] with K3's edge cases on the planes before the
+    last, as many as there are: all zero, a NaN (on a pixel zscale
+    samples, so the limits are NaN), a constant plane, all masked but one
+    pixel, a masked square, +inf, 2% of the pixels over 60 decades, planes
+    at 1e-17 and 1e25 (operands past the fast division's range); the last
+    plane stays noise.  Takes one draw of rng; the edge cases draw from
+    their own generator.  The planes start `offset` floats into their
+    storage (offset 1: not 16-byte aligned)."""
+    import torch
+    p, h, w = shape
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    own = np.random.default_rng(h * w)
+    cases = [lambda a: a.fill(0.0),
+             lambda a: a.__setitem__((0, 0), np.nan),
+             lambda a: a.fill(7.0),
+             lambda a: (a.fill(0.0), a.__setitem__((h // 2, w // 3), 2.5)),
+             lambda a: a.__setitem__((slice(h // 6, h // 3),
+                                      slice(w // 6, w // 3)), 0.0),
+             lambda a: a.__setitem__((h - 1, 1), np.inf),
+             lambda a: a.__setitem__(  # 2% of the pixels over 60 decades
+                 np.unravel_index(own.choice(a.size, a.size // 50), a.shape),
+                 own.choice([-1.0, 1.0], a.size // 50)
+                 * 10.0 ** own.uniform(-30, 30, a.size // 50)),
+             lambda a: a.__imul__(1e-17), lambda a: a.__imul__(1e25)]
+    for i, case in enumerate(cases[:p - 1]):
+        case(x[i])
+    flat = torch.empty(offset + x.size, device=dev)
+    flat[offset:] = torch.from_numpy(x.reshape(-1)).to(dev)
+    return flat[offset:].view(shape)
 
 
 def shift_case(dev, g_, shape, pad, way, kind):
@@ -546,28 +600,49 @@ def parity_train_kernels(torch, dev, errs, inputs):
     errs["attn_bwd"] = max(d.max().item() for d in diffs)
     inputs["attn_bwd"] = (*args, scale)
 
+    # K4 forward; its backward on the path's input (the first C channels of
+    # the concat's channels_last gradient), at an offset that is not 16-byte
+    # aligned, at a C that is not a multiple of 8 (each read where it lies,
+    # no copy) and on an NCHW gradient (one copy): all bit-equal
     bad = 0
     for c, hh, ww in NECK_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(TRAIN_BATCH, c, hh, ww, device=dev,
                             generator=g_).to(dtype).contiguous(
                                 memory_format=torch.channels_last)
-            gy = torch.randn(TRAIN_BATCH, c, 2 * hh, 2 * ww, device=dev,
-                             generator=g_).to(dtype).contiguous(
-                                 memory_format=torch.channels_last)
+            full = torch.randn(TRAIN_BATCH, 2 * c, 2 * hh, 2 * ww, device=dev,
+                               generator=g_).to(dtype).contiguous(
+                                   memory_format=torch.channels_last)
             y = cuda_upsample.upsample2x_forward(x)
-            gx = cuda_upsample.upsample2x_backward(gy)
             torch.cuda.synchronize()
             ok = (torch.equal(y, cuda_upsample.upsample2x_plain(x))
-                  and torch.equal(gx,
-                                  cuda_upsample.upsample2x_backward_plain(gy))
                   and y.is_contiguous(memory_format=torch.channels_last))
+            log(f"parity K4 upsample {tuple(x.shape)} {dtype}: forward "
+                f"bit-equal {ok}")
             bad += not ok
-            log(f"parity K4 upsample {tuple(x.shape)} {dtype}: forward and "
-                f"backward bit-equal {ok}")
+            for case, gy, copies in (
+                    ("the concat's slice", full[:, :c], 0),
+                    ("offset 3", full[:, 3:3 + c], 0),
+                    (f"C = {c - 2}", full[:, :c - 2], 0),
+                    ("NCHW", full[:, :c].contiguous(), 1)):
+                before = cuda_upsample.upsample2x_backward.copies
+                gx = cuda_upsample.upsample2x_backward(gy)
+                torch.cuda.synchronize()
+                copied = cuda_upsample.upsample2x_backward.copies - before
+                vb = cuda_upsample.backward_plan(
+                    gy.shape, gy.stride(), gy.storage_offset(),
+                    gy.element_size()) if case != "NCHW" else None
+                ok = (torch.equal(
+                    gx, cuda_upsample.upsample2x_backward_plain(gy))
+                    and copied == copies)
+                log(f"parity K4 upsample backward {tuple(gy.shape)} {dtype} "
+                    f"{case} (strides {gy.stride()}, vectors {vb} bytes): "
+                    f"bit-equal {ok}, copies {copied} (expected {copies})")
+                bad += not ok
+            if dtype == torch.bfloat16 and (c, hh, ww) == NECK_SHAPES[-1]:
+                inputs["upsample"] = (x, full[:, :c])
     require(bad == 0, "upsample kernels differ from the plain versions")
     errs["upsample"] = errs["upsample_bwd"] = 0.0
-    inputs["upsample"] = (x.bfloat16(), gy.bfloat16())
 
     # K8 on both routes, random shifts and shears; each route's counter
     # must show it ran, and the output keeps the input's strides
@@ -860,6 +935,7 @@ def phase_train(torch, counters, tmp, card):
         for name, (argv, steps, n_val, n_inter) in runs.items():
             for c in counters.values():
                 c.launches = 0
+            counters["upsample_bwd"].copies = 0
             reports.clear()
             t0 = time.perf_counter()
             rc, trainer = cli_train.run(argv)
@@ -881,6 +957,13 @@ def phase_train(torch, counters, tmp, card):
                 f"dataset)")
             require(launches[name] == expect,
                     f"train {name} run did not launch the kernels as expected")
+            copies = counters["upsample_bwd"].copies
+            read = launches[name]["upsample_bwd"]
+            log(f"train {name}: K4's backward read {read} gradients, copied "
+                f"{copies} of them first (expected 0: the concat's channel "
+                f"slices are read where they lie)")
+            require(copies == 0,
+                    f"train {name}: K4's backward copied {copies} gradients")
             losses = [float(l) for _, l in trainer.loss_log]
             require(len(losses) == steps and np.isfinite(losses).all(),
                     f"train {name} losses {losses}")
@@ -1383,6 +1466,7 @@ def phase_timing(torch, mods, inputs, engine, batches):
     from this run's inputs, and the main path's tiles/s."""
     import torch.nn.functional as F
 
+    from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
     (cuda_nms, cuda_attn, cuda_preproc, cuda_stats, cuda_histeq,
      cuda_upsample, cuda_shift, cuda_clahe) = mods
     rows = {}
@@ -1428,14 +1512,26 @@ def phase_timing(torch, mods, inputs, engine, batches):
         if n == ATTN_NS[0]:
             rows["attn"] = row
 
-    x, vlims = inputs["preproc"]
-    nbytes = 2 * x.numel() * 4 + 2 * vlims.numel() * 4
-    rows["preproc"] = dict(
-        ms=time_ms(torch, lambda: cuda_preproc.zscale_minmax(x, vlims)),
-        plain_ms=time_ms(torch, lambda: cuda_preproc.zscale_minmax_plain(
-            x, vlims)),
-        library_ms=None,
-        bound=bound_ms(nbytes, 12 * x.numel(), "float32"))
+    # K3 at the main path's tiles (the kernels line) and the eval cutouts
+    rng = np.random.default_rng(3)
+    for planes in (inputs["preproc"][0],
+                   preproc_planes(inputs["preproc"][0].device, rng,
+                                  PREPROC_SHAPES[1])):
+        vlims = torch.stack(zscale_limits(planes), dim=1)
+        kernel = lambda: cuda_preproc.zscale_minmax(planes, vlims)
+        r = dict(
+            ms=time_ms(torch, kernel),
+            plain_ms=time_ms(torch, lambda: cuda_preproc.zscale_minmax_plain(
+                planes, vlims)),
+            library_ms=None,
+            bound=bound_ms(2 * planes.numel() * 4 + 2 * vlims.numel() * 4,
+                           12 * planes.numel(), "float32"))
+        log(f"timing K3 zscale+minmax {tuple(planes.shape)} "
+            f"({cuda_preproc.plan(planes[0].numel())[0]} route): "
+            f"{r['ms']:.5f} ms (device {kernel_split(torch, kernel)}), plain "
+            f"{r['plain_ms']:.5f}, bound {r['bound'][0]:.6f} "
+            f"({r['bound'][1]})")
+        rows.setdefault("preproc", r)
 
     from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
     from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
@@ -1518,14 +1614,29 @@ def phase_timing(torch, mods, inputs, engine, batches):
         library_ms=time_ms(torch, lambda: F.interpolate(
             x, scale_factor=2, mode="nearest")),
         bound=bound_ms(5 * x.numel() * x.element_size(), 0, "bfloat16"))
-    rows["upsample_bwd"] = dict(
-        ms=time_ms(torch, lambda: cuda_upsample.upsample2x_backward(gy)),
-        plain_ms=time_ms(torch, lambda: cuda_upsample.upsample2x_backward_plain(
-            gy)),
+    # K4's backward at the path's input, the concat's channel slice (the
+    # kernels line), beside it on a contiguous gradient and the parent's
+    # channels_last copy of the slice
+    kernel = lambda: cuda_upsample.upsample2x_backward(gy)
+    rows["upsample_bwd"] = r = dict(
+        ms=time_ms(torch, kernel),
+        plain_ms=time_ms(
+            torch, lambda: cuda_upsample.upsample2x_backward_plain(gy)),
         library_ms=time_ms(torch, lambda: torch.autograd.grad(
             interp, xl, gy, retain_graph=True)),
         bound=bound_ms(5 * x.numel() * x.element_size(), 3 * x.numel(),
                        "float32"))
+    contig = gy.contiguous(memory_format=torch.channels_last)
+    on_contig = lambda: cuda_upsample.upsample2x_backward(contig)
+    copy = lambda: gy.contiguous(memory_format=torch.channels_last)
+    log(f"timing K4 upsample backward {tuple(gy.shape)} bf16, the concat's "
+        f"slice (strides {gy.stride()}): {r['ms']:.5f} ms (device "
+        f"{kernel_split(torch, kernel)}); on a contiguous gradient "
+        f"{time_ms(torch, on_contig):.5f}"
+        f"; the channels_last copy of the slice (the parent's wrapper) "
+        f"{time_ms(torch, copy):.5f} (device {device_ms(torch, copy):.5f}); "
+        f"plain {r['plain_ms']:.5f}, F.interpolate's backward "
+        f"{r['library_ms']:.5f}, bound {r['bound'][0]:.5f} ({r['bound'][1]})")
 
     # K8 at the training canvas on the augmentation's shears: the row route
     # (the x-shear), the column route on the transposed view (the y-shear)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Split the time of K5 (csrc/stats.cu), K1 (csrc/nms.cu), K6
-(csrc/histeq.cu) and K8 (csrc/shift.cu) on one CUDA card, for either
+(csrc/histeq.cu), K8 (csrc/shift.cu), K3 (csrc/preproc.cu) and K4's
+backward (csrc/upsample.cu) on one CUDA card, for either
 design of K5 and K1: the one-block-per-plane K5 and one-block-per-image
 K1 up to commit 0a0e8d7, or the cluster-per-plane K5 and the two-launch
 K1 after it (told apart by their sources).
@@ -25,8 +26,8 @@ K1 at [32, 4, 512] on chip_smoke.py's random candidates):
     memory, the 32 decisions of each step, the keep flags and the kept
     rows' words).
 
-K6 and K8 are timed through the checkout's own wrappers (run the script
-of another checkout to split its design):
+K6, K8, K3 and K4's backward are timed through the checkout's own
+wrappers (run the script of another checkout to split its design):
   - K6 at [32, 512, 512] (chip_smoke.py's mosaic planes) and at the serial
     crop's [1, 640, 640]: the wrapper's time by CUDA events, the device
     time of each of its launches under torch.profiler, and the bound;
@@ -36,13 +37,28 @@ of another checkout to split its design):
     transposed view (whatever the wrapper does with that view: a copy
     and a row launch, or a launch that reads the view), each by CUDA
     events and by device time per launch, with the bytes a second the
-    device time gives for the bound's bytes.
+    device time gives for the bound's bytes;
+  - K3 at the main path's [32, 640, 640] and the eval path's
+    [32, 132, 132] (chip_smoke.py's K3 planes): CUDA events, the host
+    time of a call (the wrapper's, and the C entry point's alone), device
+    time per launch and the bound, beside the wrapper's zscale_limits; for
+    the
+    cluster route (told apart by its source) the clock64 phases of a
+    scratch build: waiting for each segment's copy, the stretch, the
+    reduce and push, the cluster barrier, the combine, the normalise and
+    write, the block barrier and the next plane's copy, the start;
+  - K4's backward at yolo11l@640's training gradients [16, 512, 80, 80]
+    and [16, 512, 40, 40] bf16, on a contiguous gradient and on the
+    concat's channel slice (whatever the wrapper does with it: a copy and
+    a launch, or a launch that reads it in place), by events, host time
+    and device time, with the channels_last copy of the slice timed
+    alone.
 
 Run from the repository root (default: the checkout's own csrc/ and all
-four kernels), or pointing at the csrc/ of another checkout (e.g. the
+six kernels), or pointing at the csrc/ of another checkout (e.g. the
 parent unpacked with `git archive` into build/):
     python3 scripts/torch_kernel_split.py \
-        [--csrc <dir>/caesar_yolo_tpu_torch/csrc] [--only histeq,shift]
+        [--csrc <dir>/caesar_yolo_tpu_torch/csrc] [--only preproc,upsample_bwd]
 Writes its results also to build/kernel_split.json.
 """
 
@@ -152,6 +168,32 @@ HISTEQ_PHASES_NEW = ("copy into shared memory", "min/max and its push",
                      "histogram sweep and block barrier",
                      "block histogram into rank 0", "cluster barrier 2",
                      "scan and CDF", "apply, write and the last wait")
+PREPROC_PATCH_NEW = [
+    ("namespace {\n", READER + CLK_NEW),
+    ("  cg::cluster_group cl = cg::this_cluster();\n", "  CLKSET\n"),
+    ("  int p = first;\n  if (p < planes) stage(p);\n", "  CLK(7)\n"),
+    ("      if (vec) mbar_wait(&sm.bar[j], it & 1);\n", "      CLK(0)\n"),
+    ("      stretch(buf, min(n, j * seg), min(n, j * seg + seg), st, lo, "
+     "hi);\n", "      CLK(1)\n"),
+    ("    cl.sync();\n    lo = INFINITY;", "    CLK(2)\n", True),
+    ("    cl.sync();\n", "    CLK(3)\n"),
+    ("    const Norm nm = make_norm(lo, hi, norm_min, norm_max);\n",
+     "    CLK(4)\n", True),
+    ("      normalise(buf, dst, min(n, j * seg), min(n, j * seg + seg), nm, "
+     "vec);\n", "      CLK(5)\n"),
+    ("        if (tid == 0 && next < planes) stage_seg(next, j);\n"
+     "      }\n", "      CLK(6)\n"),
+    ("      if (next < planes) stage(next);\n    }\n", "    CLK(6)\n"),
+]
+# K3's cluster route, over all the planes a block walks (thread 0's view)
+PREPROC_PHASES_NEW = ("wait for the copy", "stretch", "reduce and push",
+                      "cluster barrier", "combine",
+                      "normalise and write", "block barrier and next copy",
+                      "start and first copy")
+K3_SHAPES = ((32, 640, 640), (32, 132, 132))     # main path, eval path
+# K4's backward at yolo11l@640's training batch: the incoming gradients of
+# the two neck upsamples, [B, C, 2H, 2W]
+K4_BWD_SHAPES = ((16, 512, 80, 80), (16, 512, 40, 40))
 STATS_PHASES = ("min/max", "moments", "bisection", "pin")
 STATS_PHASES_NEW = ("sweep", "block barrier wait", "block combine",
                     "cluster barrier", "cluster combine", "walk and trees",
@@ -174,7 +216,8 @@ def is_new(csrc: str, name: str) -> bool:
     with open(os.path.join(csrc, f"{name}.cu")) as f:
         text = f.read()
     return {"stats": "clip_stats_cluster_kernel", "nms": "nms_scan_kernel",
-            "histeq": "histeq_cluster_kernel"}[name] in text
+            "histeq": "histeq_cluster_kernel",
+            "preproc": "zscale_cluster_kernel"}[name] in text
 
 
 def build_all(csrc: str, out_dir: str, names) -> dict[str, str]:
@@ -188,7 +231,8 @@ def build_all(csrc: str, out_dir: str, names) -> dict[str, str]:
         patch = {("stats", False): STATS_PATCH, ("nms", False): NMS_PATCH,
                  ("stats", True): STATS_PATCH_NEW,
                  ("nms", True): NMS_PATCH_NEW,
-                 ("histeq", True): HISTEQ_PATCH_NEW}[name, new]
+                 ("histeq", True): HISTEQ_PATCH_NEW,
+                 ("preproc", True): PREPROC_PATCH_NEW}[name, new]
         variants = [("plain", text), ("clk", patched(text, patch))]
         for variant, src in variants:
             path = os.path.join(out_dir, f"{name}_{variant}.cu")
@@ -302,6 +346,99 @@ def split_histeq_shift(torch, cs, dev, rng, kernels, libs, out):
             out[f"K8 {name}"] = row
 
 
+def host_ms(torch, fn, iters=50):
+    """Host time of one fn() in ms: the wrapper's work and the launch, with
+    the device left to run behind (the events time is the larger of this
+    and the device's)."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def split_preproc_upsample(torch, cs, dev, rng, kernels, libs, out):
+    """K3 and K4's backward through the checkout's wrappers: CUDA events,
+    device time per launch and the bound; beside K3 the wrapper's
+    zscale_limits, beside K4's backward the channels_last copy of the
+    concat's channel slice that the parent's wrapper made."""
+    from caesar_yolo_tpu_torch import cuda_build
+    from caesar_yolo_tpu_torch.ops import cuda_preproc, cuda_upsample
+    from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
+    if "preproc" in kernels:
+        for shape in K3_SHAPES:
+            x = cs.preproc_planes(dev, rng, shape)
+            vlims = torch.stack(zscale_limits(x), dim=1)
+            call = lambda x=x, v=vlims: cuda_preproc.zscale_minmax(x, v)
+            limits = lambda x=x: zscale_limits(x)
+            row = {"ms": cs.time_ms(torch, call),
+                   "host_ms": host_ms(torch, call),
+                   "launch_ms": cs.kernel_split(torch, call),
+                   "bound_ms": cs.bound_ms(2 * x.numel() * 4
+                                           + 2 * vlims.numel() * 4,
+                                           12 * x.numel(), "float32")[0],
+                   "zscale_limits_ms": cs.time_ms(torch, limits),
+                   "zscale_limits_device_ms": cs.device_ms(torch, limits)}
+            row["device_ms"] = sum(row["launch_ms"].values())
+            # the C entry point alone, its arguments made once: the host
+            # time left when the Python wrapper's is taken away
+            route, *config = cuda_preproc.plan(x[0].numel())
+            o, zl = torch.empty_like(x), torch.empty((x.shape[0], 2),
+                                                      device=dev)
+            args = (x.data_ptr(), vlims.data_ptr(), zl.data_ptr(),
+                    o.data_ptr(), x.shape[0], x[0].numel(), 0.0, 1.0,
+                    *config, int(route == "stream"),
+                    cuda_build.stream_ptr(dev))
+            row["entry_host_ms"] = host_ms(
+                torch, lambda: cuda_preproc._entry()(*args))
+            if "preproc_clk" in libs:     # the cluster route's phases
+                cluster, segs = config
+                lib, fn = load(libs["preproc_clk"], "cy_zscale_minmax",
+                               cuda_preproc.ENTRY_ARGS)
+                # at most one cluster a plane: slots past the grid stay 0
+                shares, cyc = clock_shares(
+                    torch, lib, lambda: fn(
+                        x.data_ptr(), vlims.data_ptr(), zl.data_ptr(),
+                        o.data_ptr(), x.shape[0], x[0].numel(), 0.0, 1.0,
+                        cluster, segs, 0,
+                        cuda_build.stream_ptr(dev)),
+                    cluster * x.shape[0], PREPROC_PHASES_NEW)
+                row["shares"] = shares
+                row["split_ms"] = {k: v * row["device_ms"]
+                                   for k, v in shares.items()}
+                row["max_block_cycles"] = cyc
+            print(f"K3 {list(shape)}: {json.dumps(row)}", flush=True)
+            out[f"K3 {list(shape)}"] = row
+    if "upsample_bwd" in kernels:
+        g = torch.Generator(device=dev).manual_seed(0)
+        for b, c, h2, w2 in K4_BWD_SHAPES:
+            full = torch.randn(b, 2 * c, h2, w2, device=dev, generator=g).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            sl = full[:, :c]
+            contig = sl.contiguous(memory_format=torch.channels_last)
+            nbytes = 5 * contig.numel() // 4 * contig.element_size()
+            for name, gy in (("contiguous", contig), ("concat slice", sl)):
+                call = lambda gy=gy: cuda_upsample.upsample2x_backward(gy)
+                row = {"ms": cs.time_ms(torch, call),
+                       "host_ms": host_ms(torch, call),
+                       "launch_ms": cs.kernel_split(torch, call),
+                       "bound_ms": cs.bound_ms(nbytes, 0, "bfloat16")[0]}
+                row["device_ms"] = sum(row["launch_ms"].values())
+                print(f"K4-bwd {[b, c, h2, w2]} {name}: {json.dumps(row)}",
+                      flush=True)
+                out[f"K4-bwd {[b, c, h2, w2]} {name}"] = row
+            copy = lambda: sl.contiguous(memory_format=torch.channels_last)
+            row = {"ms": cs.time_ms(torch, copy),
+                   "device_ms": cs.device_ms(torch, copy)}
+            print(f"K4-bwd {[b, c, h2, w2]} channels_last copy of the slice: "
+                  f"{json.dumps(row)}", flush=True)
+            out[f"K4-bwd {[b, c, h2, w2]} slice copy"] = row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -312,7 +449,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--csrc", default=cuda_build.CSRC)
-    parser.add_argument("--only", default="stats,nms,histeq,shift",
+    parser.add_argument("--only",
+                        default="stats,nms,histeq,shift,preproc,upsample_bwd",
                         help="comma-separated kernels to split")
     args = parser.parse_args()
     kernels = set(args.only.split(","))
@@ -325,8 +463,8 @@ def main() -> int:
     print(card)
     libs = build_all(args.csrc, os.path.join(REPO, "build", "split"),
                      [n for n in ("stats", "nms") if n in kernels]
-                     + (["histeq"] if "histeq" in kernels
-                        and is_new(args.csrc, "histeq") else []))
+                     + [n for n in ("histeq", "preproc") if n in kernels
+                        and is_new(args.csrc, n)])
     dev = torch.device("cuda")
     stream = cuda_build.stream_ptr(dev)
     out = {"card": card, "csrc": args.csrc}
@@ -416,6 +554,7 @@ def main() -> int:
         print(f"K1 [32,4,512]: {json.dumps(row)}", flush=True)
         out["K1 [32,4,512]"] = row
     split_histeq_shift(torch, cs, dev, rng, kernels, libs, out)
+    split_preproc_upsample(torch, cs, dev, rng, kernels, libs, out)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "kernel_split.json"),
               "w") as f:

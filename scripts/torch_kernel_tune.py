@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Configurations of the cluster-per-plane K5 (csrc/stats.cu), the
-two-launch K1 (csrc/nms.cu), the cluster-per-plane K6 (csrc/histeq.cu)
-and K8's two routes (csrc/shift.cu) on one CUDA card.
+two-launch K1 (csrc/nms.cu), the cluster-per-plane K6 (csrc/histeq.cu),
+K8's two routes (csrc/shift.cu), K3's persistent clusters
+(csrc/preproc.cu) and K4's backward (csrc/upsample.cu) on one CUDA card.
 
 Prints the card's name and power limit, each kernel's registers, shared
 memory and spills (`nvcc -Xptxas -v`), then:
@@ -24,10 +25,19 @@ memory and spills (`nvcc -Xptxas -v`), then:
     row route (the x-shear), the y-shear as a transposed copy plus a row
     launch, and the column route on the transposed view for strips of
     X columns and bands of Y rows: bit-equality, CUDA events, device
-    time.
+    time;
+  - K3 at [32,640,640] (the main path) and [32,132,132] (the eval path)
+    for clusters of 4, 8 or 16 blocks with a block's part copied in 1, 2,
+    4 or 8 bulk copies, and the stream route: bit-equality, CUDA events,
+    device time;
+  - K4's backward at yolo11l@640's training gradients [16,512,80,80] and
+    [16,512,40,40] bf16, as the concat's channel slice and contiguous, at
+    each vector width of 16, 8, 4 and 2 bytes: bit-equality, CUDA events,
+    device time.
 
 Run from the repository root:
-    python3 scripts/torch_kernel_tune.py [--only stats,nms,histeq,shift]
+    python3 scripts/torch_kernel_tune.py \
+        [--only stats,nms,histeq,shift,preproc,upsample_bwd]
 """
 
 from __future__ import annotations
@@ -129,6 +139,61 @@ def tune_shift(torch, cs, dev) -> int:
     return failed
 
 
+def tune_preproc(torch, cs, dev, rng) -> int:
+    """K3's cluster sizes and segments, and its stream route; returns the
+    number of configurations that differ from the plain version."""
+    from caesar_yolo_tpu_torch.ops import cuda_preproc
+    from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
+    failed = 0
+    for shape in ((32, 640, 640), (32, 132, 132)):
+        x = cs.preproc_planes(dev, rng, shape)
+        vlims = torch.stack(zscale_limits(x), dim=1)
+        ref = cuda_preproc.zscale_minmax_plain(x, vlims)
+        for route, cluster, segs in [
+                ("cluster", c, ns) for c in (4, 8, 16)
+                for ns in (1, 2, 4, 8)] + [("stream", 16, 0)]:
+            call = lambda: cuda_preproc.launch(x, vlims, 0.0, 1.0, route,
+                                               cluster, segs)
+            what = (f"K3 {list(shape)} {route} cluster {cluster} segments "
+                    f"{segs}")
+            try:
+                got = call()
+                torch.cuda.synchronize()
+            except RuntimeError as err:     # does not fit, or refused
+                print(f"{what}: {err}", flush=True)
+                continue
+            ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+            failed += not ok
+            print(f"{what}: {cs.time_ms(torch, call):.5f} ms (device "
+                  f"{cs.device_ms(torch, call):.5f}) bit-equal {ok}",
+                  flush=True)
+    return failed
+
+
+def tune_upsample_bwd(torch, cs, dev) -> int:
+    """K4's backward at each vector width, on the concat's channel slice
+    and on a contiguous gradient; returns the number of widths that differ
+    from the plain version."""
+    from caesar_yolo_tpu_torch.ops import cuda_upsample
+    g_ = torch.Generator(device=dev).manual_seed(0)
+    failed = 0
+    for b, c, h2, w2 in ((16, 512, 80, 80), (16, 512, 40, 40)):
+        full = torch.randn(b, 2 * c, h2, w2, device=dev, generator=g_).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for name, g in (("slice", full[:, :c]), ("contiguous", full[:, :c]
+                        .contiguous(memory_format=torch.channels_last))):
+            ref = cuda_upsample.upsample2x_backward_plain(g)
+            for vb in (16, 8, 4, 2):
+                call = lambda: cuda_upsample.launch_backward(g, vb)
+                ok = torch.equal(call(), ref)
+                failed += not ok
+                print(f"K4-bwd {[b, c, h2, w2]} {name} {vb}-byte vectors: "
+                      f"{cs.time_ms(torch, call):.5f} ms (device "
+                      f"{cs.device_ms(torch, call):.5f}) bit-equal {ok}",
+                      flush=True)
+    return failed
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -140,7 +205,8 @@ def main() -> int:
     from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--only", default="stats,nms,histeq,shift",
+    parser.add_argument("--only",
+                        default="stats,nms,histeq,shift,preproc,upsample_bwd",
                         help="comma-separated kernels to tune")
     kernels = parser.parse_args().only.split(",")
     if not torch.cuda.is_available():
@@ -149,8 +215,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    cuda_build.build(kernels)
-    for name in kernels:
+    sources = sorted({"upsample_bwd": "upsample"}.get(k, k) for k in kernels)
+    cuda_build.build(sources)
+    for name in sources:
         for ln in ptxas(name):
             print(f"ptxas {name}: {ln}")
     dev = torch.device("cuda")
@@ -160,6 +227,10 @@ def main() -> int:
         failed += tune_histeq(torch, cs, dev, rng)
     if "shift" in kernels:
         failed += tune_shift(torch, cs, dev)
+    if "preproc" in kernels:
+        failed += tune_preproc(torch, cs, dev, rng)
+    if "upsample_bwd" in kernels:
+        failed += tune_upsample_bwd(torch, cs, dev)
     sig = cs.MOSAIC_SIGMAS[0]
     for shape in K5_SHAPES if "stats" in kernels else ():
         if shape == (32, 512, 512):

@@ -44,7 +44,9 @@ PORT_KERNELS = ("attn_fwd_mma_kernel",
                 "apply_kernel", "minmax_kernel", "hist_kernel", "init_kernel",
                 "attn_bwd_dq_mma_kernel", "attn_bwd_dkdv_mma_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
-                "up2_fwd_kernel", "up2_bwd_kernel", "row_shift_kernel")
+                "up2_fwd_kernel", "up2_bwd_kernel", "row_shift_kernel",
+                "col_shift_kernel", "histeq_cluster_kernel",
+                "zscale_cluster_kernel")
 LIBRARY_MARKS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "sm90_",
                  "implicit", "winograd", "fprop", "nhwc")
 

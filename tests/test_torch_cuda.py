@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from caesar_yolo_tpu_torch.detect import cuda_nms
 from caesar_yolo_tpu_torch.models import cuda_attn
 from caesar_yolo_tpu_torch.ops import (
@@ -152,20 +153,66 @@ def test_attention_kernel_rejects_unsupported(dev):
         attn(torch.randn(1, 48, 4, 4, device=dev))
 
 
-def test_zscale_minmax_kernel_matches_plain(dev):
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.normal(0, 1, (6, 200, 160)).astype(np.float32)
-                         ).to(dev)
-    x[1] = 0.0
-    x[2, 0, 0] = float("nan")
-    x[3] = 4.0
+@pytest.mark.parametrize("norm", [(0.0, 1.0), (-1.0, 2.0)])
+@pytest.mark.parametrize("shape,offset,route", [
+    ((6, 200, 160), 0, "cluster"), ((32, 640, 640), 0, "cluster"),
+    ((32, 132, 132), 0, "cluster"), ((5, 33, 47), 0, "cluster"),
+    ((6, 64, 64), 1, "cluster"), ((3, 800, 800), 0, "cluster"),
+    ((3, 2048, 2048), 0, "stream"), ((3, 1023, 1021), 0, "stream"),
+    ((3, 1024, 1024), 1, "stream")])
+def test_zscale_minmax_kernel_matches_plain(dev, shape, offset, route, norm):
+    """Bit-equal to the plain chain on both routes (aligned planes and
+    planes that are not 16-byte aligned), the edge planes included; the
+    route's counter shows the route ran; an all-zero plane's limits are
+    (+inf, -inf) and the last, noise, plane is valid."""
+    x = cs.preproc_planes(dev, np.random.default_rng(sum(shape)), shape,
+                          offset)
     vmin, vmax = zscale_limits(x)
     vlims = torch.stack([vmin, vmax], dim=1)
-    out, zl = cuda_preproc.zscale_minmax(x, vlims, -1.0, 2.0)
+    counter = f"{route}_launches"
+    before = getattr(cuda_preproc.zscale_minmax, counter)
+    out, zl = cuda_preproc.zscale_minmax(x, vlims, *norm)
     torch.cuda.synchronize()
-    ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims, -1.0, 2.0)
+    assert getattr(cuda_preproc.zscale_minmax, counter) == before + 1
+    ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims, *norm)
     assert torch.equal(zl, rzl)
-    assert (out - ref).abs().max().item() <= 1e-6
+    assert torch.equal(out, ref)
+    assert zl[0].tolist() == [float("inf"), float("-inf")]
+    assert bool(zl[-1, 1] > zl[-1, 0])      # the noise plane has valid pixels
+
+
+@pytest.mark.parametrize("cluster,segments", [
+    (8, 1), (8, 8), (16, 1), (16, 2), (16, 4), (16, 8), (4, 3)])
+def test_zscale_minmax_kernel_configurations(dev, cluster, segments):
+    """Every cluster size and segmenting the tune table compares gives the
+    plain chain's bits."""
+    shape = (32, 640, 640) if cluster > 4 else (32, 132, 132)
+    x = cs.preproc_planes(dev, np.random.default_rng(cluster), shape)
+    vlims = torch.stack(zscale_limits(x), dim=1)
+    out, zl = cuda_preproc.launch(x, vlims, 0.0, 1.0, "cluster", cluster,
+                                  segments)
+    torch.cuda.synchronize()
+    ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims)
+    assert torch.equal(zl, rzl) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(32, 132, 132), (32, 640, 640)])
+def test_zscale_minmax_stream_route_on_edge_planes(dev, shape, offset):
+    """The stream route, forced on planes the plan gives the cluster route,
+    is bit-equal to the plain chain on every edge plane and on noise
+    planes, aligned and not."""
+    x = cs.preproc_planes(dev, np.random.default_rng(sum(shape) + offset),
+                          shape, offset)
+    vlims = torch.stack(zscale_limits(x), dim=1)
+    before = cuda_preproc.zscale_minmax.stream_launches
+    out, zl = cuda_preproc.launch(x, vlims, -1.0, 2.0, "stream", 16, 0)
+    torch.cuda.synchronize()
+    assert cuda_preproc.zscale_minmax.stream_launches == before + 1
+    ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims, -1.0, 2.0)
+    assert torch.equal(zl, rzl) and torch.equal(out, ref)
+    valid = torch.isfinite(zl[:, 0]) & (zl[:, 1] > zl[:, 0])
+    assert int(valid.sum()) > shape[0] // 2
 
 
 def _edge_planes(dev, p, h, w, seed):
@@ -397,6 +444,63 @@ def test_upsample_kernels_bit_equal(dev, dtype, shape):
         g.contiguous(memory_format=torch.channels_last))
     torch.cuda.synchronize()
     assert torch.equal(gx, cuda_upsample.upsample2x_backward_plain(g))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width,offset,c,vec", [
+    (1024, 0, 512, (16, 16)), (1024, 512, 512, (16, 16)),
+    (768, 256, 512, (16, 16)), (1024, 3, 512, (2, 4)),
+    (1024, 4, 512, (8, 16)), (520, 0, 510, (4, 8)), (8, 1, 6, (2, 4)),
+    (4, 0, 1, (2, 4))])
+def test_upsample_backward_reads_slices_in_place(dev, dtype, width, offset,
+                                                 c, vec):
+    """K4's backward on a channel slice of a channels_last gradient (the
+    concat's) reads it where it lies, with no copy, in vectors of the
+    width backward_plan gives (bf16, f32), bit-equal to the plain
+    version; the same at every narrower vector width; an NCHW gradient is
+    copied once."""
+    full = torch.randn(2, width, 12, 10, device=dev).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    g = full[:, offset:offset + c]
+    plan = cuda_upsample.backward_plan(g.shape, g.stride(),
+                                       g.storage_offset(), g.element_size())
+    assert plan == vec[dtype == torch.float32]
+    ref = cuda_upsample.upsample2x_backward_plain(g)
+    copies = cuda_upsample.upsample2x_backward.copies
+    gx = cuda_upsample.upsample2x_backward(g)
+    torch.cuda.synchronize()
+    assert cuda_upsample.upsample2x_backward.copies == copies
+    assert gx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(gx, ref)
+    for vb in (16, 8, 4, 2):
+        if g.element_size() <= vb <= plan:
+            got = cuda_upsample.launch_backward(g, vb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref)
+    gx = cuda_upsample.upsample2x_backward(g.contiguous())
+    torch.cuda.synchronize()
+    assert cuda_upsample.upsample2x_backward.copies == copies + (c > 1)
+    assert torch.equal(gx, ref)
+
+
+def test_upsample_autograd_through_concat_reads_in_place(dev):
+    """The neck's pattern, cat([upsample(x), y]) under a channels_last
+    gradient: autograd hands K4 a channel slice, which it reads with no
+    copy; x's gradient equals the plain backward of that slice."""
+    x = torch.randn(2, 64, 6, 5, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    y = torch.randn(2, 32, 12, 10, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    g = torch.randn(2, 96, 12, 10, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    copies = cuda_upsample.upsample2x_backward.copies
+    launches = cuda_upsample.upsample2x_backward.launches
+    torch.cat([cuda_upsample.upsample2x(x), y], dim=1).backward(g)
+    torch.cuda.synchronize()
+    assert cuda_upsample.upsample2x_backward.copies == copies
+    assert cuda_upsample.upsample2x_backward.launches == launches + 1
+    assert torch.equal(x.grad,
+                       cuda_upsample.upsample2x_backward_plain(g[:, :64]))
 
 
 def _shift_case(dev, shape, pad, way, kind):

@@ -34,15 +34,31 @@ output rows, only the source rows the band's taps reach (or reads
 device memory when they do not fit); `row_route` and `column_route`
 below do the same, and their outputs must equal `row_shift_plain`'s bit
 for bit.
+
+K3 (csrc/preproc.cu, cluster route) splits each plane into the
+cluster's blocks, each part into segments as its bulk copies land,
+stretches every pixel once, combines the parts' masked min/max and
+normalises each part on its own; `cluster_zscale_minmax` below does the
+same, and its output and limits must equal `zscale_minmax_plain`'s bit
+for bit.
+
+K4's backward (csrc/upsample.cu) reads the incoming gradient where it
+lies, through its batch, row and pixel strides, one vector of L
+channels of one output pixel a thread: `strided_upsample_backward`
+below indexes the gradient's storage the same way, and must equal
+`upsample2x_backward_plain` bit for bit on the concat's channel slices.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from caesar_yolo_tpu_torch.detect import cuda_nms
-from caesar_yolo_tpu_torch.ops import (cuda_histeq, cuda_shift, cuda_stats,
+from caesar_yolo_tpu_torch.ops import (cuda_histeq, cuda_preproc,
+                                       cuda_shift, cuda_stats, cuda_upsample,
                                        stats)
+from caesar_yolo_tpu_torch.ops.zscale import zscale_apply, zscale_limits
 from caesar_yolo_tpu_torch.ops.histeq import NBINS, _to_index, equalize_hist
 from caesar_yolo_tpu_torch.utils.boxes import iou_matrix
 
@@ -675,3 +691,161 @@ def test_shift_route_from_strides(shape, make, want):
             cuda_shift.route(t.shape, t.stride())
     else:
         assert cuda_shift.route(t.shape, t.stride()) == want
+
+
+# ---------------------------------------------------------------- K3
+
+
+def cluster_zscale_minmax(planes, vlims, cluster, segments, norm_min=0.0,
+                          norm_max=1.0):
+    """K3's cluster route: each plane in `cluster` parts of a 4-aligned
+    chunk, each part in `segments` segments (the last parts and segments
+    may be short or empty); the stretch of each segment in place, the
+    parts' masked (min, max) combined, then each part normalised on its
+    own.  Returns (out, zlims) as zscale_minmax_plain does."""
+    p = planes.shape[0]
+    flat = planes.reshape(p, -1)
+    hw = flat.shape[1]
+    chunk = cuda_preproc.chunk(hw, cluster)
+    out = torch.empty_like(flat)
+    zlims = torch.empty((p, 2))
+    for i in range(p):
+        vmin, vmax = vlims[i, 0], vlims[i, 1]
+        parts = []
+        for r in range(cluster):
+            part = flat[i, r * chunk:(r + 1) * chunk]
+            n = len(part)
+            seg = (-(-n // segments) + 3) // 4 * 4
+            z = torch.cat([torch.where(
+                (v != 0) & torch.isfinite(v), zscale_apply(v, vmin, vmax),
+                0.0) for v in (part[j * seg:(j + 1) * seg]
+                               for j in range(segments))]) if n else part
+            parts.append(z)
+        valid = [z[(z != 0) & torch.isfinite(z)] for z in parts]
+        lo = min((float(v.min()) for v in valid if len(v)), default=np.inf)
+        hi = max((float(v.max()) for v in valid if len(v)), default=-np.inf)
+        zlims[i] = torch.tensor([lo, hi])
+        lo_t, hi_t = zlims[i, 0], zlims[i, 1]
+        span = hi_t - lo_t
+        denom = span if span != 0 else torch.tensor(1.0)
+        for r, z in enumerate(parts):
+            o = (z - lo_t) / denom * (norm_max - norm_min) + norm_min
+            out[i, r * chunk:r * chunk + len(z)] = torch.where(
+                (z != 0) & torch.isfinite(z), o, 0.0)
+    return out.reshape(planes.shape), zlims
+
+
+@pytest.mark.parametrize("shape,cluster,segments", [
+    ((8, 64, 64), 16, 2), ((8, 64, 64), 4, 1), ((8, 64, 64), 3, 8),
+    ((7, 33, 47), 4, 3), ((6, 5, 7), 16, 2), ((8, 132, 132), 4, 1),
+    ((2, 160, 160), 16, 2)])
+@pytest.mark.parametrize("norm", [(0.0, 1.0), (-1.0, 2.0)])
+def test_cluster_zscale_minmax_equals_plain(shape, cluster, segments, norm):
+    x = cs.preproc_planes("cpu", np.random.default_rng(sum(shape) + cluster),
+                          shape)
+    vlims = torch.stack(zscale_limits(x), dim=1)
+    got, zl = cluster_zscale_minmax(x, vlims, cluster, segments, *norm)
+    ref, rzl = cuda_preproc.zscale_minmax_plain(x, vlims, *norm)
+    assert torch.equal(zl, rzl)
+    assert torch.equal(got, ref)
+    valid = (zl[:, 1] > zl[:, 0]) & zl[:, 0].isfinite()
+    assert zl[0].tolist() == [np.inf, -np.inf]       # all zero: no valid
+    assert not bool(valid[:min(4, len(valid) - 1)].any())
+    assert bool(valid[-1])                           # the noise plane
+
+
+@pytest.mark.parametrize("hw,route,cluster,segments", [
+    (640 * 640, "cluster", 16, 2), (132 * 132, "cluster", 4, 1),
+    (512 * 512, "cluster", 16, 1), (200 * 160, "cluster", 4, 1),
+    (33 * 47, "cluster", 1, 1), (96 * 100, "cluster", 2, 1),
+    (800 * 800, "cluster", 16, 3),
+    (16 * cuda_preproc.MAX_BLOCK_VALUES, "cluster", 16, 4),
+    (16 * cuda_preproc.MAX_BLOCK_VALUES + 1, "stream", 16, 0),
+    (1024 * 1024, "stream", 16, 0), (2048 * 2048, "stream", 16, 0)])
+def test_preproc_route_by_size(hw, route, cluster, segments):
+    """K3's route, cluster size and segments come from the plane's size
+    alone; a block of the cluster route holds its part in one buffer within
+    the 227 KB of shared memory an H100 block may use."""
+    assert cuda_preproc.plan(hw) == (route, cluster, segments)
+    if route == "cluster":
+        assert cuda_preproc.chunk(hw, cluster) <= cuda_preproc.MAX_BLOCK_VALUES
+        assert cuda_preproc.chunk(hw, cluster) * 4 <= 227 * 1024 - 1024
+
+
+# ---------------------------------------------------------------- K4
+
+
+def strided_upsample_backward(g, vec_bytes):
+    """K4's backward indexing: gx row (b, y), thread t -> output pixel
+    t // cv, vector t % cv of L = vec_bytes / itemsize channels; the
+    window's four vectors read from g's storage at its data offset plus
+    b*sb + 2y*sh + 2x*sw (+ sw, + sh) + c*L; each lane summed in f32 as
+    ((g00 + g01) + g10) + g11 and rounded once."""
+    b, c, h2, w2 = g.shape
+    h, w = h2 // 2, w2 // 2
+    sb, _, sh, sw = g.stride()
+    lanes = vec_bytes // g.element_size()
+    cv = c // lanes
+    store = g.untyped_storage()
+    flat = torch.empty(0, dtype=g.dtype).set_(store).float()
+    t = torch.arange(w * cv)
+    xo, cvec = t // cv, t % cv
+    gx = torch.empty(b, h, w * cv, lanes)
+    for bi in range(b):
+        for y in range(h):
+            base = (g.storage_offset() + bi * sb + 2 * y * sh + 2 * xo * sw
+                    + cvec * lanes)[:, None] + torch.arange(lanes)
+            g00, g01, g10, g11 = (flat[base + d] for d in (0, sw, sh,
+                                                          sh + sw))
+            gx[bi, y] = ((g00 + g01) + g10) + g11
+    return gx.reshape(b, h, w, c).to(g.dtype).permute(0, 3, 1, 2)
+
+
+def _concat_grad(width, dtype, seed):
+    g = torch.randn(2, width, 6, 8, generator=torch.Generator().manual_seed(
+        seed)).to(dtype)
+    return g.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width,offset,c", [
+    (64, 0, 32), (64, 32, 32), (48, 16, 32), (64, 3, 32), (64, 4, 32),
+    (40, 0, 30), (8, 1, 6), (4, 0, 1)])
+def test_strided_backward_on_slices_equals_plain(dtype, width, offset, c):
+    """The kernel's indexing on the concat's channel slices (aligned,
+    unaligned offsets, odd C), at the vector width backward_plan gives,
+    equals the plain backward bit for bit; the plain backward on a slice
+    equals it on the slice's contiguous copy."""
+    g = _concat_grad(width, dtype, seed=width + offset + c)[:, offset:
+                                                             offset + c]
+    vb = cuda_upsample.backward_plan(g.shape, g.stride(), g.storage_offset(),
+                                     g.element_size())
+    ref = cuda_upsample.upsample2x_backward_plain(g)
+    assert torch.equal(strided_upsample_backward(g, vb), ref)
+    assert torch.equal(cuda_upsample.upsample2x_backward_plain(
+        g.contiguous(memory_format=torch.channels_last)), ref)
+    assert torch.equal(cuda_upsample.upsample2x_backward_plain(
+        g.contiguous()), ref)
+
+
+@pytest.mark.parametrize("width,offset,c,dtype,want", [
+    (1024, 0, 512, torch.bfloat16, 16), (1024, 512, 512, torch.bfloat16, 16),
+    (768, 256, 512, torch.bfloat16, 16), (1024, 0, 512, torch.float32, 16),
+    (1024, 3, 512, torch.bfloat16, 2), (1024, 3, 512, torch.float32, 4),
+    (1024, 4, 512, torch.bfloat16, 8), (1024, 2, 512, torch.float32, 8),
+    (520, 0, 510, torch.bfloat16, 4), (520, 0, 510, torch.float32, 8),
+    (8, 1, 6, torch.bfloat16, 2), (4, 0, 1, torch.float32, 4)])
+def test_upsample_backward_plan(width, offset, c, dtype, want):
+    """backward_plan's vector bytes: 16 on yolo11l's neck slices (512 of
+    1024 or 768 channels, at channel 0 or past the first input), narrower
+    where the offset, C or a stride is not a multiple of 16 bytes, never
+    below the element; a channel stride other than 1 is refused."""
+    g = torch.zeros(2, width, 4, 6, dtype=dtype).contiguous(
+        memory_format=torch.channels_last)[:, offset:offset + c]
+    assert cuda_upsample.backward_plan(g.shape, g.stride(),
+                                       g.storage_offset(),
+                                       g.element_size()) == want
+    nchw = torch.zeros(2, 8, 4, 6, dtype=dtype)
+    with pytest.raises(ValueError):
+        cuda_upsample.backward_plan(nchw.shape, nchw.stride(), 0,
+                                    nchw.element_size())

@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from caesar_yolo_tpu.models import layers as jax_layers
 from caesar_yolo_tpu.models import pallas_attn
 from caesar_yolo_tpu.ops import pallas_shift, pallas_upsample
 from caesar_yolo_tpu.train.augment import _row_shift_batch
 from caesar_yolo_tpu_torch.models import cuda_attn
+from caesar_yolo_tpu_torch.models import layers as torch_layers
 from caesar_yolo_tpu_torch.ops import cuda_shift, cuda_upsample
 
 torch.set_num_threads(1)
@@ -137,6 +139,44 @@ def test_upsample_grad_matches_jax(dtype):
         mag = np.abs(gb).reshape(2, 6, 2, 5, 2, 16).sum(axis=(2, 4))
         tol = 4 * 2.0 ** -8 * mag
     assert (np.abs(got - ref) <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_upsample_concat_grad_matches_jax(monkeypatch, dtype):
+    """The neck's concat(upsample(x), y): x's and y's gradients through the
+    port's Upsample and Concat, with a channels_last incoming gradient (so
+    that K4's backward gets a channel slice of it, as in training), against
+    jax.vjp of the JAX package's Upsample (broadcast form) and Concat.
+    y's gradient is a slice: equal.  x's: the tolerances of
+    test_upsample_grad_matches_jax (f32 one ulp; bf16 four bf16 roundings
+    of the window's sum of magnitudes)."""
+    monkeypatch.setattr(jax_layers, "_UPSAMPLE_MODE", "broadcast")
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 6, 5, 16)).astype(np.float32)
+    y = rng.standard_normal((2, 12, 10, 8)).astype(np.float32)
+    g = rng.standard_normal((2, 12, 10, 24)).astype(np.float32)
+    jd = getattr(jnp, dtype)
+    up, cat = jax_layers.Upsample(), jax_layers.Concat()
+    _, vjp = jax.vjp(lambda a, b: cat({}, [up({}, a), b]),
+                     jnp.asarray(x, jd), jnp.asarray(y, jd))
+    ref_x, ref_y = (np.asarray(t, np.float32) for t in vjp(jnp.asarray(g, jd)))
+    td = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(td).permute(0, 3, 1, 2).requires_grad_()
+    yt = torch.from_numpy(y).to(td).permute(0, 3, 1, 2).requires_grad_()
+    gt = torch.from_numpy(g).to(td).permute(0, 3, 1, 2)
+    assert gt.is_contiguous(memory_format=torch.channels_last)
+    out = torch_layers.Concat()([torch_layers.Upsample()(xt), yt])
+    out.backward(gt)
+    got_x = xt.grad.permute(0, 2, 3, 1).float().numpy()
+    got_y = yt.grad.permute(0, 2, 3, 1).float().numpy()
+    np.testing.assert_array_equal(got_y, ref_y)
+    if dtype == "float32":
+        tol = np.spacing(np.abs(ref_x).astype(np.float32))
+    else:
+        gb = np.asarray(jnp.asarray(g, jd), np.float32)[..., :16]
+        tol = 4 * 2.0 ** -8 * np.abs(gb).reshape(2, 6, 2, 5, 2, 16).sum(
+            axis=(2, 4))
+    assert (np.abs(got_x - ref_x) <= tol).all()
 
 
 def test_upsample_plain_backward_is_autograd_of_plain_forward():
