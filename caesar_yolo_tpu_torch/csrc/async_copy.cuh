@@ -1,5 +1,5 @@
 // Asynchronous copies from device memory into shared memory, shared by the
-// kernels that stage their inputs on chip (shift.cu, histeq.cu,
+// kernels that stage their inputs on chip (shift.cu, histeq.cu, clahe.cu,
 // preproc.cu): 4- and 16-byte cp.async with commit groups, and bulk copies
 // (cp.async.bulk) whose completion an mbarrier counts in bytes.
 #pragma once

@@ -46,12 +46,14 @@
 #include <mutex>
 
 #include "async_copy.cuh"
+#include "divide.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace acopy;
+using namespace divide;
 
 constexpr int kThreads = 512;  // a block of the cluster route
 constexpr int kWarps = kThreads / 32;
@@ -61,32 +63,6 @@ constexpr int kStreamThreads = 256;
 constexpr int kStreamBlocks = 32;  // blocks per plane on the stream route
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kUnschedulable = -1;
-
-// a / d.b rounded to nearest, as __fdiv_rn, with d.r = __frcp_rn(d.b) made
-// once a plane: two remainder corrections (r within half an ulp of 1/b and
-// the first corrected quotient within an ulp of a/b, the second rounds
-// correctly: Markstein's theorem), taken where a, b and so every
-// intermediate keep far from overflow and underflow; elsewhere (NaN, inf,
-// tiny or huge operands) the IEEE division.  The compiler's division
-// checks and branches on every call, which serialises a float4's four.  A
-// zero numerator gives +0 (IEEE: -0 for -0, which the chain never keeps:
-// -0 numerators occur only at masked pixels).
-struct Divisor {
-  float b, r;
-  bool fast;
-};
-__device__ __forceinline__ Divisor make_divisor(float b) {
-  return {b, __frcp_rn(b), b >= 0x1p-60f && b <= 0x1p60f};
-}
-__device__ __forceinline__ float div_rn(float a, Divisor d) {
-  const float m = fabsf(a);
-  if (d.fast && (a == 0.0f || (m >= 0x1p-60f && m <= 0x1p60f))) {
-    float q = __fmul_rn(a, d.r);
-    q = __fmaf_rn(__fmaf_rn(-q, d.b, a), d.r, q);
-    return __fmaf_rn(__fmaf_rn(-q, d.b, a), d.r, q);
-  }
-  return __fdiv_rn(a, d.b);
-}
 
 // the stretch of one plane: jnp.clip and the masking convention of
 // caesar_yolo_tpu/ops/transforms.py: NaN propagates through the clip

@@ -28,8 +28,12 @@
 //    through distributed shared memory, and after one cluster barrier
 //    each block adds its gather array in rank order.  The arrays are
 //    double-buffered by pass parity, so that barrier is the only one a
-//    pass needs.  Integer counts, f32 sums in a fixed order, exact
-//    min/max: two calls give bit-equal statistics; no float atomics.
+//    pass needs.  Integer counts, exact min/max, and the moments summed in
+//    f64 (squares exact) in a fixed order, the mean and variance taken in
+//    f64 and each rounded once to f32, as the plain version does: the sums'
+//    orders differ by f64 roundings only, far below an f32 ulp, so the
+//    bounds med +- sigma * std, and with them the kept sets, are the plain
+//    version's.  Two calls give bit-equal statistics; no float atomics.
 //  - Four bisection rounds a pass.  A round's midpoint depends only on
 //    its bracket, so the midpoints of four rounds form a 15-node tree,
 //    built with the round's own f32 operations.  One sweep buckets the
@@ -75,6 +79,7 @@ constexpr int kMaxWarps = 32;
 constexpr int kMaxCluster = 16;
 constexpr int kNi = 1 + 2 * kBins;     // a count, then two histograms
 constexpr int kNf = 4;
+constexpr int kNd = 2;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kUnschedulable = -1;
 
@@ -98,13 +103,14 @@ __device__ __forceinline__ float midpoint(float lo, float hi) {
 }
 
 // A pass's partial: a count and two 16-bucket histograms (int), four
-// floats (sums, min/max, or the pin's values).
+// floats (min/max, or the pin's values) and two doubles (the moments).
 struct Slot {
   int i[kNi];
   float f[kNf];
+  double d[kNd];
 };
 
-enum FloatOp { kSum, kMin, kMax };
+enum FloatOp { kMin, kMax };
 
 // The clip loop's state, kept by thread 0 of each block (every block of a
 // cluster computes the same values from the same reduced partials) and
@@ -165,9 +171,9 @@ __device__ __forceinline__ void sweep(const Part& part, F&& f) {
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ double warp_sum(double v) {
   // butterfly: every lane adds the same two values, so all lanes agree
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 __device__ __forceinline__ float warp_min(float v) {
@@ -180,7 +186,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 __device__ __forceinline__ float apply(FloatOp op, float a, float b) {
-  return op == kSum ? __fadd_rn(a, b) : (op == kMin ? fminf(a, b) : fmaxf(a, b));
+  return op == kMin ? fminf(a, b) : fmaxf(a, b);
 }
 
 // The pin's merge of (smallest, its multiplicity, next distinct) triples:
@@ -207,15 +213,17 @@ __device__ __forceinline__ Pin warp_pin(Pin p) {
 // over the cluster, into sm.res; then thread 0 runs post(sm.st, sm.res)
 // and the block synchronises.  pin: slots hold two Pin triples (f[0..1]
 // and i[0] for bracket 0, f[2..3] and i[1] for bracket 1); otherwise the
-// first ni ints add and the first nf floats reduce by ops[j].  Lane e of
-// warp 0 takes element e: it combines the warps' partials in warp order,
+// first ni ints add, the first nf floats reduce by ops[j] and the first nd
+// doubles add.  Lane e of warp 0 takes element e: it combines the warps'
+// partials in warp order,
 // stores the block's into slot `rank` of every block's gather array
 // (distributed shared memory), and after the cluster barrier combines
 // its own gather array in rank order, so every block gets the same sums.
 template <int kThreads, typename Post>
 __device__ __forceinline__ void reduce(Smem& sm, cg::cluster_group& cl,
                                        int& parity, bool pin, int ni, int nf,
-                                       const FloatOp (&ops)[kNf], Post&& post) {
+                                       int nd, const FloatOp (&ops)[kNf],
+                                       Post&& post) {
   constexpr int kWarps = kThreads / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nb = (int)cl.num_blocks(), rank = (int)cl.block_rank();
@@ -237,16 +245,21 @@ __device__ __forceinline__ void reduce(Smem& sm, cg::cluster_group& cl,
         }
       }
     } else {
-      for (int e = lane; e < ni + nf; e += 32) {
+      for (int e = lane; e < ni + nf + nd; e += 32) {
         if (e < ni) {
           int t = 0;
           for (int w = 0; w < kWarps; ++w) t += sm.warp[w].i[e];
           for (int q = 0; q < nb; ++q) cl.map_shared_rank(gather + rank, q)->i[e] = t;
-        } else {
+        } else if (e < ni + nf) {
           const int j = e - ni;
           float t = sm.warp[0].f[j];
           for (int w = 1; w < kWarps; ++w) t = apply(ops[j], t, sm.warp[w].f[j]);
           for (int q = 0; q < nb; ++q) cl.map_shared_rank(gather + rank, q)->f[j] = t;
+        } else {
+          const int j = e - ni - nf;
+          double t = sm.warp[0].d[j];
+          for (int w = 1; w < kWarps; ++w) t = __dadd_rn(t, sm.warp[w].d[j]);
+          for (int q = 0; q < nb; ++q) cl.map_shared_rank(gather + rank, q)->d[j] = t;
         }
       }
     }
@@ -264,16 +277,21 @@ __device__ __forceinline__ void reduce(Smem& sm, cg::cluster_group& cl,
         sm.res.i[lane] = acc.c;
       }
     } else {
-      for (int e = lane; e < ni + nf; e += 32) {
+      for (int e = lane; e < ni + nf + nd; e += 32) {
         if (e < ni) {
           int t = 0;
           for (int q = 0; q < nb; ++q) t += gather[q].i[e];
           sm.res.i[e] = t;
-        } else {
+        } else if (e < ni + nf) {
           const int j = e - ni;
           float t = gather[0].f[j];
           for (int q = 1; q < nb; ++q) t = apply(ops[j], t, gather[q].f[j]);
           sm.res.f[j] = t;
+        } else {
+          const int j = e - ni - nf;
+          double t = gather[0].d[j];
+          for (int q = 1; q < nb; ++q) t = __dadd_rn(t, gather[q].d[j]);
+          sm.res.d[j] = t;
         }
       }
     }
@@ -492,7 +510,7 @@ __device__ void tree_pass(Smem& sm, cg::cluster_group& cl, int& parity,
   __syncwarp();
   unsigned w[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
   int n = 0;
-  float s1 = 0.0f, s2 = 0.0f;
+  double s1 = 0.0, s2 = 0.0;
   const int nq = (part.n + 3) >> 2;
   const int iters = (nq + kThreads - 1) / kThreads;
   for (int it = 0; it < iters; ++it) {
@@ -510,8 +528,9 @@ __device__ void tree_pass(Smem& sm, cg::cluster_group& cl, int& parity,
           const bool keep = e < lim && kept<kStream>(x, raw, clo_v, cup_v);
           if (kMoments && keep) {
             n += 1;
-            s1 = __fadd_rn(s1, x);
-            s2 = __fadd_rn(s2, __fmul_rn(x, x));
+            const double xd = x;  // its square is exact in f64
+            s1 = __dadd_rn(s1, xd);
+            s2 = __dadd_rn(s2, __dmul_rn(xd, xd));
           }
           x4[e] = xm[e] = keep ? x : INFINITY;
           if (removed_only) {  // count the values the kept set lost
@@ -538,12 +557,12 @@ __device__ void tree_pass(Smem& sm, cg::cluster_group& cl, int& parity,
     s2 = warp_sum(s2);
     if (lane == 0) {
       sm.warp[warp].i[0] = n;
-      sm.warp[warp].f[0] = s1;
-      sm.warp[warp].f[1] = s2;
+      sm.warp[warp].d[0] = s1;
+      sm.warp[warp].d[1] = s2;
     }
   }
-  const FloatOp ops[kNf] = {kSum, kSum, kSum, kSum};
-  reduce<kThreads>(sm, cl, parity, false, 1 + kBins * nb, kMoments ? 2 : 0,
+  const FloatOp ops[kNf] = {kMin, kMin, kMin, kMin};  // no floats
+  reduce<kThreads>(sm, cl, parity, false, 1 + kBins * nb, 0, kMoments ? 2 : 0,
                    ops, post);
 }
 
@@ -586,7 +605,7 @@ __device__ void pin_pass(Smem& sm, cg::cluster_group& cl, int& parity,
     sm.warp[warp].i[1] = p1.c;
   }
   const FloatOp ops[kNf] = {kMin, kMin, kMin, kMin};
-  reduce<kThreads>(sm, cl, parity, true, 2, 0, ops, [hw](State& s, const Slot& r) {
+  reduce<kThreads>(sm, cl, parity, true, 2, 0, 0, ops, [hw](State& s, const Slot& r) {
     // the k-th value (pallas_stats.py:79-85): the smallest bracket member
     // if count(xm <= it) reaches k, else the next distinct member, else
     // the bracket top.  count(xm <= m1) is the count below the bracket
@@ -624,10 +643,12 @@ __device__ bool stats_of(Smem& sm, cg::cluster_group& cl, int& parity,
         const int ni = s.n > 1 ? s.n : 1;
         s.k[0] = (ni + 1) / 2;
         s.k[1] = ni / 2 + 1;
-        const float nf = (float)ni;
-        s.mean = __fdiv_rn(r.f[0], nf);
-        s.var = jmax(__fsub_rn(__fdiv_rn(r.f[1], nf), __fmul_rn(s.mean, s.mean)),
-                     0.0f);
+        // mean and variance in f64 from the f64 sums, each rounded once
+        const double nd = (double)ni;
+        const double m = __ddiv_rn(r.d[0], nd);
+        const double v = __dsub_rn(__ddiv_rn(r.d[1], nd), __dmul_rn(m, m));
+        s.mean = __double2float_rn(m);
+        s.var = __double2float_rn(v > 0.0 ? v : 0.0);
         walk(s, r);
         plan_trees(s);
       });
@@ -701,8 +722,8 @@ clip_stats_cluster_kernel(const float* __restrict__ x, int hw, int chunk,
       sm.warp[warp].f[3] = 0.0f;
       for (int e = 1; e < kNi; ++e) sm.warp[warp].i[e] = 0;
     }
-    const FloatOp ops[kNf] = {kMin, kMax, kSum, kSum};
-    reduce<kThreads>(sm, cl, parity, false, 1, 2, ops,
+    const FloatOp ops[kNf] = {kMin, kMax, kMin, kMin};
+    reduce<kThreads>(sm, cl, parity, false, 1, 2, 0, ops,
                      [](State& s, const Slot& r) {
       s.nv = r.i[0];
       const float vmin = r.f[0], vmax = r.f[1];

@@ -46,8 +46,9 @@ SOURCES = {
 HEADERS = {
     "attn": ["mma_bf16.cuh"],
     "attn_bwd": ["mma_bf16.cuh"],
+    "clahe": ["async_copy.cuh", "divide.cuh"],
     "histeq": ["async_copy.cuh"],
-    "preproc": ["async_copy.cuh"],
+    "preproc": ["async_copy.cuh", "divide.cuh"],
     "shift": ["async_copy.cuh"],
 }
 

@@ -22,10 +22,19 @@ padded tile's pixel count), in its XLA gather form, batched over planes:
     and the weighted-sum form ((v00*(1-fx) + v01*fx)*(1-fy) + ...) loses
     in unfused f32 arithmetic.
 
-The two passes over the pixels (`tile_histograms_plain`, `blend_plain`) are
-what kernel K7 does on the card (ops/cuda_clahe.py); `value_range` and
-`cdf_tables` run in PyTorch on both routes, so the kernel and the plain
-version differ only inside those two passes.
+Kernel K7 (ops/cuda_clahe.py, csrc/clahe.cu) builds the tables on chip,
+so the two sums over a tile's 256 bins have one stated order here, which
+the kernel follows (one warp a tile, lane l holding bins 8l .. 8l + 7):
+
+  - the clipped excess of a sweep is a pairwise tree: eight levels of
+    a[..., 0::2] + a[..., 1::2] (`tree_sum`);
+  - the cumulative sum is taken within each lane's eight bins in order,
+    the lanes' totals are scanned by five Hillis-Steele steps (t[l] +=
+    t[l - o] for o = 1, 2, 4, 8, 16), and each lane adds the total of
+    the lanes before it (`lane_scan`).
+
+Each add is one rounded f32 add, so PyTorch on the CPU, PyTorch on the
+card and the kernel give the same bits.
 """
 
 from __future__ import annotations
@@ -84,20 +93,57 @@ def tile_histograms_plain(planes, vmin, span, grid: int = GRID):
                           ).reshape(p, grid * grid, NBINS).float()
 
 
+LANES = 32                # a warp: lane l holds bins 8l .. 8l + 7
+LANE_BINS = NBINS // LANES
+
+
+def clip_limit_count(npix: int, clip_limit: float) -> float:
+    """The clip limit in counts, max(clip_limit * npix, 1), as a Python
+    float (rounded to f32 where it meets the f32 histograms)."""
+    return max(clip_limit * npix, 1.0)
+
+
+def tree_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of 256 as a pairwise tree, keepdim."""
+    while a.shape[-1] > 1:
+        a = a[..., 0::2] + a[..., 1::2]
+    return a
+
+
+def lane_scan(hist: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over the last axis of 256, in the kernel's
+    order: in order within each lane's 8 bins, a Hillis-Steele scan of the
+    32 lanes' totals, then each lane's bins plus the total before it."""
+    c = hist.reshape(*hist.shape[:-1], LANES, LANE_BINS)
+    cols = [c[..., 0]]
+    for j in range(1, LANE_BINS):
+        cols.append(cols[-1] + c[..., j])
+    c = torch.stack(cols, dim=-1)
+    t = c[..., -1]
+    o = 1
+    while o < LANES:
+        t = torch.cat([t[..., :o], t[..., o:] + t[..., :-o]], dim=-1)
+        o *= 2
+    before = torch.cat([torch.zeros_like(t[..., :1]), t[..., :-1]], dim=-1)
+    return (c + before[..., None]).reshape(hist.shape)
+
+
 def clip_redistribute(hist: torch.Tensor, npix: int, clip_limit: float):
     """Clip each histogram [..., 256] at max(clip_limit * npix, 1) and spread
     the clipped mass uniformly, 8 sweeps (the published iterative
-    redistribution; caesar_yolo_tpu/ops/clahe.py:clip_redistribute)."""
-    limit = max(clip_limit * npix, 1.0)
+    redistribution; caesar_yolo_tpu/ops/clahe.py:clip_redistribute), the
+    excess summed by `tree_sum`."""
+    limit = clip_limit_count(npix, clip_limit)
     for _ in range(SWEEPS):
-        excess = (hist - limit).clamp(min=0.0).sum(dim=-1, keepdim=True)
+        excess = tree_sum((hist - limit).clamp(min=0.0))
         hist = hist.clamp(max=limit) + excess / NBINS
     return hist
 
 
 def cdf_tables(hist: torch.Tensor, npix: int, clip_limit: float):
-    """Clipped, redistributed histograms -> CDFs normalised to end at 1."""
-    cdf = clip_redistribute(hist, npix, clip_limit).cumsum(dim=-1)
+    """Clipped, redistributed histograms -> CDFs normalised to end at 1
+    (the cumulative sum by `lane_scan`)."""
+    cdf = lane_scan(clip_redistribute(hist, npix, clip_limit))
     return cdf / cdf[..., -1:]
 
 

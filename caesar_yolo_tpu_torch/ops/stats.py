@@ -15,7 +15,10 @@ algorithm this follows step for step, so that the CUDA kernel
     found by a 24-round binary bisection of the value range
     [lo0, vmax] (k2's bracket shares k1's until they split) and pinned
     to an exact member of the set;
-  - mean and std from f32 sums over the kept set;
+  - mean and std from f64 sums over the kept set (squares exact), the
+    mean and the variance taken in f64 and each rounded once to f32: the
+    CUDA kernel sums in another order, and in f64 that moves the sums far
+    less than an f32 ulp, so both get the same bounds and kept sets;
   - an empty mask gives NaN statistics and n_valid = 0.
 
 `clip_stats_plain` returns every statistic plus the final kept count,
@@ -79,11 +82,11 @@ def _stats_of(x, m0, lower, upper, lo0, vmax):
     k2 = ni // 2 + 1
     m1, m2 = _order_stat_pair(xm, k1, k2, lo0, vmax)
     med = 0.5 * (m1 + torch.where(k2 == k1, m1, m2))
-    v = torch.where(keep, x, 0.0)
-    nf = ni.float()
+    v = torch.where(keep, x, 0.0).double()
+    nf = ni.double()
     mean = v.sum(dim=1) / nf
-    var = torch.clamp(((v * v).sum(dim=1)) / nf - mean * mean, min=0.0)
-    return n, med, mean, torch.sqrt(var)
+    var = torch.clamp((v * v).sum(dim=1) / nf - mean * mean, min=0.0)
+    return n, med, mean.to(x.dtype), torch.sqrt(var.to(x.dtype))
 
 
 def clip_stats_plain(values: torch.Tensor, mask: torch.Tensor | None,

@@ -17,15 +17,18 @@ Phases (any failure exits non-zero before the last line):
             constant and all-masked-but-one planes; K5 at the mosaic's
             tiles, a truncated
             group, the serial crop and the eval cutouts on its cluster
-            route and at [2, 2048, 2048] on its stream route; K6 at the
+            route and at [2, 2048, 2048] on its stream route, and on the
+            two pinned inputs where it once failed its rule
+            (scripts/torch_k5_kept_probe.py); K6 at the
             mosaic's tiles, the serial crop, the eval cutouts and two odd
             shapes on its cluster route and at [2, 1024, 1024] on its
             stream route, with NaN, +-inf, constant and all-but-one planes;
             K8 on its row and column routes at the training canvas, at a
             row of W*C not a multiple of 4 and at C = 1, on random shifts
             and shears; route counters checked; K5 and K7 with zero, NaN
-            and constant planes; K7 at the eval path's cutout planes, the
-            tile size and an odd shape; K3, K4, K6, K7 and K8 bit-equal)
+            and constant planes; K7 on both routes at the eval path's
+            cutout planes, the tile size and two odd shapes; K3, K4, K6, K7
+            and K8 bit-equal)
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
@@ -57,9 +60,10 @@ Phases (any failure exits non-zero before the last line):
   eval      96 seeded FITS cutouts of 132 px with YOLO labels (3 batches of
             32), yolo11l@640 bf16 with seeded weights: cli.evaluate with the
             README preprocessing (K3), evaluate_dataset from Python with
-            Pipeline([hist_equalizer(adaptive=True)]) (K7), and cli.run
-            --datalist (batched route, out_<stem>.json/.reg per image);
-            each must launch its kernels once per batch; images/s
+            Pipeline([hist_equalizer(adaptive=True)]) (K7, one cluster
+            launch a batch), and cli.run --datalist (batched route,
+            out_<stem>.json/.reg per image); each must launch its kernels
+            once per batch; images/s
   train     the training CLI (cli.train) on yolo11l@640 bf16, batch 16, on
             a seeded set of 48 FITS cutouts of 132 px, validating on 32
             held-out cutouts after every epoch: 2 epochs of 3 steps,
@@ -81,7 +85,9 @@ Phases (any failure exits non-zero before the last line):
             PyTorch library call, by CUDA events (K1, K2, K2's backward,
             K3, K5, K6 and K8 also by device time under torch.profiler, K1,
             K2's backward, K3, K4's backward, K6 and K8 per launch, K2 at
-            both N, K3 also at the eval cutouts, K5 and K6 also at the
+            both N, K3 also at the eval cutouts, K7's whole call at the
+            eval cutouts and the tile size beside the stream route's
+            histogram and blend launches, K5 and K6 also at the
             serial crop, K6 on both routes, K8 on both routes and as the
             transposed copy the column route replaces, K4's backward at the
             concat's slice with its time on a contiguous gradient and the
@@ -182,16 +188,21 @@ HISTEQ_SHAPES = ((MAIN_BATCH, MOSAIC_TILE, MOSAIC_TILE),
 PER_FORWARD = {"stats": 3, "histeq": 1, "nms": 1, "attn": 2, "upsample": 2}
 # kernels only the training path launches
 TRAIN_ONLY = ("attn_bwd", "upsample_bwd", "shift")
-# K7's two launches, which only a CLAHE stage reaches
-CLAHE = ("clahe_hist", "clahe_blend")
+# K7, which only a CLAHE stage reaches
+CLAHE = ("clahe",)
 # the eval phase: 96 cutouts of 132 px, 3 batches of 32; the training
 # phase validates on 32 more, in batches of min(16, 32)
 EVAL_IMAGES = 96
 VAL_IMAGES = 32
-# K7's parity shapes: the eval path's cutout planes, the tile size, and an
-# odd shape that reflect-pads both axes
+# K7's parity shapes: the eval path's cutout planes, the tile size, an odd
+# shape that reflect-pads one axis and one whose rows are not a multiple of
+# 16 bytes, padded on both; and a plane past the cluster route (stream)
 CLAHE_SHAPES = ((MAIN_BATCH, TRAIN_CUTOUT, TRAIN_CUTOUT),
-                (MAIN_BATCH, MAIN_SIZE, MAIN_SIZE), (4, 96, 100))
+                (MAIN_BATCH, MAIN_SIZE, MAIN_SIZE), (4, 96, 100), (5, 33, 47))
+CLAHE_STREAM_SHAPE = (3, 1024, 1024)
+# K5's pinned inputs (scripts/torch_k5_kept_probe.py): the parity phase's
+# planes when its K3 check draws every shape and edge case, and seed 127
+K5_PINNED = ("k3-shapes-edges", 127)
 # the random model's class scores sit at its head's bias priors (~2.5e-3
 # at stride 32): at 3e-3 its catalog is empty, at 1e-3 each tile keeps one
 # detection after NMS and the merge, so the catalog has 100 sources and
@@ -246,10 +257,22 @@ def device_ms(torch, fn, iters=20, by_kernel=False):
     return dict(names) if by_kernel else sum(names.values())
 
 
+def kernel_name(name):
+    """A kernel's name without its return type, namespaces, template
+    arguments and argument list ("void (anonymous namespace)::k<1>(...)"
+    -> "k")."""
+    short = name.replace("(anonymous namespace)::", "").split("(")[0]
+    short = short.split("<")[0].removeprefix("void ").split("::")[-1]
+    return short.strip() or name
+
+
 def kernel_split(torch, fn):
-    """{kernel name: device ms a call} of fn() under torch.profiler."""
-    return {name.split("::")[-1].split("(")[0].split("<")[0]: round(ms, 5)
-            for name, ms in device_ms(torch, fn, by_kernel=True).items()}
+    """{kernel name: device ms a call} of fn() under torch.profiler, the
+    launches of kernels of one name summed."""
+    split = Counter()
+    for name, ms in device_ms(torch, fn, by_kernel=True).items():
+        split[kernel_name(name)] += ms
+    return {name: round(ms, 5) for name, ms in split.items()}
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -405,6 +428,16 @@ def phase_parity(torch):
                         else MOSAIC_SIGMAS[::2]):
                 err = max(err, parity_stats(torch, planes, sig, route,
                                             cluster))
+    # the pinned inputs, each from its own generator (rng is not advanced)
+    probe = script("torch_k5_kept_probe")
+    for pinned in K5_PINNED:
+        planes = mosaic_planes(dev, probe.parity_generator(pinned)
+                               if isinstance(pinned, str)
+                               else np.random.default_rng(pinned))
+        route, cluster, _ = cuda_stats.plan(planes[0].numel())
+        log(f"parity K5 on the pinned input {pinned!r}:")
+        for sig in MOSAIC_SIGMAS:
+            err = max(err, parity_stats(torch, planes, sig, route, cluster))
     errs["stats"] = err
     x = mosaic_planes(dev, rng)
     inputs["stats"] = x
@@ -522,14 +555,20 @@ def clahe_planes(dev, p, h, w, seed, edge_cases):
 
 
 def parity_clahe(torch, dev, errs, inputs):
-    """K7's histogram and blend launches and the whole CLAHE against the
-    plain version, bit for bit, at CLAHE_SHAPES and clip limits 0.03 and
-    0.01; every output finite in [0, 1]."""
+    """K7 against the plain version, bit for bit, at CLAHE_SHAPES and clip
+    limits 0.03 and 0.01 on both routes, each forced (the stream route's
+    histogram and blend launches also one at a time), and at
+    CLAHE_STREAM_SHAPE on the route its size picks; each route's counter
+    must show it ran; every output finite in [0, 1]."""
     from caesar_yolo_tpu_torch.ops import clahe, cuda_clahe
 
+    fn = cuda_clahe.equalize_adapthist_batch
     bad, err = 0, 0.0
-    for p, h, w in CLAHE_SHAPES:
+    for p, h, w in CLAHE_SHAPES + (CLAHE_STREAM_SHAPE,):
         x = clahe_planes(dev, p, h, w, seed=h + w, edge_cases=True)
+        plan = cuda_clahe.plan(h, w)
+        routes = ((("cluster", plan[1:]), ("stream", (0, 0, 0)))
+                  if (p, h, w) != CLAHE_STREAM_SHAPE else ((plan[0], None),))
         vmin, span = clahe.value_range(x)
         th, tw = clahe.tile_size(h, w)
         hist = cuda_clahe.tile_histograms(x, vmin, span)
@@ -537,31 +576,35 @@ def parity_clahe(torch, dev, errs, inputs):
         hist_ok = (torch.equal(hist, clahe.tile_histograms_plain(x, vmin, span))
                    and bool((hist.sum(dim=-1) == th * tw).all()))
         for clip_limit in (0.03, 0.01):
+            ref = clahe.equalize_adapthist_plain(x, clip_limit)
             cdf = clahe.cdf_tables(hist, th * tw, clip_limit)
             got = cuda_clahe.blend(x, vmin, span, cdf)
-            out = cuda_clahe.equalize_adapthist_batch(x, clip_limit)
             torch.cuda.synchronize()
-            e = max((got - clahe.blend_plain(x, vmin, span, cdf)
-                     ).abs().max().item(),
-                    (out - clahe.equalize_adapthist_plain(x, clip_limit)
-                     ).abs().max().item())
-            in_range = (bool(torch.isfinite(out).all())
-                        and out.min().item() >= 0.0
-                        and out.max().item() <= 1.0)
-            log(f"parity K7 CLAHE {(p, h, w)} clip {clip_limit}: histograms "
-                f"equal {hist_ok}, blend and whole max abs err {e:.3g} "
-                f"(tolerance 0), finite in [0, 1] {in_range}")
-            bad += (not hist_ok) + (e != 0) + (not in_range)
+            e = (got - clahe.blend_plain(x, vmin, span, cdf)).abs().max()
+            e = e.item()
+            ran, in_range = True, True
+            for route, config in routes:
+                before = getattr(fn, f"{route}_launches")
+                out = (fn(x, clip_limit) if config is None else
+                       cuda_clahe.launch(x, clip_limit, clahe.GRID, route,
+                                         *config))
+                torch.cuda.synchronize()
+                ran &= getattr(fn, f"{route}_launches") == before + 1
+                e = max(e, (out - ref).abs().max().item())
+                in_range &= (bool(torch.isfinite(out).all())
+                             and out.min().item() >= 0.0
+                             and out.max().item() <= 1.0)
+            log(f"parity K7 CLAHE {(p, h, w)} clip {clip_limit} "
+                f"({' and '.join(r for r, _ in routes)} route, counted "
+                f"{ran}): stream histograms equal {hist_ok}, max abs err "
+                f"{e:.3g} (tolerance 0), finite in [0, 1] {in_range}")
+            bad += (not hist_ok) + (e != 0) + (not in_range) + (not ran)
             err = max(err, e)
-    require(bad == 0, "CLAHE kernels differ from the plain version")
-    errs["clahe_hist"], errs["clahe_blend"] = 0.0, err
+    require(bad == 0, "CLAHE kernel differs from the plain version")
+    errs["clahe"] = err
     # timing inputs: the eval path's planes, cutouts with sources
-    x = clahe_planes(dev, *CLAHE_SHAPES[0], seed=1, edge_cases=False)
-    vmin, span = clahe.value_range(x)
-    th, tw = clahe.tile_size(*x.shape[1:])
-    cdf = clahe.cdf_tables(cuda_clahe.tile_histograms(x, vmin, span),
-                           th * tw, 0.03)
-    inputs["clahe"] = (x, vmin, span, cdf)
+    inputs["clahe"] = clahe_planes(dev, *CLAHE_SHAPES[0], seed=1,
+                                   edge_cases=False)
 
 
 def parity_train_kernels(torch, dev, errs, inputs):
@@ -675,6 +718,16 @@ def parity_train_kernels(torch, dev, errs, inputs):
                 del imgs, shifts, got, ref
     require(bad == 0, "row shift kernel differs")
     errs["shift"] = 0.0
+
+
+def script(name):
+    """The module scripts/<name>.py."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def mosaic_planes(dev, rng):
@@ -839,6 +892,7 @@ def phase_golden_eval(torch, counters, tmp):
     torch.backends.cuda.matmul.allow_tf32 = False
     for c in counters.values():
         c.launches = 0
+    clusters = counters["clahe"].cluster_launches
     try:
         got = golden_eval.port_outputs(paths, device="cuda")
     finally:
@@ -846,8 +900,11 @@ def phase_golden_eval(torch, counters, tmp):
          torch.backends.cuda.matmul.allow_tf32) = prev
     batches = -(-len(paths) // golden_eval.CONFIG["batch_size"])
     launches = {k: counters[k].launches for k in CLAHE}
+    launches["clahe cluster route"] = (counters["clahe"].cluster_launches
+                                       - clusters)
     require(all(n == batches for n in launches.values()),
-            f"golden-eval: K7 launches {launches}, expected {batches} each")
+            f"golden-eval: K7 launches {launches}, expected {batches} each "
+            f"(one cluster launch a batch)")
     why = golden_eval.golden_mismatch(golden, got)
     log(f"golden-eval: yolov8n_synth96 @96 f32 on {len(paths)} cutouts, "
         + "; ".join(f"{run}: {int(got[f'{run}_per_image'].sum())} detections,"
@@ -1302,11 +1359,16 @@ def phase_eval(torch, counters, tmp, card):
     for name, (fn, stages) in runs.items():
         for c in counters.values():
             c.launches = 0
+        clusters = counters["clahe"].cluster_launches
         t0 = time.perf_counter()
         rc, report = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[name] = {k: c.launches for k, c in counters.items()}
+        clusters = counters["clahe"].cluster_launches - clusters
+        require(clusters == (batches if "clahe" in stages else 0),
+                f"eval {name}: {clusters} K7 cluster launches, expected one "
+                f"a batch of a CLAHE run")
         require(rc == 0, f"eval {name} failed")
         expect = {k: 0 for k in counters}
         expect.update({k: batches * n for k, n in PER_FORWARD.items()
@@ -1669,40 +1731,42 @@ def phase_timing(torch, mods, inputs, engine, batches):
                   + way_rows["column"]["plain_ms"]) / 2,
         library_ms=None, bound=way_rows["row"]["bound"])
 
-    # K7 at the eval path's planes; the tile size's times are logged.  Bytes:
-    # hist reads the planes and writes the counts, blend reads the planes
-    # and the CDF tables and writes the output; operations: 3 flops a pixel
-    # to bin it, blend 9 more for its taps and lerps
+    # K7's whole call at the eval path's planes (the kernels line) and at
+    # the tile size, beside the stream route's histogram and blend launches
+    # (the two kernels of the design before the cluster route).  Bytes: read
+    # each plane once and write it once; operations: 3 flops a pixel to bin
+    # it, 9 to blend it
     from caesar_yolo_tpu_torch.ops import clahe
-    x, vmin, span, cdf = inputs["clahe"]
-    dev = x.device
+    x = inputs["clahe"]
     for shape in (tuple(x.shape), (MAIN_BATCH, MAIN_SIZE, MAIN_SIZE)):
         if shape != tuple(x.shape):
             x = clahe_planes(dev, *shape, seed=2, edge_cases=False)
-            vmin, span = clahe.value_range(x)
-            th, tw = clahe.tile_size(*shape[1:])
-            cdf = clahe.cdf_tables(cuda_clahe.tile_histograms(x, vmin, span),
-                                   th * tw, 0.03)
-        px, table = x.numel(), cdf.numel() * 4
-        hist = dict(
-            ms=time_ms(torch, lambda: cuda_clahe.tile_histograms(
-                x, vmin, span)),
-            plain_ms=time_ms(torch, lambda: clahe.tile_histograms_plain(
-                x, vmin, span), iters=5),
+        kernel = lambda: cuda_clahe.equalize_adapthist_batch(x, 0.03)
+        r = dict(
+            ms=time_ms(torch, kernel),
+            plain_ms=time_ms(torch, lambda: clahe.equalize_adapthist_plain(
+                x, 0.03), iters=5),
             library_ms=None,
-            bound=bound_ms(4 * px + table, 3 * px, "float32"))
-        blend = dict(
-            ms=time_ms(torch, lambda: cuda_clahe.blend(x, vmin, span, cdf)),
-            plain_ms=time_ms(torch, lambda: clahe.blend_plain(
-                x, vmin, span, cdf), iters=5),
-            library_ms=None,
-            bound=bound_ms(8 * px + table, 12 * px, "float32"))
-        log(f"timing K7 CLAHE {shape}: hist {hist['ms']:.4f} ms (plain "
-            f"{hist['plain_ms']:.4f}, bound {hist['bound'][0]:.4f}), blend "
-            f"{blend['ms']:.4f} ms (plain {blend['plain_ms']:.4f}, bound "
-            f"{blend['bound'][0]:.4f})")
-        if "clahe_hist" not in rows:
-            rows["clahe_hist"], rows["clahe_blend"] = hist, blend
+            bound=bound_ms(2 * x.numel() * 4, 12 * x.numel(), "float32"))
+        vmin, span = clahe.value_range(x)
+        th, tw = clahe.tile_size(*shape[1:])
+        cdf = clahe.cdf_tables(cuda_clahe.tile_histograms(x, vmin, span),
+                               th * tw, 0.03)
+        hist_ms = time_ms(torch, lambda: cuda_clahe.tile_histograms(
+            x, vmin, span))
+        blend_ms = time_ms(torch, lambda: cuda_clahe.blend(x, vmin, span,
+                                                           cdf))
+        stream = lambda: cuda_clahe.launch(x, 0.03, clahe.GRID, "stream", 0,
+                                           0, 0)
+        log(f"timing K7 CLAHE {shape} ({cuda_clahe.plan(*shape[1:])[0]} "
+            f"route, {cuda_clahe.plan(*shape[1:])[1]} blocks a cluster): "
+            f"whole call {r['ms']:.5f} ms (device "
+            f"{kernel_split(torch, kernel)}), plain {r['plain_ms']:.5f}, "
+            f"bound {r['bound'][0]:.6f} ({r['bound'][1]}); stream route "
+            f"{time_ms(torch, stream):.5f} ms (device "
+            f"{kernel_split(torch, stream)}); its histogram launch "
+            f"{hist_ms:.5f} ms and blend launch {blend_ms:.5f} ms")
+        rows.setdefault("clahe", r)
 
     staged = [engine.put_tiles(bt) for bt in batches]
     device_tps = staged_tps(torch, engine, staged)
@@ -1737,10 +1801,8 @@ KERNELS = {
     "shift": ("fractional_row_shift_batch",
               "caesar_yolo_tpu_torch/csrc/shift.cu",
               "caesar_yolo_tpu/ops/pallas_shift.py:54"),
-    "clahe_hist": ("clahe_hist", "caesar_yolo_tpu_torch/csrc/clahe.cu",
-                   "caesar_yolo_tpu/ops/pallas_clahe.py:54"),
-    "clahe_blend": ("clahe_blend", "caesar_yolo_tpu_torch/csrc/clahe.cu",
-                    "caesar_yolo_tpu/ops/pallas_clahe.py:93"),
+    "clahe": ("equalize_adapthist_batch", "caesar_yolo_tpu_torch/csrc/clahe.cu",
+              "caesar_yolo_tpu/ops/pallas_clahe.py:137"),
 }
 
 
@@ -1790,8 +1852,7 @@ def main() -> int:
                     "upsample": cuda_upsample.upsample2x_forward,
                     "upsample_bwd": cuda_upsample.upsample2x_backward,
                     "shift": cuda_shift.fractional_row_shift_batch,
-                    "clahe_hist": cuda_clahe.tile_histograms,
-                    "clahe_blend": cuda_clahe.blend}
+                    "clahe": cuda_clahe.equalize_adapthist_batch}
 
         errs, inputs = phase_parity(torch)
         phase_golden(torch)

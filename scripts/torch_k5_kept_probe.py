@@ -18,12 +18,19 @@ The planes come from one of two sources:
     arrangement (one draw of K3's main shape); "k3-shapes" also draws
     the noise of K3's other parity shapes from it; "k3-edges" also draws
     the main shape's edge cases from it; "k3-shapes-edges" does both.
-With --stop it ends at the first case the rule rejects.  Exits 0 once
+With --stop it ends at the first case the rule rejects.  With
+--per-iteration it also runs each case at maxiters = 0..5 (0: one set of
+statistics over the valid pixels, no clip) and prints, for each k, the
+planes where the kernel and the plain version in f32 differ in the kept
+count, the median's bits, or mean, std, lower or upper (as a share of the
+plane's scale), and the lowest k where anything differs.  Exits 0 once
 every case has run (or --stop found one); the verdicts are printed.
 
 Run from the repository root:
     python3 scripts/torch_k5_kept_probe.py [--first 0] [--seeds 40]
     python3 scripts/torch_k5_kept_probe.py --parity-draws k3-shapes
+    python3 scripts/torch_k5_kept_probe.py --parity-draws k3-shapes-edges \
+        --per-iteration
 """
 
 from __future__ import annotations
@@ -94,6 +101,39 @@ def check(torch, x, label) -> tuple[int, bool]:
     return worst, failed
 
 
+def per_iteration(torch, x, label) -> None:
+    """The kernel against the plain version in f32 at maxiters = 0..5, each
+    of chip_smoke.MOSAIC_SIGMAS: the planes that differ and how."""
+    from caesar_yolo_tpu_torch.ops import cuda_stats
+    from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
+
+    import chip_smoke as cs
+    names = ("mean", "median", "std", "lower", "upper")
+    for sig in cs.MOSAIC_SIGMAS:
+        first = None
+        for k in range(6):
+            gs, gc = (t.cpu() for t in cuda_stats.clip_stats(x, *sig,
+                                                              maxiters=k))
+            rs, rc = (t.cpu() for t in clip_stats_plain(x, None, *sig,
+                                                        maxiters=k))
+            scale = rs.nan_to_num().abs().amax(dim=1).clamp(min=1e-30)
+            rel = (gs - rs).nan_to_num().abs() / scale[:, None]
+            med = gs[:, 1].nan_to_num().view(torch.int32) != rs[:, 1] \
+                .nan_to_num().view(torch.int32)
+            differ = (gc[:, 1] != rc[:, 1]) | med | (rel > 0).any(dim=1)
+            for i in differ.nonzero().flatten().tolist():
+                print(f"{label} sigmas {sig} maxiters {k} plane {i}: kept "
+                      f"{int(gc[i, 1])} (kernel) {int(rc[i, 1])} (plain); "
+                      f"median bits equal {not bool(med[i])}; "
+                      + ", ".join(f"{n} {rel[i, j].item():.3g}"
+                                  for j, n in enumerate(names))
+                      + " of the plane's scale", flush=True)
+            if first is None and bool(differ.any()):
+                first = k
+        print(f"{label} sigmas {sig}: first maxiters where the kernel and the "
+              f"plain version differ: {first}", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -107,6 +147,8 @@ def main() -> int:
     parser.add_argument("--parity-draws", choices=DRAWS)
     parser.add_argument("--stop", action="store_true",
                         help="stop at the first case the rule rejects")
+    parser.add_argument("--per-iteration", action="store_true",
+                        help="also compare at maxiters 0..5")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
@@ -123,7 +165,10 @@ def main() -> int:
                  for s in range(args.first, args.first + args.seeds)]
     worst, rejected = 0, []
     for label, make in cases:
-        w, failed = check(torch, cs.mosaic_planes(dev, make()), label)
+        x = cs.mosaic_planes(dev, make())
+        w, failed = check(torch, x, label)
+        if args.per_iteration:
+            per_iteration(torch, x, label)
         worst = max(worst, w)
         if failed:
             rejected.append(label)

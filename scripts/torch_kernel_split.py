@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Split the time of K5 (csrc/stats.cu), K1 (csrc/nms.cu), K6
-(csrc/histeq.cu), K8 (csrc/shift.cu), K3 (csrc/preproc.cu) and K4's
-backward (csrc/upsample.cu) on one CUDA card, for either
+(csrc/histeq.cu), K8 (csrc/shift.cu), K3 (csrc/preproc.cu), K4's
+backward (csrc/upsample.cu) and K7 (csrc/clahe.cu) on one CUDA card, for
+either
 design of K5 and K1: the one-block-per-plane K5 and one-block-per-image
 K1 up to commit 0a0e8d7, or the cluster-per-plane K5 and the two-launch
 K1 after it (told apart by their sources).
@@ -26,7 +27,7 @@ K1 at [32, 4, 512] on chip_smoke.py's random candidates):
     memory, the 32 decisions of each step, the keep flags and the kept
     rows' words).
 
-K6, K8, K3 and K4's backward are timed through the checkout's own
+K6, K8, K3, K4's backward and K7 are timed through the checkout's own
 wrappers (run the script of another checkout to split its design):
   - K6 at [32, 512, 512] (chip_smoke.py's mosaic planes) and at the serial
     crop's [1, 640, 640]: the wrapper's time by CUDA events, the device
@@ -52,13 +53,23 @@ wrappers (run the script of another checkout to split its design):
     concat's channel slice (whatever the wrapper does with it: a copy and
     a launch, or a launch that reads it in place), by events, host time
     and device time, with the channels_last copy of the slice timed
-    alone.
+    alone;
+  - K7 at the eval path's [32, 132, 132] and the tile size's
+    [32, 640, 640] (chip_smoke.py's CLAHE planes): the whole
+    equalize_adapthist_batch call by CUDA events, its host time, device
+    time per launch and the bound; for the cluster route (told apart by
+    its source) the clock64 phases of a scratch build, over the planes a
+    block walks: the start and the wait for each copy, min/max and its
+    push, the first cluster barrier and the combine, binning and
+    counting, the counts' push, the second cluster barrier, the next copy
+    and the tables, the blend and write; and the clusters resident at
+    once (the blocks that ran, over the cluster size).
 
 Run from the repository root (default: the checkout's own csrc/ and all
 six kernels), or pointing at the csrc/ of another checkout (e.g. the
 parent unpacked with `git archive` into build/):
     python3 scripts/torch_kernel_split.py \
-        [--csrc <dir>/caesar_yolo_tpu_torch/csrc] [--only preproc,upsample_bwd]
+        [--csrc <dir>/caesar_yolo_tpu_torch/csrc] [--only preproc,clahe]
 Writes its results also to build/kernel_split.json.
 """
 
@@ -190,6 +201,37 @@ PREPROC_PHASES_NEW = ("wait for the copy", "stretch", "reduce and push",
                       "cluster barrier", "combine",
                       "normalise and write", "block barrier and next copy",
                       "start and first copy")
+# K7's phases are kept in thread 0's registers (32-bit clock) and written
+# once at the end, so that reading the clock stalls nothing
+CLK_REG = """#define CLKSET unsigned _t = (unsigned)clock(); \\
+  unsigned _acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#define CLK(i) { unsigned _u = (unsigned)clock(); _acc[i] += _u - _t; \\
+  _t = _u; }
+#define CLKFLUSH { if (threadIdx.x == 0) for (int _i = 0; _i < 8; ++_i) \\
+  g_clk[(blockIdx.y * gridDim.x + blockIdx.x) * 8 + _i] = _acc[_i]; }
+"""
+CLAHE_PATCH_NEW = [
+    ("namespace {\n", READER + CLK_REG),
+    ("  cg::cluster_group cl = cg::this_cluster();\n", "  CLKSET\n"),
+    ("    // min, max and the NaN flag over the cluster\n", "    CLK(0)\n",
+     True),
+    ("    cl.sync();\n    Lims l;\n", "    CLK(1)\n", True),
+    ("    // each pixel binned once", "    CLK(2)\n", True),
+    ("    // the values have been read", "    CLK(3)\n", True),
+    ("    cl.sync();\n    // the next plane's rows land", "    CLK(4)\n",
+     True),
+    ("    // the next plane's rows land", "    CLK(5)\n", True),
+    ("    // the blend, from shared memory\n", "    CLK(6)\n", True),
+    ("    __syncthreads();  // the tables are read before the next plane's "
+     "counts\n", "    CLK(7)\n"),
+    ("    CLK(7)\n  }\n", "  CLKFLUSH\n"),
+]
+# K7's cluster route, over all the planes a block walks (thread 0's view)
+CLAHE_PHASES_NEW = ("start and wait for the copy", "min/max and its push",
+                    "cluster barrier 1 and the combine", "bin and count",
+                    "the counts' push", "cluster barrier 2",
+                    "next copy and tables", "blend and write")
+CLAHE_SHAPES = ((32, 132, 132), (32, 640, 640))  # eval path, tile size
 K3_SHAPES = ((32, 640, 640), (32, 132, 132))     # main path, eval path
 # K4's backward at yolo11l@640's training batch: the incoming gradients of
 # the two neck upsamples, [B, C, 2H, 2W]
@@ -217,7 +259,8 @@ def is_new(csrc: str, name: str) -> bool:
         text = f.read()
     return {"stats": "clip_stats_cluster_kernel", "nms": "nms_scan_kernel",
             "histeq": "histeq_cluster_kernel",
-            "preproc": "zscale_cluster_kernel"}[name] in text
+            "preproc": "zscale_cluster_kernel",
+            "clahe": "clahe_cluster_kernel"}[name] in text
 
 
 def build_all(csrc: str, out_dir: str, names) -> dict[str, str]:
@@ -232,7 +275,8 @@ def build_all(csrc: str, out_dir: str, names) -> dict[str, str]:
                  ("stats", True): STATS_PATCH_NEW,
                  ("nms", True): NMS_PATCH_NEW,
                  ("histeq", True): HISTEQ_PATCH_NEW,
-                 ("preproc", True): PREPROC_PATCH_NEW}[name, new]
+                 ("preproc", True): PREPROC_PATCH_NEW,
+                 ("clahe", True): CLAHE_PATCH_NEW}[name, new]
         variants = [("plain", text), ("clk", patched(text, patch))]
         for variant, src in variants:
             path = os.path.join(out_dir, f"{name}_{variant}.cu")
@@ -263,7 +307,8 @@ def load(path, entry, argtypes):
 
 
 def clock_shares(torch, lib, call, blocks, phases):
-    """Phase shares of the clock64 cycles of one call, summed over blocks."""
+    """Phase shares of the clock64 cycles of one call, summed over blocks;
+    the most cycles a block took; how many blocks ran."""
     lib.cy_split_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_int]
     lib.cy_split_clocks.restype = ctypes.c_int
@@ -277,8 +322,10 @@ def clock_shares(torch, lib, call, blocks, phases):
     per_block_max = max(sum(buf[NPH * b:NPH * b + len(phases)])
                         for b in range(blocks))
     total = sum(sums)
+    ran = sum(1 for b in range(blocks)
+              if any(buf[NPH * b:NPH * b + len(phases)]))
     return ({p: s / total for p, s in zip(phases, sums)},
-            per_block_max)
+            per_block_max, ran)
 
 
 def split_histeq_shift(torch, cs, dev, rng, kernels, libs, out):
@@ -308,7 +355,7 @@ def split_histeq_shift(torch, cs, dev, rng, kernels, libs, out):
                                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                                + [ctypes.c_void_p])
                 y = torch.empty_like(x)
-                shares, cyc = clock_shares(
+                shares, cyc, ran = clock_shares(
                     torch, lib, lambda fn=fn, x=x, y=y: fn(
                         x.data_ptr(), y.data_ptr(), None, None, x.shape[0],
                         x[0].numel(), cluster, threads, 0,
@@ -400,7 +447,7 @@ def split_preproc_upsample(torch, cs, dev, rng, kernels, libs, out):
                 lib, fn = load(libs["preproc_clk"], "cy_zscale_minmax",
                                cuda_preproc.ENTRY_ARGS)
                 # at most one cluster a plane: slots past the grid stay 0
-                shares, cyc = clock_shares(
+                shares, cyc, ran = clock_shares(
                     torch, lib, lambda: fn(
                         x.data_ptr(), vlims.data_ptr(), zl.data_ptr(),
                         o.data_ptr(), x.shape[0], x[0].numel(), 0.0, 1.0,
@@ -439,6 +486,43 @@ def split_preproc_upsample(torch, cs, dev, rng, kernels, libs, out):
             out[f"K4-bwd {[b, c, h2, w2]} slice copy"] = row
 
 
+def split_clahe(torch, cs, dev, libs, out):
+    """K7 through the checkout's wrapper: the whole call by CUDA events,
+    its host time, device time per launch and the bound; the cluster
+    route's clock64 phases from libs["clahe_clk"] where it was built."""
+    from caesar_yolo_tpu_torch import cuda_build
+    from caesar_yolo_tpu_torch.ops import clahe, cuda_clahe
+    for shape in CLAHE_SHAPES:
+        x = cs.clahe_planes(dev, *shape, seed=2, edge_cases=False)
+        call = lambda x=x: cuda_clahe.equalize_adapthist_batch(x, 0.03)
+        row = {"ms": cs.time_ms(torch, call), "host_ms": host_ms(torch, call),
+               "launch_ms": cs.kernel_split(torch, call),
+               "bound_ms": cs.bound_ms(2 * x.numel() * 4, 12 * x.numel(),
+                                       "float32")[0]}
+        row["device_ms"] = sum(row["launch_ms"].values())
+        if "clahe_clk" in libs:     # the cluster route's phases
+            route, cluster, rows, win = cuda_clahe.plan(*shape[1:])
+            th, tw = clahe.tile_size(*shape[1:])
+            o = torch.empty_like(x)
+            args = (x.data_ptr(), o.data_ptr(), None, *shape, clahe.GRID, th,
+                    tw, clahe.clip_limit_count(th * tw, 0.03), cluster,
+                    rows, win, cuda_clahe.layout(*shape[1:], cluster)[2],
+                    int(shape[2] % 4 == 0), 0, cuda_build.stream_ptr(dev))
+            row["entry_host_ms"] = host_ms(
+                torch, lambda: cuda_clahe._entry()(*args))
+            lib, fn = load(libs["clahe_clk"], "cy_clahe",
+                           cuda_clahe._entry().argtypes)
+            shares, cyc, ran = clock_shares(torch, lib, lambda: fn(*args),
+                                       cluster * shape[0], CLAHE_PHASES_NEW)
+            row["shares"] = shares
+            row["split_ms"] = {k: v * row["device_ms"]
+                               for k, v in shares.items()}
+            row["max_block_cycles"] = cyc
+            row["resident_clusters"] = ran // cluster
+        print(f"K7 {list(shape)}: {json.dumps(row)}", flush=True)
+        out[f"K7 {list(shape)}"] = row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -450,8 +534,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--csrc", default=cuda_build.CSRC)
     parser.add_argument("--only",
-                        default="stats,nms,histeq,shift,preproc,upsample_bwd",
-                        help="comma-separated kernels to split")
+                        default="stats,nms,histeq,shift,preproc,upsample_bwd,"
+                        "clahe", help="comma-separated kernels to split")
     args = parser.parse_args()
     kernels = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -463,8 +547,8 @@ def main() -> int:
     print(card)
     libs = build_all(args.csrc, os.path.join(REPO, "build", "split"),
                      [n for n in ("stats", "nms") if n in kernels]
-                     + [n for n in ("histeq", "preproc") if n in kernels
-                        and is_new(args.csrc, n)])
+                     + [n for n in ("histeq", "preproc", "clahe")
+                        if n in kernels and is_new(args.csrc, n)])
     dev = torch.device("cuda")
     stream = cuda_build.stream_ptr(dev)
     out = {"card": card, "csrc": args.csrc}
@@ -499,7 +583,7 @@ def main() -> int:
                     row["ms"] = cs.time_ms(torch, call)
                     row["device_ms"] = cs.device_ms(torch, call)
                 else:
-                    shares, cyc = clock_shares(torch, lib, call, blocks,
+                    shares, cyc, ran = clock_shares(torch, lib, call, blocks,
                                                phases)
                     row["shares"] = shares
                     row["split_ms"] = {k: v * row["device_ms"]
@@ -535,15 +619,13 @@ def main() -> int:
                 row["ms"] = cs.time_ms(torch, call)
                 row["device_ms"] = cs.device_ms(torch, call)
                 if new_k1:
-                    row["launch_ms"] = {
-                        n.split("::")[-1].split("(")[0]: v for n, v in
-                        cs.device_ms(torch, call, by_kernel=True).items()}
+                    row["launch_ms"] = cs.kernel_split(torch, call)
                 ref = cuda_nms.suppress_plain(boxes_t.transpose(1, 2), valid,
                                               0.5)
                 row["bit_equal"] = bool(torch.equal(alive, ref))
             else:
                 # new K1: the scan launch's phases, scaled to its device time
-                shares, cyc = clock_shares(
+                shares, cyc, ran = clock_shares(
                     torch, lib, call, b,
                     NMS_PHASES_NEW if new_k1 else NMS_PHASES)
                 scale = (sum(v for n, v in row["launch_ms"].items()
@@ -555,6 +637,8 @@ def main() -> int:
         out["K1 [32,4,512]"] = row
     split_histeq_shift(torch, cs, dev, rng, kernels, libs, out)
     split_preproc_upsample(torch, cs, dev, rng, kernels, libs, out)
+    if "clahe" in kernels:
+        split_clahe(torch, cs, dev, libs, out)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "kernel_split.json"),
               "w") as f:

@@ -2,7 +2,8 @@
 """Configurations of the cluster-per-plane K5 (csrc/stats.cu), the
 two-launch K1 (csrc/nms.cu), the cluster-per-plane K6 (csrc/histeq.cu),
 K8's two routes (csrc/shift.cu), K3's persistent clusters
-(csrc/preproc.cu) and K4's backward (csrc/upsample.cu) on one CUDA card.
+(csrc/preproc.cu), K4's backward (csrc/upsample.cu) and the
+cluster-per-plane K7 (csrc/clahe.cu) on one CUDA card.
 
 Prints the card's name and power limit, each kernel's registers, shared
 memory and spills (`nvcc -Xptxas -v`), then:
@@ -33,11 +34,15 @@ memory and spills (`nvcc -Xptxas -v`), then:
   - K4's backward at yolo11l@640's training gradients [16,512,80,80] and
     [16,512,40,40] bf16, as the concat's channel slice and contiguous, at
     each vector width of 16, 8, 4 and 2 bytes: bit-equality, CUDA events,
-    device time.
+    device time;
+  - K7 at [32,132,132] (the eval path) and [32,640,640] (the tile size)
+    for clusters of 1 to 16 blocks (where a block's shared memory fits),
+    and the stream route: bit-equality with the plain version, the whole
+    call by CUDA events, device time.
 
 Run from the repository root:
     python3 scripts/torch_kernel_tune.py \
-        [--only stats,nms,histeq,shift,preproc,upsample_bwd]
+        [--only stats,nms,histeq,shift,preproc,upsample_bwd,clahe]
 """
 
 from __future__ import annotations
@@ -97,6 +102,36 @@ def tune_histeq(torch, cs, dev, rng) -> int:
             print(f"K6 {list(shape)} {route} cluster {cluster} threads "
                   f"{threads}: {ms:.5f} ms (device {dms:.5f}) bit-equal "
                   f"{ok}", flush=True)
+    return failed
+
+
+def tune_clahe(torch, cs, dev) -> int:
+    """K7's configurations; returns the number that differ from the plain
+    version."""
+    from caesar_yolo_tpu_torch.ops import clahe, cuda_clahe
+    failed = 0
+    for shape in ((32, 132, 132), (32, 640, 640)):
+        x = cs.clahe_planes(dev, *shape, seed=2, edge_cases=False)
+        ref = clahe.equalize_adapthist_plain(x, 0.03)
+        configs = []
+        for cluster in (1, 2, 4, 8, 16):
+            rows, win, smem = cuda_clahe.layout(*shape[1:], cluster)
+            if smem <= cuda_clahe.SMEM_BYTES:
+                configs.append(("cluster", cluster, rows, win))
+        for config in configs + [("stream", 0, 0, 0)]:
+            call = lambda: cuda_clahe.launch(x, 0.03, clahe.GRID, *config)
+            try:
+                ok = torch.equal(call(), ref)
+            except RuntimeError as err:     # a refused cluster
+                print(f"K7 {list(shape)} {config}: {err}", flush=True)
+                continue
+            failed += not ok
+            ms = cs.time_ms(torch, call)
+            dms = cs.device_ms(torch, call)
+            mark = " (plan)" if config == cuda_clahe.plan(*shape[1:]) else ""
+            print(f"K7 {list(shape)} {config[0]} cluster {config[1]}{mark}: "
+                  f"{ms:.5f} ms (device {dms:.5f}) bit-equal {ok}",
+                  flush=True)
     return failed
 
 
@@ -206,8 +241,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--only",
-                        default="stats,nms,histeq,shift,preproc,upsample_bwd",
-                        help="comma-separated kernels to tune")
+                        default="stats,nms,histeq,shift,preproc,upsample_bwd,"
+                        "clahe", help="comma-separated kernels to tune")
     kernels = parser.parse_args().only.split(",")
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
@@ -231,6 +266,8 @@ def main() -> int:
         failed += tune_preproc(torch, cs, dev, rng)
     if "upsample_bwd" in kernels:
         failed += tune_upsample_bwd(torch, cs, dev)
+    if "clahe" in kernels:
+        failed += tune_clahe(torch, cs, dev)
     sig = cs.MOSAIC_SIGMAS[0]
     for shape in K5_SHAPES if "stats" in kernels else ():
         if shape == (32, 512, 512):
@@ -273,8 +310,7 @@ def main() -> int:
         ok = torch.equal(got, cuda_nms.suppress_plain(
             boxes_t.transpose(1, 2), valid, 0.5))
         failed += not ok
-        split = {n.split("::")[-1].split("(")[0]: round(v, 5) for n, v in
-                 cs.device_ms(torch, call, by_kernel=True).items()}
+        split = cs.kernel_split(torch, call)
         print(f"K1 [32,4,{k}]: {cs.time_ms(torch, call):.5f} ms (device "
               f"{split}) bit-equal {ok}", flush=True)
     print("FAIL" if failed else "OK")

@@ -46,7 +46,8 @@ PORT_KERNELS = ("attn_fwd_mma_kernel",
                 "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
                 "up2_fwd_kernel", "up2_bwd_kernel", "row_shift_kernel",
                 "col_shift_kernel", "histeq_cluster_kernel",
-                "zscale_cluster_kernel")
+                "zscale_cluster_kernel", "clahe_cluster_kernel",
+                "range_kernel", "tables_kernel", "blend_kernel")
 LIBRARY_MARKS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "sm90_",
                  "implicit", "winograd", "fprop", "nhwc")
 
@@ -61,7 +62,7 @@ def category(name: str) -> str:
     if own and ("nms_mask_kernel" in name or "nms_scan_kernel" in name):
         return "port kernel K1 (NMS: mask, scan)"
     if own and any(k in name for k in PORT_KERNELS):
-        return "port kernels (K2-K4, K6, K8)"
+        return "port kernels (K2-K4, K6-K8)"
     if any(k in low for k in LIBRARY_MARKS):
         return "convolution / GEMM (cuDNN, cuBLAS)"
     return "other PyTorch kernels"

@@ -287,6 +287,31 @@ def test_sigma_clip_kernel_routes(dev, shape, route, sigmas):
         assert got[0][-1, 1].item() == -2.5
 
 
+@pytest.mark.parametrize("draws", ["parity k3-shapes-edges", "seed 127"])
+def test_sigma_clip_kernel_on_the_pinned_inputs(dev, draws):
+    """The two inputs where the kernel once failed its rule
+    (scripts/torch_k5_kept_probe.py: 5 pixels fewer kept on planes 7 and
+    13 of the first, statistics 1.36e-5 of the scale off on the second),
+    at each of the mosaic's sigmas: within cuda_stats.stats_mismatch, kept
+    counts equal."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "torch_k5_kept_probe.py")
+    spec = importlib.util.spec_from_file_location("k5_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    rng = (probe.parity_generator("k3-shapes-edges") if draws.startswith(
+        "parity") else np.random.default_rng(127))
+    x = cs.mosaic_planes(dev, rng)
+    for sig in cs.MOSAIC_SIGMAS:
+        got = cuda_stats.clip_stats(x, *sig)
+        torch.cuda.synchronize()
+        ref = clip_stats_plain(x, None, *sig)
+        assert cuda_stats.stats_mismatch(got, ref) is None, sig
+        assert torch.equal(got[1], ref[1]), sig
+
+
 def test_sigma_clip_kernel_rejects_what_it_cannot_take(dev):
     x = torch.randn(2, 16, 16, device=dev)
     with pytest.raises(ValueError):
@@ -604,10 +629,28 @@ def _clahe_planes(dev, p, h, w, seed):
 @pytest.mark.parametrize("shape", [(32, 132, 132), (32, 640, 640),
                                    (4, 96, 100), (3, 128, 256)])
 def test_clahe_kernels_bit_equal(dev, shape, clip_limit):
-    """K7's histogram and blend launches each equal their plain version bit
-    for bit, and so does the whole CLAHE; NaN, zero and constant planes
-    come out finite in [0, 1]."""
+    """K7 on both routes, each forced, bit-equal to the plain version: the
+    cluster route (plan's, one launch a call) and the stream route (its
+    histogram and blend kernels, each launched on its own, bit-equal too);
+    NaN, zero and constant
+    planes come out finite in [0, 1]."""
     x = _clahe_planes(dev, *shape, seed=shape[1] + shape[2])
+    ref = clahe.equalize_adapthist_plain(x, clip_limit)
+    fn = cuda_clahe.equalize_adapthist_batch
+    plan = cuda_clahe.plan(*shape[1:])
+    assert plan[0] == "cluster"
+    for route, config in (("cluster", plan[1:]), ("stream", (0, 0, 0))):
+        before = (fn.launches, getattr(fn, f"{route}_launches"))
+        out = cuda_clahe.launch(x, clip_limit, clahe.GRID, route, *config)
+        torch.cuda.synchronize()
+        assert (fn.launches, getattr(fn, f"{route}_launches")) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(out, ref), route
+    out = fn(x, clip_limit)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert bool(torch.isfinite(out).all())
+    assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
     vmin, span = clahe.value_range(x)
     hist = cuda_clahe.tile_histograms(x, vmin, span)
     torch.cuda.synchronize()
@@ -618,11 +661,61 @@ def test_clahe_kernels_bit_equal(dev, shape, clip_limit):
     got = cuda_clahe.blend(x, vmin, span, cdf)
     torch.cuda.synchronize()
     assert torch.equal(got, clahe.blend_plain(x, vmin, span, cdf))
-    out = cuda_clahe.equalize_adapthist_batch(x, clip_limit)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_clahe_cluster_sizes_bit_equal(dev, cluster):
+    """Every cluster size the route can take, on the eval path's cutouts
+    and an odd shape that reflect-pads both axes (rows 4-byte aligned or
+    not), bit-equal to the plain version."""
+    for shape in ((32, 132, 132), (5, 33, 47)):
+        x = _clahe_planes(dev, *shape, seed=cluster)
+        rows, win, smem = cuda_clahe.layout(*shape[1:], cluster)
+        assert smem <= cuda_clahe.SMEM_BYTES
+        out = cuda_clahe.launch(x, 0.03, clahe.GRID, "cluster", cluster,
+                                rows, win)
+        torch.cuda.synchronize()
+        assert torch.equal(out, clahe.equalize_adapthist_plain(x, 0.03))
+
+
+@pytest.mark.parametrize("shape", [(132, 132), (640, 640), (96, 100),
+                                   (128, 256), (33, 47), (720, 720),
+                                   (1024, 512)])
+def test_clahe_layout_agrees_with_the_kernel(dev, shape):
+    """For every cluster size whose blocks fit, the C entry point takes
+    cuda_clahe.layout's rows, tile rows and byte count (it checks them
+    against the kernel's own carving and windows) and gives the plain
+    version's bits; a layout one tile row or one row off is refused."""
+    x = _clahe_planes(dev, 4, *shape, seed=shape[1])
+    ref = clahe.equalize_adapthist_plain(x, 0.03)
+    taken = 0
+    for cluster in (1, 2, 4, 8, 16):
+        rows, win, smem = cuda_clahe.layout(*shape, cluster)
+        if smem > cuda_clahe.SMEM_BYTES:
+            continue
+        out = cuda_clahe.launch(x, 0.03, clahe.GRID, "cluster", cluster,
+                                rows, win)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), cluster
+        taken += 1
+        for bad in ((rows, win + 1), (rows + 1, win)):
+            with pytest.raises(RuntimeError):
+                cuda_clahe.launch(x, 0.03, clahe.GRID, "cluster", cluster,
+                                  *bad)
+    assert taken
+
+
+def test_clahe_stream_route_by_size(dev):
+    """Planes past the cluster route's shared memory take the four-launch
+    stream route, bit-equal too."""
+    shape = (3, 1024, 1024)
+    assert cuda_clahe.plan(*shape[1:])[0] == "stream"
+    x = _clahe_planes(dev, *shape, seed=5)
+    before = cuda_clahe.equalize_adapthist_batch.stream_launches
+    out = cuda_clahe.equalize_adapthist_batch(x)
     torch.cuda.synchronize()
-    assert torch.equal(out, clahe.equalize_adapthist_plain(x, clip_limit))
-    assert bool(torch.isfinite(out).all())
-    assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    assert cuda_clahe.equalize_adapthist_batch.stream_launches == before + 1
+    assert torch.equal(out, clahe.equalize_adapthist_plain(x))
 
 
 def test_clahe_kernels_reject_what_they_cannot_take(dev):

@@ -13,7 +13,10 @@ multiplicity and the next distinct member in one sweep.
 `four_round_search` below does the same; its brackets must equal the
 binary search's bit for bit, and its pinned values the plain version's.
 `kernel_clip_stats` runs the whole clip loop so, a later stats_of's
-first pass counting only the values the kept set lost.
+first pass counting only the values the kept set lost, and takes the
+moments as the kernel does: f64 sums in the kernel's order (each thread's
+values, then the warp's butterfly, the warps, the blocks), the mean and
+variance in f64, each rounded once to f32.
 
 K1 (csrc/nms.cu) builds the kill mask by (row, word) threads, the
 image's columns in shared memory at position l * words + u for column
@@ -42,6 +45,15 @@ normalises each part on its own; `cluster_zscale_minmax` below does the
 same, and its output and limits must equal `zscale_minmax_plain`'s bit
 for bit.
 
+K7 (csrc/clahe.cu, cluster route) gives each block of the cluster whole
+rows of the plane, bins each pixel once and counts it at every padded
+position it takes (the reflect pad counts its source pixel again) into
+the tile rows the block touches, adds those counts into every block whose
+taps reach their tile rows, builds the CDFs of its taps' tile rows from
+the counts it received and blends from them with taps made once a row
+and once a column; `cluster_clahe` below does the same, and its output
+must equal `equalize_adapthist_plain`'s bit for bit.
+
 K4's backward (csrc/upsample.cu) reads the incoming gradient where it
 lies, through its batch, row and pixel strides, one vector of L
 channels of one output pixel a thread: `strided_upsample_backward`
@@ -49,13 +61,16 @@ below indexes the gradient's storage the same way, and must equal
 `upsample2x_backward_plain` bit for bit on the concat's channel slices.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
 from caesar_yolo_tpu_torch.detect import cuda_nms
-from caesar_yolo_tpu_torch.ops import (cuda_histeq, cuda_preproc,
+from caesar_yolo_tpu_torch.ops import (clahe, cuda_clahe, cuda_histeq,
+                                       cuda_preproc,
                                        cuda_shift, cuda_stats, cuda_upsample,
                                        stats)
 from caesar_yolo_tpu_torch.ops.zscale import zscale_apply, zscale_limits
@@ -230,11 +245,47 @@ def test_four_round_search_equals_binary_search(monkeypatch, case, clip):
         assert bool(ordered.all()) == (case != "near_max")
 
 
+def kernel_moments(v):
+    """The f64 sums (of x, of x * x) of the kept values v [P, N] (0 where
+    not kept) as the kernel takes them with cuda_stats.plan's cluster and
+    block for N values: each thread's float4s in order, the warp's
+    butterfly, the block's warps in order, the cluster's blocks in order."""
+    p, n = v.shape
+    _, cluster, threads = cuda_stats.plan(n)
+    chunk = (-(-n // cluster) + 3) // 4 * 4
+    d = torch.zeros(p, cluster * chunk, dtype=torch.float64)
+    d[:, :n] = v.double()
+    # [P, block, iteration, thread, 4]: thread t takes float4s t, t + T, ...
+    iters = -(-chunk // (4 * threads))
+    d = torch.nn.functional.pad(d.reshape(p, cluster, chunk),
+                                (0, iters * 4 * threads - chunk))
+    d = d.reshape(p, cluster, iters, threads, 4)
+    sums = []
+    for x in (d, d * d):
+        t = torch.zeros(p, cluster, threads, dtype=torch.float64)
+        for it in range(iters):
+            for e in range(4):
+                t = t + x[:, :, it, :, e]
+        t = t.reshape(p, cluster, threads // 32, 32)
+        for o in (16, 8, 4, 2, 1):      # butterfly: t[l] + t[l ^ o]
+            t = t + t[..., torch.arange(32) ^ o]
+        t = t[..., 0]
+        acc = t[:, :, 0]
+        for w in range(1, threads // 32):
+            acc = acc + t[:, :, w]
+        tot = acc[:, 0]
+        for b in range(1, cluster):
+            tot = tot + acc[:, b]
+        sums.append(tot)
+    return sums
+
+
 def kernel_clip_stats(values, sigma_low, sigma_up, maxiters=5, history=None):
     """The kernel's clip loop on planes [P, H, W]: a later stats_of's first
     pass (same tree over (lo0, vmax]) takes the previous counts less those
     of the values the kept set lost; then five more passes and the
-    one-pass pin.  Returns (median [P], final kept count [P]); history
+    one-pass pin; the moments by `kernel_moments`.  Returns (stats [P, 5]
+    = mean, median, std, lower, upper; final kept count [P]); history
     collects each stats_of's (n, median, mean, std)."""
     history = [] if history is None else history
     inf = float("inf")
@@ -246,6 +297,7 @@ def kernel_clip_stats(values, sigma_low, sigma_up, maxiters=5, history=None):
     span = torch.clamp(vmax - vmin, min=0.0)
     lo0 = vmin - torch.maximum(span, vmin.abs()) * 1e-5 - 1e-30
     lo_acc, up_acc = torch.full_like(vmin, -inf), torch.full_like(vmin, inf)
+    lower, upper = lo_acc, up_acc
     zero = torch.zeros(p, dtype=torch.int64)
     mids = tree(lo0, vmax)
     prev_c = prev_keep = None
@@ -267,15 +319,17 @@ def kernel_clip_stats(values, sigma_low, sigma_up, maxiters=5, history=None):
             r.append(one_pass_pin(xm, lo, hi, clo, k))
         med = 0.5 * (r[0] + torch.where(ni // 2 + 1 == (ni + 1) // 2, r[0],
                                          r[1]))
-        v = torch.where(keep, x, 0.0)
-        mean = v.sum(1) / ni.float()
-        std = torch.sqrt(torch.clamp((v * v).sum(1) / ni.float()
-                                     - mean * mean, min=0.0))
+        s1, s2 = kernel_moments(torch.where(keep, x, 0.0))
+        m = s1 / ni.double()
+        mean = m.float()
+        std = torch.sqrt(torch.clamp(s2 / ni.double() - m * m,
+                                     min=0.0).float())
         history.append((n, med, mean, std))
         if it < maxiters:
-            lo_acc = torch.maximum(lo_acc, med - sigma_low * std)
-            up_acc = torch.minimum(up_acc, med + sigma_up * std)
-    return med, n
+            lower, upper = med - sigma_low * std, med + sigma_up * std
+            lo_acc = torch.maximum(lo_acc, lower)
+            up_acc = torch.minimum(up_acc, upper)
+    return torch.stack([mean, med, std, lower, upper], dim=1), n
 
 
 @pytest.mark.parametrize("sigmas", [(3.0, 3.0), (0.0, 20.0), (1.0, 20.0)])
@@ -294,10 +348,10 @@ def test_kernel_clip_loop_equals_plain(sigmas):
     x[5, :, :3] = 0.0
     x = torch.from_numpy(x)
     history = []
-    med, n = kernel_clip_stats(x, *sigmas, history=history)
+    got, n = kernel_clip_stats(x, *sigmas, history=history)
     ref_stats, ref_counts = stats.clip_stats_plain(x, None, *sigmas)
     assert torch.equal(n, ref_counts[:, 1].long())
-    assert torch.equal(med.view(torch.int32),
+    assert torch.equal(got[:, 1].contiguous().view(torch.int32),
                        ref_stats[:, 1].contiguous().view(torch.int32))
     # the kernel stops a plane's loop when its kept count repeats: from
     # there every stats_of repeats bit for bit
@@ -306,6 +360,37 @@ def test_kernel_clip_loop_equals_plain(sigmas):
         for a, b in zip(st0, st1):
             assert torch.equal(a[same].view(torch.int32),
                                b[same].view(torch.int32))
+
+
+def _script(name):
+    """A module of scripts/ by name."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("plane", [7, 13])
+def test_kernel_clip_loop_on_the_pinned_planes(plane):
+    """The two planes where the kernel once kept 5 and 1 pixels fewer than
+    the plain version at sigmas (1, 20) (the parity phase's K5 planes when
+    its K3 check draws every shape and edge case), rebuilt from the same
+    seeded draws: the kernel's clip loop, moments in its order, meets
+    cuda_stats.stats_mismatch against clip_stats_plain, with equal kept
+    counts and statistics equal to the bit."""
+    probe = _script("torch_k5_kept_probe")
+    x = cs.mosaic_planes("cpu", probe.parity_generator("k3-shapes-edges"))
+    x = x[plane:plane + 1].contiguous()
+    got, n = kernel_clip_stats(x, 1.0, 20.0)
+    ref = stats.clip_stats_plain(x, None, 1.0, 20.0)
+    counts = torch.stack([stats.valid_mask(x).reshape(1, -1).sum(1), n],
+                         dim=1).int()
+    assert cuda_stats.stats_mismatch((got, counts), ref) is None
+    assert torch.equal(counts, ref[1])
+    assert torch.equal(got.view(torch.int32), ref[0].view(torch.int32))
 
 
 def test_four_round_tree_reaches_collapsed_brackets():
@@ -549,6 +634,137 @@ def test_histeq_route_by_size(hw, route, cluster):
     if route == "cluster":
         chunk = (-(-hw // cluster) + 3) // 4 * 4
         assert chunk <= cuda_histeq.MAX_BLOCK_VALUES
+
+
+# ---------------------------------------------------------------- K7
+
+
+def _tile_cols(n, tsize, grid):
+    """Per position of an axis of n: its tile, and the tile of the padded
+    position that reflects onto it (-1 where none)."""
+    pad = grid * tsize - n
+    i = torch.arange(n)
+    refl = (i >= n - 1 - pad) & (i <= n - 2)
+    return i // tsize, torch.where(refl, (2 * (n - 1) - i) // tsize, -1)
+
+
+def cluster_clahe(planes, cluster, clip_limit=0.03, grid=clahe.GRID):
+    """K7's cluster route: each plane in blocks of cuda_clahe.layout's rows;
+    the blocks' min/max/NaN combined; each block's pixels binned once and
+    counted at their padded positions into its tile rows (within the
+    layout's window), the counts added into the received counts of every
+    block whose table rows hold them; each block's tables built from what
+    it received; the blend from them with per-row and per-column taps."""
+    p, h, w = planes.shape
+    th, tw = clahe.tile_size(h, w, grid)
+    rows, win, _ = cuda_clahe.layout(h, w, cluster, grid)
+    windows = cuda_clahe.block_windows(h, w, rows, grid)
+    assert len(windows) <= cluster
+    tile_len = grid * clahe.NBINS
+    ty, ry = _tile_cols(h, th, grid)
+    tx, rx = _tile_cols(w, tw, grid)
+    y0, y1, fy = clahe._blend_coords(h, th, grid, "cpu")
+    x0, x1, fx = clahe._blend_coords(w, tw, grid, "cpu")
+    out = torch.empty_like(planes)
+    for i in range(p):
+        parts = [planes[i, r0:r0 + rows] for r0 in range(0, h, rows)]
+        nan = any(bool(v.isnan().any()) for v in parts)
+        real = [v[~v.isnan()] for v in parts]
+        lo = min(float(v.min()) for v in real if len(v)) if not nan else 0.0
+        hi = max(float(v.max()) for v in real if len(v)) if not nan else 0.0
+        vmin = torch.tensor([np.nan if nan else lo], dtype=torch.float32)
+        span = (torch.tensor([1.0]) if nan or not hi > lo
+                else torch.tensor([hi], dtype=torch.float32) - vmin)
+        bins = [clahe.bin_index(v[None], vmin, span)[0] for v in parts]
+        recv = torch.zeros(len(windows), win * tile_len, dtype=torch.int64)
+        for b, ((ha, hb), _) in enumerate(windows):
+            assert hb - ha + 1 <= win
+            ys = slice(b * rows, b * rows + len(bins[b]))
+            local = torch.zeros((hb - ha + 1) * tile_len, dtype=torch.int64)
+            for trow in (ty[ys], ry[ys]):
+                for tcol in (tx, rx):
+                    on = (trow >= 0)[:, None] & (tcol >= 0)[None, :]
+                    idx = (((trow - ha)[:, None] * grid + tcol[None, :])
+                           * clahe.NBINS + bins[b])
+                    local.index_add_(0, idx[on], torch.ones_like(idx[on]))
+            for s in local.nonzero().flatten().tolist():
+                k = ha + s // tile_len
+                for q, (_, (ca, cb)) in enumerate(windows):
+                    if ca <= k <= cb:
+                        recv[q, (k - ca) * tile_len + s % tile_len] += local[s]
+        for b, (_, (ca, cb)) in enumerate(windows):
+            assert cb - ca + 1 <= win
+            counts = recv[b, :(cb - ca + 1) * tile_len].reshape(
+                -1, clahe.NBINS)
+            assert bool((counts.sum(1) == th * tw).all())
+            ys = slice(b * rows, b * rows + len(bins[b]))
+            cdf = clahe.cdf_tables(counts.float(), th * tw,
+                                   clip_limit).reshape(-1)
+
+            def look(trow, tcol):
+                idx = (((trow[ys] - ca)[:, None] * grid + tcol[None, :])
+                       * clahe.NBINS + bins[b])
+                return cdf[idx]
+
+            v00 = look(y0, x0)
+            top = v00 + fx[None, :] * (look(y0, x1) - v00)
+            v10 = look(y1, x0)
+            bot = v10 + fx[None, :] * (look(y1, x1) - v10)
+            out[i, ys] = top + fy[ys, None] * (bot - top)
+    return out
+
+
+def _clahe_planes(p, h, w, seed):
+    """Noise with a bright source a plane; where p allows, an all-zero
+    plane, a plane holding a NaN and a constant plane."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (p, h, w)).astype(np.float32)
+    x[:, h // 3:h // 3 + 6, w // 2:w // 2 + 6] += 150.0
+    for i, fill in enumerate([0.0, None, 7.0][:p - 1]):
+        if fill is None:
+            x[i + 1, h // 2, 3] = np.nan
+        else:
+            x[i + 1] = fill
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(2, 132, 132), (1, 96, 100),
+                                   (1, 256, 256), (4, 33, 47)])
+def test_cluster_clahe_equals_plain(shape, cluster):
+    """Blocks whose rows split tile rows, the pad's double counts in both
+    axes, owner tiles spread over the cluster and per-row taps, bit-equal
+    to the plain version at clip limits 0.03 and 0.01."""
+    x = _clahe_planes(*shape, seed=sum(shape) + cluster)
+    for clip_limit in (0.03, 0.01):
+        got = cluster_clahe(x, cluster, clip_limit)
+        ref = clahe.equalize_adapthist_plain(x, clip_limit)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape,route,cluster,rows", [
+    ((132, 132), "cluster", 2, 66), ((640, 640), "cluster", 16, 40),
+    ((96, 100), "cluster", 1, 96), ((128, 256), "cluster", 2, 64),
+    ((33, 47), "cluster", 1, 33), ((512, 512), "cluster", 16, 32),
+    ((800, 800), "stream", 0, 0), ((1024, 1024), "stream", 0, 0),
+    ((2048, 2048), "stream", 0, 0)])
+def test_clahe_route_by_size(shape, route, cluster, rows):
+    """K7's route, cluster size and rows a block come from the plane's size
+    alone; a block of the cluster route fits its shared memory, and every
+    block's tile rows fit its table buffer."""
+    got = cuda_clahe.plan(*shape)
+    assert got[:3] == (route, cluster, rows)
+    if route == "cluster":
+        r, win, smem = cuda_clahe.layout(*shape, cluster)
+        assert (r, win) == got[2:]
+        assert smem <= cuda_clahe.SMEM_BYTES
+        assert rows * cluster >= shape[0]
+        for (ha, hb), (ca, cb) in cuda_clahe.block_windows(*shape, rows):
+            assert 0 <= ha <= hb < clahe.GRID and 0 <= ca <= cb < clahe.GRID
+            assert max(hb - ha, cb - ca) < win
+    else:
+        assert cuda_clahe.layout(*shape, cuda_clahe.CLUSTER)[2] > (
+            cuda_clahe.SMEM_BYTES)
 
 
 # ---------------------------------------------------------------- K8
