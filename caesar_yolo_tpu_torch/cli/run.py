@@ -13,12 +13,14 @@ reference's npz format (models/convert.py).  `--datalist` runs a filelist
 as the reference package does: tiled through one shared TileEngine with
 --split_img_in_tiles, per image through the SFinder when outfiles or a
 crop window are given, else batched by shape through the BatchedDetector
-(out_<stem>.json and .reg per image).  These flags are refused with
+(out_<stem>.json and .reg per image).  Tiled runs take the reference's
+device-tiling modes (--device_tiling auto/on/off: the mosaic or its bands
+shipped to the device once), --preproc_context=global, the crash-resume
+spool (--resume, --spool_path), --profile_dir (a torch.profiler Chrome
+trace) and --save_tile_img.  These flags are refused with
 NotImplementedError until their feature is ported (ROADMAP.md, Queue 1):
-.pt weights, --int8, --resume, --spool_path, --profile_dir,
---preproc_context=global, --device_tiling=on, --draw_plots, --save_plots
-and --save_tile_img.  --multigpu is a no-op, as in the reference
-package.
+.pt weights, --int8, --draw_plots and --save_plots.  --multigpu is a
+no-op, as in the reference package.
 """
 
 from __future__ import annotations
@@ -67,20 +69,23 @@ def parse_args(argv=None):
                         "candidates beyond it are dropped WITH a log; "
                         "raise for crowded fields)")
     parser.add_argument("--resume", action="store_true",
-                        help="Resume a crashed tiled run (not ported yet)")
+                        help="Resume a crashed tiled run from its spool")
     parser.add_argument("--spool_path", type=str, default="",
-                        help="Tile-result spool file (not ported yet)")
+                        help="Tile-result spool file (default "
+                        ".<image>.tilespool.jsonl in the working directory)")
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="Profiler trace directory (not ported yet)")
+                        help="Write a torch.profiler trace of the tiled run "
+                        "into this directory")
     parser.add_argument("--device_tiling", choices=["auto", "on", "off"],
                         default="auto",
-                        help="auto/off: stream windowed tile reads; on: "
-                        "device-resident mosaic (not ported yet)")
+                        help="Ship the mosaic (or its bands) to the device "
+                        "once and cut tiles there: auto when it ships fewer "
+                        "bytes than windowed reads; on: always; off: never")
     parser.add_argument("--preproc_context", choices=["tile", "global"],
                         default="tile",
                         help="Statistics context of tiled-run "
-                        "preprocessing: per tile (reference parity); "
-                        "global is not ported yet")
+                        "preprocessing: per tile (reference parity) or the "
+                        "whole mosaic (needs the full device-resident path)")
     parser.add_argument("--relay_bf16", action="store_true",
                         help="Ship tiles to the device as bfloat16 (half "
                         "the host->device bytes; ~0.4%% pixel rounding)")
@@ -127,11 +132,9 @@ def parse_args(argv=None):
 
 
 def unported_flags(args) -> list[str]:
-    """The given flags whose feature the port does not have yet (the
-    SFinder refuses --device_tiling=on and --preproc_context=global)."""
-    out = [f"--{name}" for name in (
-        "int8", "draw_plots", "save_plots", "save_tile_img",
-        "resume", "spool_path", "profile_dir") if getattr(args, name)]
+    """The given flags whose feature the port does not have yet."""
+    out = [f"--{name}" for name in ("int8", "draw_plots", "save_plots")
+           if getattr(args, name)]
     if args.weights.endswith(".pt"):
         out.append(".pt weights")
     return out
@@ -194,6 +197,8 @@ def config_from_args(args):
         relay_dtype="bfloat16" if args.relay_bf16 else "float32",
         device_tiling=args.device_tiling,
         preproc_context=args.preproc_context,
+        resume=args.resume, spool_path=args.spool_path,
+        profile_dir=args.profile_dir,
         merge_overlap_iou_thr_soft=args.merge_overlap_iou_thr_soft,
         merge_overlap_iou_thr_hard=args.merge_overlap_iou_thr_hard,
         split_image_in_tiles=args.split_img_in_tiles,
@@ -203,14 +208,16 @@ def config_from_args(args):
         batch_size=args.batch_size,
         save_tile_catalog=args.save_tile_catalog,
         save_tile_region=args.save_tile_region,
+        save_tile_img=args.save_tile_img,
         outfile_json=args.detect_outfile_json,
         outfile_ds9=args.detect_outfile)
 
 
 def _per_image_path(template: str, path: str, n_images: int) -> str:
-    """A fixed per-run output path gets the image stem appended for a
-    datalist of more than one image: a shared path would keep only the
-    last image's output."""
+    """A fixed per-run file (outfiles, spool) gets the image stem appended
+    for a datalist of more than one image: a shared path would keep only
+    the last image's output (and a shared spool would lose every other
+    image's resume state)."""
     if not template or n_images == 1:
         return template
     stem = os.path.splitext(os.path.basename(path))[0]
@@ -221,7 +228,8 @@ def _per_image_path(template: str, path: str, n_images: int) -> str:
 def _per_image_config(cfg, path: str, n: int):
     return replace(cfg, image_path=path,
                    outfile_json=_per_image_path(cfg.outfile_json, path, n),
-                   outfile_ds9=_per_image_path(cfg.outfile_ds9, path, n))
+                   outfile_ds9=_per_image_path(cfg.outfile_ds9, path, n),
+                   spool_path=_per_image_path(cfg.spool_path, path, n))
 
 
 def run_datalist_tiled(model, cfg, images, preproc, device=None) -> int:

@@ -52,6 +52,11 @@ HEADERS = {
     "shift": ["async_copy.cuh"],
 }
 
+# The most values a plane may hold on the kernels that index a plane with
+# 32-bit ints (K3, K5, K6): their stream routes' loops step up to 32768
+# past a plane's last index, so 2^30 keeps every index below 2^31.
+MAX_PLANE = 2 ** 30
+
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 

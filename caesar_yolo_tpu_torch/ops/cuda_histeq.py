@@ -62,10 +62,11 @@ def equalize_hist_batch(planes: torch.Tensor) -> torch.Tensor:
     if not planes.is_cuda:
         return equalize_hist(planes)
     if (planes.ndim != 3 or planes.dtype != torch.float32
-            or planes.shape[0] > 65535):
+            or planes.shape[0] > 65535 or planes[0].numel() > cuda_build.MAX_PLANE):
         raise ValueError(f"hist-eq kernel does not take planes "
                          f"{tuple(planes.shape)} {planes.dtype} (it reads up "
-                         f"to 65535 f32 planes [P, H, W])")
+                         f"to 65535 f32 planes [P, H, W] of at most 2^30 "
+                         f"values)")
     return launch(planes, *plan(planes[0].numel()))
 
 

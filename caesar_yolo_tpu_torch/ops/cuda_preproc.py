@@ -110,7 +110,7 @@ def zscale_minmax(planes: torch.Tensor, vlims: torch.Tensor,
                          f"{tuple(planes.shape)} {planes.dtype}, vlims "
                          f"{tuple(vlims.shape)} {vlims.dtype}")
     hw = planes.shape[1] * planes.shape[2]
-    if hw >= 2 ** 31:
+    if hw > cuda_build.MAX_PLANE:
         raise ValueError(f"zscale+minmax kernel does not take planes of "
                          f"{hw} values")
     return launch(planes, vlims, norm_min, norm_max, *plan(hw))

@@ -70,12 +70,13 @@ def clip_stats(values: torch.Tensor, sigma_low: float, sigma_up: float,
     if not values.is_cuda:
         return clip_stats_plain(values, mask, sigma_low, sigma_up, maxiters)
     if (mask is not None or values.ndim != 3
-            or values.dtype != torch.float32 or values.shape[0] > 65535):
+            or values.dtype != torch.float32 or values.shape[0] > 65535
+            or values[0].numel() > cuda_build.MAX_PLANE):
         raise ValueError(
             f"sigma-clip kernel does not take values {tuple(values.shape)} "
             f"{values.dtype}{' with an explicit mask' if mask is not None else ''}"
-            f" (it reads up to 65535 f32 planes [P, H, W] and derives their "
-            f"mask)")
+            f" (it reads up to 65535 f32 planes [P, H, W] of at most 2^30 "
+            f"values and derives their mask)")
     return launch(values, sigma_low, sigma_up, maxiters,
                   *plan(values[0].numel()))
 

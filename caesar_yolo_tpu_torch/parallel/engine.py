@@ -5,8 +5,13 @@ Counterpart of caesar_yolo_tpu/parallel/engine.py (`make_tile_step`,
 pipeline, the degenerate-channel guard, letterbox, the YOLO forward pass
 (bf16 on CUDA), DFL decode, fixed-shape NMS and unletterbox, with
 `tile_ok` masking the detections of tiles that cannot be predicted on.
-The device mesh and mosaic-resident tiling are not ported yet (ROADMAP.md,
-Queue 1 item 7).
+
+Device-resident tiling (the reference's engine.py:204-305): a mosaic, or
+a full-width band of one, is shipped to the device once (`put_mosaic`),
+optionally preprocessed there as one plane (`preprocess_mosaic`, the
+global statistics context), and batches of windows are cut from it on
+the device by one gather (`process_mosaic_async`).  The device mesh is
+not ported yet (ROADMAP.md, Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -66,10 +71,10 @@ class TileEngine:
                             else torch.float32)
         self._fuse = fuse
         self.compute_dtype = compute_dtype
+        self.preprocessor = preprocessor
         self._step_kwargs = dict(
-            preprocessor=preprocessor, img_size=img_size,
-            score_thr=score_thr, iou_thr=iou_thr, max_det=max_det,
-            pre_nms=pre_nms)
+            img_size=img_size, score_thr=score_thr, iou_thr=iou_thr,
+            max_det=max_det, pre_nms=pre_nms)
         self.update_params(model)
 
     def update_params(self, model: YOLO) -> None:
@@ -80,7 +85,13 @@ class TileEngine:
         self.model = prepare_model(model, fuse=self._fuse,
                                    dtype=self.compute_dtype,
                                    device=self.device)
-        self._step = make_tile_step(self.model, **self._step_kwargs)
+        # the step of raw tiles, and of tiles cut from a mosaic that
+        # preprocess_mosaic has already preprocessed (gray -> 3 channels and
+        # the degenerate-channel guard only)
+        self._step = make_tile_step(self.model, preprocessor=self.preprocessor,
+                                    **self._step_kwargs)
+        self._step_preprocessed = make_tile_step(
+            self.model, preprocessor=None, **self._step_kwargs)
 
     def put_tiles(self, tiles: np.ndarray) -> torch.Tensor:
         """Stage a host tile batch on the device in the relay dtype
@@ -101,3 +112,49 @@ class TileEngine:
 
     def process(self, tiles):
         return tuple(t.cpu().numpy() for t in self.process_async(tiles))
+
+    # -- device-resident mosaic tiling ---------------------------------------
+
+    def put_mosaic(self, mosaic: np.ndarray) -> torch.Tensor:
+        """Ship a mosaic (or a full-width band of one) [H, W] to the device
+        once, in the relay dtype, pinned and asynchronous on CUDA: windows
+        are then cut on the device, so no overlap pixel crosses the link
+        twice."""
+        return self.put_tiles(mosaic)
+
+    @torch.inference_mode()
+    def preprocess_mosaic(self, mosaic_dev: torch.Tensor):
+        """The pipeline run once over the whole device-resident mosaic (the
+        global statistics context) -> (f32 [H, W], whether it is valid).
+        As the reference (engine.py:220-252) it runs on the mosaic as one
+        gray plane [1, H, W, 1] and keeps channel 0 of the result."""
+        if self.preprocessor is None:
+            return mosaic_dev, True
+        out, ok = self.preprocessor.apply_batch(
+            mosaic_dev.float()[None, :, :, None])
+        return out[0, :, :, 0].contiguous(), bool(ok[0])
+
+    @torch.inference_mode()
+    def process_mosaic_async(self, mosaic_dev: torch.Tensor,
+                             origins: np.ndarray, tile_shape: tuple[int, int],
+                             preprocessed: bool = False):
+        """Detect a batch of windows cut from a device-resident mosaic
+        [H, W]: origins [B, 2] (row, column) of each window's corner, all of
+        shape tile_shape = (h, w) (padding slots take (0, 0)).  Same outputs
+        as process_async.  preprocessed=True: the mosaic went through
+        preprocess_mosaic, so only gray -> 3 channels and the
+        degenerate-channel guard run on the windows."""
+        h, w = tile_shape
+        origins = np.asarray(origins, np.int64).reshape(-1, 2)
+        H, W = mosaic_dev.shape
+        if (origins < 0).any() or (origins[:, 0] + h > H).any() or (
+                origins[:, 1] + w > W).any():
+            raise ValueError(f"windows {tile_shape} at {origins.tolist()} "
+                             f"leave the mosaic {(H, W)}")
+        dev = mosaic_dev.device
+        o = torch.from_numpy(origins).to(dev)
+        rows = o[:, :1] + torch.arange(h, device=dev)          # [B, h]
+        cols = o[:, 1:] + torch.arange(w, device=dev)          # [B, w]
+        tiles = mosaic_dev[rows[:, :, None], cols[:, None, :]]  # one gather
+        step = self._step_preprocessed if preprocessed else self._step
+        return step(tiles[..., None])

@@ -2,24 +2,36 @@
 handling, stitching, catalog output.
 
 Counterpart of caesar_yolo_tpu/parallel/sfinder.py (reference
-inference.py:280-1287), with its streaming windowed-read path: tile
-windows are read from the FITS file by a thread pool, grouped by shape,
-padded to `batch_size` and staged on the device in the feeding threads,
-with at most two reads and two device batches in flight, so memory stays
-bounded whatever the mosaic size.  The host then merges each tile's
-detections, sorts the results by tile id, flags edge sources and
-stitches them across tiles (parallel/stitch.py), and writes the JSON
-catalog and DS9 regions.
+inference.py:280-1287).  Tiles are grouped by shape and padded to
+`batch_size`, and reach the device by one of three paths, chosen as the
+reference chooses them (`_device_tiling_mode`):
+  full    the mosaic is read once and shipped to the device once; windows
+          are cut there (TileEngine.process_mosaic_async), so an
+          overlapping grid ships no pixel twice.  Only this path can take
+          the global statistics context (`preproc_context="global"`: the
+          pipeline runs once over the whole mosaic).
+  band    for mosaics past `device_tiling_max_bytes`: one full-width band
+          per grid row, read and shipped by two workers one band ahead;
+          a band whose read fails sends its tiles to the streaming path.
+  stream  windowed reads in a thread pool, staged on the device in the
+          feeding threads.
+Every path keeps at most two device batches undrained, so memory stays
+bounded whatever the mosaic size.  Each drained tile's result is appended
+to a spool (flushed once a batch) that `resume=True` reads back after a
+crash; the spool's first line is the grid signature, the reference's
+own, so a spool of either package resumes in the other.  The host then
+sorts the results by tile id, flags edge sources, stitches them across
+tiles (parallel/stitch.py) and writes the JSON catalog and DS9 regions.
+`profile_dir` records the tiled run with torch.profiler (a Chrome trace);
+`save_tile_img` writes each predicted tile's raw window as FITS.
 
-Not ported yet (ROADMAP.md, Queue 1 items 5-7): device-resident and
-banded tiling (`device_tiling="on"` raises NotImplementedError; "auto"
-takes the streaming path), `preproc_context="global"` (raises), the
-result spool and resume, the profiler trace, tile image dumps, plots,
-PNG/JPEG input and multi-GPU runs.
+Not ported yet (ROADMAP.md, Queue 1): plots, PNG/JPEG input and multi-GPU
+runs (the spool's rank suffix and stripe wait for the latter).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from collections import deque
@@ -50,6 +62,7 @@ from caesar_yolo_tpu_torch.utils.fits import (
     beam_area_from_header,
     get_fits_header,
     read_fits_crop,
+    write_fits,
 )
 from caesar_yolo_tpu_torch.utils.tiling import (
     TileWindow,
@@ -64,9 +77,8 @@ ROADMAP = "ROADMAP.md, Queue 1"
 @dataclass(frozen=True)
 class SFinderConfig:
     """Frozen run configuration: the reference's SFinderConfig without
-    the fields of features not ported yet (plots, image dumps, spool and
-    resume, profiler trace), which the CLI refuses.  `device_tiling="on"`
-    and `preproc_context="global"` are refused here."""
+    the fields of features not ported yet (plots, the multi-host gather),
+    which the CLI refuses."""
     image_path: str = ""
     image_xmin: int = 0
     image_xmax: int = 0
@@ -89,13 +101,22 @@ class SFinderConfig:
     save_region: bool = True
     save_tile_catalog: bool = False
     save_tile_region: bool = False
+    save_tile_img: bool = False   # timg_<image>_tid<k>.fits per tile
     outfile_json: str = ""
     outfile_ds9: str = ""
     class_names: tuple = CLASS_NAMES
+    profile_dir: str = ""      # write a torch.profiler trace of the run
+    resume: bool = False       # resume a crashed tiled run from the spool
+    spool_path: str = ""       # per-tile result spool (default: auto)
     # host->device tile transfer dtype (TileEngine.relay_dtype)
     relay_dtype: str = "float32"
-    # "auto" and "off" stream windowed reads; "on" is not ported
+    # device-resident tiling ("auto" | "on" | "off"; _device_tiling_mode)
+    # and the largest mosaic or band it ships
     device_tiling: str = "auto"
+    device_tiling_max_bytes: int = 2 * 1024 * 1024 * 1024
+    # preprocessing statistics of tiled runs: "tile" (each tile's own
+    # pixels, the reference's parity) or "global" (the whole mosaic's,
+    # on the full device-resident path only; others fall back to "tile")
     preproc_context: str = "tile"
 
 
@@ -107,9 +128,12 @@ class SFinderReport:
     n_local_tiles: int = 0
     n_sources: int = 0
     max_inflight_batches: int = 0  # peak read futures + undrained batches
-    read_s: float = 0.0     # wall spent in windowed reads (worker sum)
-    h2d_put_s: float = 0.0  # wall spent staging batches (worker sum)
+    read_s: float = 0.0     # wall spent reading tiles, bands or the mosaic
+    h2d_put_s: float = 0.0  # wall spent staging on the device (worker sum)
     drain_s: float = 0.0    # main thread waiting on and unpacking results
+    tiling_mode: str = ""   # "full", "band" or "stream" (the paths taken)
+    h2d_bytes: int = 0      # pixel bytes shipped to the device
+    n_resumed: int = 0      # tile results taken from the spool
     phase_times: dict = field(default_factory=dict)
     tile_errors: list = field(default_factory=list)
 
@@ -123,10 +147,6 @@ class SFinder:
     def __init__(self, model, config: SFinderConfig, *, preprocessor=None,
                  engine_kwargs=None, predictor=None, engine=None,
                  device=None):
-        if config.device_tiling == "on" or config.preproc_context != "tile":
-            raise NotImplementedError(
-                f"not ported yet: device_tiling={config.device_tiling!r}, "
-                f"preproc_context={config.preproc_context!r} ({ROADMAP})")
         self.model = model
         self.config = config
         self.preprocessor = preprocessor
@@ -239,7 +259,25 @@ class SFinder:
 
     def run_tiled(self) -> int:
         """Tile the mosaic, run batched inference, stitch, save
-        (reference inference.py:578-658 run_parallel)."""
+        (reference inference.py:578-658 run_parallel).  Completed tile
+        results are spooled as they arrive, and resume=True skips the tiles
+        a crashed run finished.  With profile_dir set, the run is recorded
+        by torch.profiler and written there as a Chrome trace
+        (<image>.trace.json; the reference writes a jax.profiler trace)."""
+        if not self.config.profile_dir:
+            return self._run_tiled_impl()
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            rc = self._run_tiled_impl()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.config.profile_dir, f"{self.image_id}.trace.json"))
+        return rc
+
+    def _run_tiled_impl(self) -> int:
         t0 = time.time()
         cfg = self.config
         if self.set_img_size_params() < 0:
@@ -261,9 +299,6 @@ class SFinder:
         logger.info("Split image %s into %d tiles (%dx%d, step %.2f/%.2f)",
                     self.image_id, len(tiles), cfg.tile_xsize,
                     cfg.tile_ysize, cfg.tile_xstep, cfg.tile_ystep)
-        if cfg.device_tiling == "auto":
-            logger.info("Device tiling: the port streams windowed reads "
-                        "(device-resident tiling is not ported yet)")
 
         if self._engine is None:
             self._engine = TileEngine(
@@ -301,15 +336,336 @@ class SFinder:
                     self.report.n_sources)
         return 0
 
-    def _detect_tiles(self, engine: TileEngine, tiles: list[TileWindow]):
-        """Shape-grouped, batch-padded, prefetched tile detection (the
-        reference's streaming windowed-read path, sfinder.py:780-854)."""
+    # -- the result spool ----------------------------------------------------
+
+    def _spool_file(self) -> str:
+        """The spool's path: spool_path, else .<image>.tilespool.jsonl in
+        the working directory (one process: no rank suffix)."""
+        return (self.config.spool_path
+                or f".{self.image_id}.tilespool.jsonl")
+
+    def _grid_signature(self) -> dict:
+        """Everything that changes what a spooled tile result means (the
+        reference's signature, sfinder.py:415-436, whose stripe of one
+        process is [0, 1]): a resume under another grid, image or detection
+        setting would stitch stale windows into the new run."""
         cfg = self.config
-        batch = cfg.batch_size
+        return {"image": cfg.image_path, "stripe": [0, 1],
+                "tile_xsize": cfg.tile_xsize, "tile_ysize": cfg.tile_ysize,
+                "tile_xstep": cfg.tile_xstep, "tile_ystep": cfg.tile_ystep,
+                "crop": [cfg.image_xmin, cfg.image_xmax,
+                         cfg.image_ymin, cfg.image_ymax],
+                "img_size": cfg.img_size, "score_thr": cfg.score_thr,
+                "iou_thr": cfg.iou_thr, "pre_nms": cfg.pre_nms}
+
+    def _load_spool(self, sig: dict) -> dict:
+        """tid -> tile result of a previous crashed run: empty when the
+        spool is missing, unreadable or written under another signature
+        (or none).  A record torn by a crash mid-write is dropped, every
+        complete one kept."""
+        done = {}
+        path = self._spool_file()
+        if not os.path.exists(path):
+            return done
+        try:
+            f = open(path)
+        except OSError as e:
+            logger.warning("Ignoring unreadable spool %s (%s)", path, e)
+            return done
+        with f:
+            try:
+                head = json.loads(f.readline() or "null")
+            except ValueError:
+                head = None
+            if not isinstance(head, dict) or head.get("gridSig") != sig:
+                logger.warning(
+                    "Ignoring spool %s: it was written under a different "
+                    "tiling/detection configuration (resume requires "
+                    "identical settings)", path)
+                return done
+            for line in f:
+                try:
+                    tr = json.loads(line)
+                    done[tr["tileId"]] = tr
+                except (ValueError, KeyError, TypeError):
+                    logger.warning("Dropping a torn record in spool %s (a "
+                                   "crash mid-write)", path)
+        logger.info("Resuming: %d tile results loaded from %s", len(done),
+                    path)
+        return done
+
+    # -- device-resident tiling ----------------------------------------------
+
+    def _device_tiling_mode(self, engine: TileEngine, groups) -> str | None:
+        """"full" (the whole mosaic to the device once), "band" (one
+        full-width band per grid row: for mosaics past the cap, only the
+        vertical overlap re-ships) or None (stream windowed reads), as the
+        reference decides (sfinder.py:493-533): "auto" compares the bytes
+        each path would ship for the tiles still to do (after the spool's
+        skips) in the relay dtype."""
+        cfg = self.config
+        if cfg.device_tiling == "off" or not groups:
+            return None
+        if cfg.device_tiling == "on":
+            return "full"
+        item = engine.relay_dtype.itemsize
+        window_bytes = sum(len(g) * h * w
+                           for (h, w), g in groups.items()) * item
+        full_bytes = self.nx * self.ny * item
+        if (full_bytes <= cfg.device_tiling_max_bytes
+                and full_bytes <= window_bytes):
+            return "full"
+        rows = {(t.ymin, t.ymax) for g in groups.values() for t in g}
+        band_bytes = sum(self.nx * (y1 - y0) for y0, y1 in rows) * item
+        max_band = max(self.nx * (y1 - y0) for y0, y1 in rows) * item
+        if (max_band <= cfg.device_tiling_max_bytes
+                and band_bytes <= window_bytes):
+            logger.info(
+                "Device tiling: banded (bands %.1f MB <= windows %.1f MB; "
+                "full mosaic %.1f MB)", band_bytes / 1e6, window_bytes / 1e6,
+                full_bytes / 1e6)
+            return "band"
+        logger.info(
+            "Device tiling skipped: windowed reads ship fewer bytes "
+            "(windows %.1f MB vs mosaic %.1f MB / bands %.1f MB, cap %d)",
+            window_bytes / 1e6, full_bytes / 1e6, band_bytes / 1e6,
+            cfg.device_tiling_max_bytes)
+        return None
+
+    def _load_device_mosaic(self):
+        """The host mosaic (crop) f32 [ny, nx] for device-resident tiling,
+        or None when it is unreadable (the tiles then stream)."""
+        cfg = self.config
+        t0 = time.time()
+        res = read_fits_crop(cfg.image_path, self.xmin, self.xmax + 1,
+                             self.ymin, self.ymax + 1, strip_deg_axis=True)
+        self.report.read_s += time.time() - t0
+        if res is None or np.asarray(res[0]).ndim != 2:
+            logger.warning("Device tiling skipped: full mosaic read failed; "
+                           "streaming windowed reads instead")
+            return None
+        logger.info("Device tiling: shipping the %dx%d mosaic to the device "
+                    "once", self.ny, self.nx)
+        return np.asarray(res[0], np.float32)
+
+    # -- tile detection ------------------------------------------------------
+
+    def _detect_tiles(self, engine: TileEngine, tiles: list[TileWindow]):
+        """Shape-grouped, batch-padded, prefetched tile detection on the
+        path _device_tiling_mode picks (reference sfinder.py:551-874), with
+        the result spool."""
+        cfg = self.config
+        sig = self._grid_signature()
+        done = self._load_spool(sig) if cfg.resume else {}
+        self.report.n_resumed = len(done)
         groups: dict[tuple, list[TileWindow]] = {}
         for t in tiles:
+            if t.tid in done:
+                continue
             self.report.n_local_tiles += 1
             groups.setdefault((t.height, t.width), []).append(t)
+
+        path = self._spool_file()
+        torn = False
+        if done:    # a crash may have cut the last record short
+            with open(path, "rb") as f:
+                f.seek(-1, os.SEEK_END)
+                torn = f.read(1) != b"\n"
+        results = []
+        tile_imgs: dict[int, np.ndarray] = {}   # tid -> raw window
+        # append only onto a spool whose signature matched; otherwise start
+        # afresh with the signature as its first record
+        with open(path, "a" if done else "w") as spool:
+            if not done:
+                spool.write(json.dumps({"gridSig": sig}) + "\n")
+            elif torn:
+                spool.write("\n")
+            spool.flush()
+
+            def drain(item):
+                t_drain = time.time()
+                kept_tiles, outs = item
+                boxes, scores, cls, valid, tile_ok, ndrop = (
+                    o.cpu().numpy() for o in outs)
+                for k, t in enumerate(kept_tiles):
+                    img = tile_imgs.pop(t.tid, None)
+                    if ndrop[k]:
+                        logger.warning(
+                            "Tile %d: NMS pre-filter dropped %d "
+                            "above-threshold candidates (raise pre_nms=%d "
+                            "for this field)", t.tid, int(ndrop[k]),
+                            cfg.pre_nms)
+                    if not tile_ok[k]:
+                        continue
+                    tr = self._tile_objects(
+                        t, boxes[k][valid[k]], scores[k][valid[k]],
+                        cls[k][valid[k]])
+                    if img is not None:
+                        write_fits(img,
+                                   f"timg_{self.image_id}_tid{t.tid}.fits")
+                    results.append(tr)
+                    spool.write(json.dumps(tr) + "\n")
+                spool.flush()
+                self.report.drain_s += time.time() - t_drain
+
+            flow = _Inflight(drain, self.report)
+            paths = []
+            mode = self._device_tiling_mode(engine, groups)
+            mosaic_np = None
+            if mode == "full":
+                mosaic_np = self._load_device_mosaic()
+                if mosaic_np is None:
+                    mode = None
+            global_ctx = cfg.preproc_context == "global"
+            if global_ctx and mode != "full":
+                logger.warning(
+                    "preproc_context='global' needs the device-resident "
+                    "mosaic path (device_tiling mode=%s here); falling back "
+                    "to per-tile statistics context", mode)
+                global_ctx = False
+            if mode == "full":
+                paths.append("full")
+                t_put = time.time()
+                mosaic_dev = engine.put_mosaic(mosaic_np)
+                self.report.h2d_put_s += time.time() - t_put
+                self.report.h2d_bytes += (mosaic_np.size
+                                          * engine.relay_dtype.itemsize)
+                if not cfg.save_tile_img:
+                    mosaic_np = None    # the host copy is done with
+                self._full_path(engine, groups, mosaic_dev, mosaic_np,
+                                global_ctx, flow, tile_imgs)
+                groups = {}
+            elif mode == "band":
+                paths.append("band")
+                groups = self._band_path(engine, groups, flow, tile_imgs)
+            if groups:
+                paths.append("stream")
+                self._stream_path(engine, groups, flow, tile_imgs)
+            self.report.tiling_mode = "+".join(paths)
+        results.extend(done.values())
+        # canonical tileId order: the stitched catalog (S1..SN naming,
+        # component traversal) is a pure function of the tile-result set,
+        # however many of them came from the spool
+        results.sort(key=lambda tr: tr["tileId"])
+        nb = neighbor_table(tiles)
+        for tr in results:
+            tr["neighborTileIds"] = nb[tr["tileId"]]
+        try:        # the run finished: the spool is no longer needed
+            os.remove(path)
+        except OSError:
+            pass
+        return results
+
+    def _origins(self, tile_batch, row0: int) -> np.ndarray:
+        """[batch_size, 2] window corners (row, column) in an array whose
+        first row is image row row0 and first column the crop's; padding
+        slots take (0, 0)."""
+        origins = np.zeros((self.config.batch_size, 2), np.int64)
+        for k, t in enumerate(tile_batch):
+            origins[k] = (t.ymin - row0, t.xmin - self.xmin)
+        return origins
+
+    def _full_path(self, engine, groups, mosaic_dev, mosaic_np, global_ctx,
+                   flow, tile_imgs):
+        """Windows cut from the device-resident mosaic (reference
+        sfinder.py:653-696; mosaic_np, the host copy, is kept only for
+        save_tile_img).  global_ctx: the pipeline runs once over the whole
+        mosaic and the windows skip it."""
+        cfg = self.config
+        if global_ctx:
+            t_pre = time.time()
+            mosaic_dev, ok = engine.preprocess_mosaic(mosaic_dev)
+            self.report.phase_times["preprocess_mosaic"] = time.time() - t_pre
+            if not ok:
+                logger.warning(
+                    "Whole-mosaic preprocessing flagged the image invalid "
+                    "(degenerate statistics); per-tile guards will reject "
+                    "affected tiles")
+        for (h, w), group in groups.items():
+            for i in range(0, len(group), cfg.batch_size):
+                tile_batch = group[i:i + cfg.batch_size]
+                if mosaic_np is not None:
+                    for t in tile_batch:
+                        tile_imgs[t.tid] = mosaic_np[
+                            t.ymin - self.ymin:t.ymax - self.ymin,
+                            t.xmin - self.xmin:t.xmax - self.xmin]
+                flow.push(tile_batch, engine.process_mosaic_async(
+                    mosaic_dev, self._origins(tile_batch, self.ymin), (h, w),
+                    preprocessed=global_ctx))
+        flow.finish()
+
+    def _band_path(self, engine, groups, flow, tile_imgs) -> dict:
+        """One full-width band per grid row (a grid row's tiles share their
+        rows, so its band covers them exactly) crosses to the device; two
+        workers read and ship the bands one ahead (reference
+        sfinder.py:697-779).  Returns the groups of the tiles whose band
+        could not be read, for the streaming path."""
+        cfg = self.config
+        item = engine.relay_dtype.itemsize
+        bands: dict = {}
+        for (h, w), group in groups.items():
+            for t in group:
+                bands.setdefault((t.ymin, t.ymax), {}).setdefault(
+                    (h, w), []).append(t)
+        keys = sorted(bands)
+        leftover: dict = {}
+
+        def read_band(bk):
+            """Worker-side band read and device put, so that the next band
+            ships while the current band's batches compute."""
+            t_read = time.time()
+            res = read_fits_crop(cfg.image_path, self.xmin, self.xmax + 1,
+                                 bk[0], bk[1], strip_deg_axis=True)
+            if res is None or np.asarray(res[0]).ndim != 2:
+                return None
+            band_np = np.asarray(res[0], np.float32)
+            t_put = time.time()
+            band_dev = engine.put_mosaic(band_np)
+            return (band_np if cfg.save_tile_img else None, band_dev,
+                    band_np.size * item, t_put - t_read, time.time() - t_put)
+
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            futs: deque = deque((bk, pool.submit(read_band, bk))
+                                for bk in keys[:2])
+            nxt = len(futs)
+            while futs:
+                bk, fut = futs.popleft()
+                staged = fut.result()
+                if nxt < len(keys):
+                    futs.append((keys[nxt], pool.submit(read_band,
+                                                        keys[nxt])))
+                    nxt += 1
+                if staged is None:
+                    for shape, ts in bands[bk].items():
+                        leftover.setdefault(shape, []).extend(ts)
+                    logger.warning("Band read failed at rows [%d,%d); "
+                                   "falling back to windowed reads for its "
+                                   "tiles", *bk)
+                    continue
+                band_np, band_dev, nbytes, read_s, put_s = staged
+                self.report.read_s += read_s
+                self.report.h2d_put_s += put_s
+                self.report.h2d_bytes += nbytes
+                for (h, w), ts in bands[bk].items():
+                    for i in range(0, len(ts), cfg.batch_size):
+                        tile_batch = ts[i:i + cfg.batch_size]
+                        if band_np is not None:
+                            for t in tile_batch:
+                                tile_imgs[t.tid] = band_np[
+                                    :, t.xmin - self.xmin:t.xmax - self.xmin]
+                        flow.push(tile_batch, engine.process_mosaic_async(
+                            band_dev, self._origins(tile_batch, bk[0]),
+                            (h, w)), waiting=len(futs))
+            flow.finish()
+        return leftover
+
+    def _stream_path(self, engine, groups, flow, tile_imgs):
+        """Windowed reads in a thread pool, each batch staged on the device
+        by its feeding thread, at most two reads ahead (reference
+        sfinder.py:780-854)."""
+        cfg = self.config
+        batch = cfg.batch_size
+        item = engine.relay_dtype.itemsize
 
         def read_tile(t: TileWindow):
             res = read_fits_crop(cfg.image_path, t.xmin, t.xmax,
@@ -317,26 +673,6 @@ class SFinder:
             if res is None:
                 return None
             return np.asarray(res[0], np.float32)[:, :, None]
-
-        results = []
-
-        def drain(item):
-            t_drain = time.time()
-            kept_tiles, outs = item
-            boxes, scores, cls, valid, tile_ok, ndrop = (
-                o.cpu().numpy() for o in outs)
-            for k, t in enumerate(kept_tiles):
-                if ndrop[k]:
-                    logger.warning(
-                        "Tile %d: NMS pre-filter dropped %d above-threshold "
-                        "candidates (raise pre_nms=%d for this field)",
-                        t.tid, int(ndrop[k]), cfg.pre_nms)
-                if not tile_ok[k]:
-                    continue
-                results.append(self._tile_objects(
-                    t, boxes[k][valid[k]], scores[k][valid[k]],
-                    cls[k][valid[k]]))
-            self.report.drain_s += time.time() - t_drain
 
         with ThreadPoolExecutor(max_workers=8) as pool:
             for (h, w), group in groups.items():
@@ -356,7 +692,9 @@ class SFinder:
                         arr[k] = datas[i]
                     t_put = time.time()
                     dev = engine.put_tiles(arr)
-                    return ok_idx, dev, t_put - t_read, time.time() - t_put
+                    keep = datas if cfg.save_tile_img else None
+                    return (ok_idx, keep, dev, t_put - t_read,
+                            time.time() - t_put)
 
                 futures: deque = deque()
                 next_batch = 0
@@ -370,13 +708,13 @@ class SFinder:
 
                 submit_read()
                 submit_read()
-                pending: deque = deque()  # (batch tiles, device outputs)
                 while futures:
                     tile_batch, fut = futures.popleft()
-                    ok_idx, dev, read_s, put_s = fut.result()
+                    ok_idx, datas, dev, read_s, put_s = fut.result()
                     submit_read()
                     self.report.read_s += read_s
                     self.report.h2d_put_s += put_s
+                    self.report.h2d_bytes += batch * h * w * item
                     ok_set = set(ok_idx)
                     for i, t in enumerate(tile_batch):
                         if i not in ok_set:
@@ -384,22 +722,13 @@ class SFinder:
                                 (t.tid, "read failed"))
                             logger.error("Failed to read tile %d, skipping",
                                          t.tid)
-                    outs = engine.process_async(dev)
-                    pending.append(([tile_batch[i] for i in ok_idx], outs))
-                    self.report.max_inflight_batches = max(
-                        self.report.max_inflight_batches,
-                        len(futures) + len(pending))
-                    if len(pending) > 2:
-                        drain(pending.popleft())
-                while pending:
-                    drain(pending.popleft())
-        # canonical tileId order: the stitched catalog (S1..SN naming,
-        # component traversal) is a pure function of the tile-result set
-        results.sort(key=lambda tr: tr["tileId"])
-        nb = neighbor_table(tiles)
-        for tr in results:
-            tr["neighborTileIds"] = nb[tr["tileId"]]
-        return results
+                    if datas is not None:
+                        for i in ok_idx:
+                            tile_imgs[tile_batch[i].tid] = datas[i][:, :, 0]
+                    flow.push([tile_batch[i] for i in ok_idx],
+                              engine.process_async(dev),
+                              waiting=len(futures))
+                flow.finish()
 
     def _tile_objects(self, t: TileWindow, boxes, scores, cls):
         cfg = self.config
@@ -440,3 +769,27 @@ class SFinder:
             write_ds9_regions(self.sources["sources"], out,
                               color_map=CLASS_COLOR_MAP_DS9_MOSAIC)
             logger.info("Wrote regions %s", out)
+
+
+class _Inflight:
+    """Device batches dispatched and not yet drained: the oldest is drained
+    once three wait, so the host unpacks batch N while the device computes
+    N + 1 and N + 2 (the reference's loops)."""
+
+    def __init__(self, drain, report: SFinderReport):
+        self.pending: deque = deque()
+        self.drain = drain
+        self.report = report
+
+    def push(self, kept_tiles, outs, waiting: int = 0):
+        """Queue a dispatched batch; `waiting` reads or bands are in flight
+        beside it (counted in report.max_inflight_batches)."""
+        self.pending.append((list(kept_tiles), outs))
+        self.report.max_inflight_batches = max(
+            self.report.max_inflight_batches, waiting + len(self.pending))
+        if len(self.pending) > 2:
+            self.drain(self.pending.popleft())
+
+    def finish(self):
+        while self.pending:
+            self.drain(self.pending.popleft())

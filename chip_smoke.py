@@ -39,19 +39,32 @@ Phases (any failure exits non-zero before the last line):
             tests/test_torch_eval_golden.golden_mismatch
   golden-mosaic
             the port's SFinder.run_tiled in f32 (TF32 off) on the committed
-            mosaic against the JAX SFinder's catalog (tests/fixtures/
-            torch_port_golden_mosaic_v8n96.npz), by the catalog rule with
-            equal edge and merged flags
+            mosaic against the JAX SFinder's catalogs in the tile context
+            (tests/fixtures/torch_port_golden_mosaic_v8n96.npz) and in the
+            global context on the device-resident path (..._global_v8n96
+            .npz), by the catalog rule with equal edge and merged flags
   main      yolo11l at 640 px in bf16 with seeded weights: TileEngine on
             batches of 32 synthetic tiles (one all-zero), then
             Analyzer.predict writing a JSON catalog and a DS9 file; K1-K3
             must have launched on this path
   mosaic    the CLI (cli.run) on a seeded 2560x2560 FITS mosaic with a
-            NaN-blanked border, yolo11l@640 bf16: a tiled run (100 tiles of
-            512 px at step 0.5, four shapes, batches of 32; bkg + chan3 +
-            min-max) and a serial run on a 640x640 crop, each writing a
-            JSON catalog and a DS9 file; K1, K2, K5 and K6 must have
-            launched as often as the stages imply
+            NaN-blanked border, yolo11l@640 bf16, tiled (100 tiles of 512
+            px at step 0.5, four shapes, batches of 32; bkg + chan3 +
+            min-max) once per device-tiling mode: off (streamed windows),
+            auto (must take the whole mosaic), banded (the cap at one
+            band's bytes), global context (the chain once on the whole
+            plane: K5 and K6, or K3 with the README chain, counted on their
+            stream routes); tiles/s, path, host->device bytes, reads, puts,
+            drain and phase times of each; the three tile-context catalogs
+            must agree by the catalog rule; then a serial run on a 640x640
+            crop; each writes a JSON catalog and a DS9 file, and K1, K2, K5
+            and K6 must have launched as often as the stages imply
+  profile   one auto tiled run with --profile_dir: a non-empty trace, the
+            device's busy share
+  resume    scripts/torch_drill_banded_resume.py at the mosaic's size:
+            banded runs as subprocesses, one SIGKILLed once its spool holds
+            a grid row of tiles, then resumed; the catalog must be the
+            uninterrupted run's, bit for bit
   golden-train
             2 f32 steps (TF32 off) of the port's Trainer on the committed
             batch from yolov8n_synth96 against the JAX Trainer's numbers
@@ -81,6 +94,11 @@ Phases (any failure exits non-zero before the last line):
   shear-ab  augment_batch ms at the training batch with the y-shear as a
             transposed copy and a row launch and on K8's column route, in
             turns (transpose, column, column, transpose); the same bits
+  planes    K3, K5 (three sigma pairs) and K6 on whole-mosaic planes
+            [1, 2560, 2560] and [1, 16384, 16384] on their stream routes
+            (counted) against their plain versions (K3, K6 bit-equal, K5 by
+            its rule), timed beside their bounds (a `whole_plane` line; the
+            2560 px rows join the `kernels` line)
   timing    each kernel, its plain version and (where one exists) the
             PyTorch library call, by CUDA events (K1, K2, K2's backward,
             K3, K5, K6 and K8 also by device time under torch.profiler, K1,
@@ -209,6 +227,31 @@ K5_PINNED = ("k3-shapes-edges", 127)
 # edge flags plus stitch take milliseconds
 # (scripts/torch_mosaic_thresholds.py)
 MOSAIC_SCORE_THR = 1e-3
+# the mosaic phase's preprocessing (bkg + chan3 + min-max), the README chain
+# and the tiled flags: 512 px tiles at step 0.5, batches of 32
+MOSAIC_CHAIN = ["--preprocessing", "--subtract_bkg", "--chan3_preproc",
+                "--sigma_clip_baseline=0", "--sigma_clip_low=1",
+                "--sigma_clip_up=20", "--normalize_minmax", "--norm_min=0",
+                "--norm_max=255"]
+README_CHAIN = ["--preprocessing", "--zscale_stretch", "--normalize_minmax"]
+MOSAIC_TILED = ["--split_img_in_tiles", f"--tile_xsize={MOSAIC_TILE}",
+                f"--tile_ysize={MOSAIC_TILE}", "--tile_xstep=0.5",
+                "--tile_ystep=0.5", "--max_ntasks_per_worker=1000",
+                f"--batch_size={MAIN_BATCH}"]
+# the mosaic phase's tiled runs: the chain, more flags, and the path the
+# run must take ("band": the cap at one band's bytes; "global": the chain
+# run once on the whole mosaic, K5 and K6, or K3 for the README chain, on
+# their stream routes)
+MOSAIC_MODES = {
+    "off": (MOSAIC_CHAIN, ["--device_tiling=off"], "stream"),
+    "auto": (MOSAIC_CHAIN, [], "full"),
+    "band": (MOSAIC_CHAIN, [], "band"),
+    "global": (MOSAIC_CHAIN, ["--preproc_context=global"], "full"),
+    "global-readme": (README_CHAIN, ["--preproc_context=global"], "full"),
+}
+# whole-mosaic planes: the phase's mosaic, and a plane at half the
+# device-tiling cap (1 GiB of f32)
+WHOLE_PLANES = ((1, MOSAIC_SIZE, MOSAIC_SIZE), (1, 16384, 16384))
 
 
 def log(*args):
@@ -1107,7 +1150,9 @@ def catalog_arrays(sources):
 
 def phase_golden_mosaic(torch, tmp):
     """The port's tiled SFinder in f32 on the committed mosaic against the
-    JAX SFinder's catalog (tests/test_torch_sfinder.py writes both)."""
+    JAX SFinder's catalogs, in the tile context on the streaming path and
+    in the global context on the device-resident path
+    (tests/test_torch_sfinder.py writes both fixtures)."""
     from caesar_yolo_tpu_torch.models.convert import load_model
     from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder, SFinderConfig
@@ -1115,35 +1160,42 @@ def phase_golden_mosaic(torch, tmp):
     from caesar_yolo_tpu_torch.utils.fits import write_fits
 
     fixtures = os.path.join(REPO, "tests", "fixtures")
-    with np.load(os.path.join(fixtures,
-                              "torch_port_golden_mosaic_v8n96.npz")) as f:
-        golden = {k: f[k] for k in f.files}
-    config = json.loads(str(golden["config"]))
     path = os.path.join(tmp, "golden_mosaic.fits")
-    write_fits(golden["mosaic"], path)
     model, _ = load_model(os.path.join(fixtures, "yolov8n_synth96.npz"))
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        sf = SFinder(model, SFinderConfig(
-            image_path=path, outfile_json=os.path.join(tmp, "golden.json"),
-            outfile_ds9=os.path.join(tmp, "golden.reg"), **config["sfinder"]),
-            preprocessor=build_preprocessor(**config["preprocessing"]),
-            engine_kwargs={"compute_dtype": torch.float32})
-        require(sf.run_tiled() == 0, "golden-mosaic run failed")
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
-    ref = tuple(golden[k] for k in ("boxes", "scores", "class_ids", "edge",
-                                    "merged"))
-    why = catalog_mismatch(ref, catalog_arrays(sf.sources["sources"]))
-    require(why is None, f"golden mosaic: {why}")
-    log(f"golden-mosaic: {len(ref[1])} stitched sources ({int(ref[4].sum())}"
-        f" merged, {int(ref[3].sum())} edge) on {sf.report.n_tiles} tiles "
-        f"match the JAX SFinder's catalog (count, class, IoU >= 0.99, score "
-        f"within 1e-3, edge and merged flags)")
+    for context, fixture in (("tile", "torch_port_golden_mosaic_v8n96.npz"),
+                             ("global",
+                              "torch_port_golden_mosaic_global_v8n96.npz")):
+        with np.load(os.path.join(fixtures, fixture)) as f:
+            golden = {k: f[k] for k in f.files}
+        if context == "tile":
+            write_fits(golden["mosaic"], path)
+        config = json.loads(str(golden["config"]))
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            sf = SFinder(model, SFinderConfig(
+                image_path=path,
+                outfile_json=os.path.join(tmp, "golden.json"),
+                outfile_ds9=os.path.join(tmp, "golden.reg"),
+                **config["sfinder"]),
+                preprocessor=build_preprocessor(**config["preprocessing"]),
+                engine_kwargs={"compute_dtype": torch.float32})
+            require(sf.run_tiled() == 0, f"golden-mosaic {context} run "
+                    f"failed")
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+        ref = tuple(golden[k] for k in ("boxes", "scores", "class_ids",
+                                        "edge", "merged"))
+        why = catalog_mismatch(ref, catalog_arrays(sf.sources["sources"]))
+        require(why is None, f"golden mosaic {context}: {why}")
+        log(f"golden-mosaic {context} context ({sf.report.tiling_mode} "
+            f"path): {len(ref[1])} stitched sources ({int(ref[4].sum())} "
+            f"merged, {int(ref[3].sum())} edge) on {sf.report.n_tiles} "
+            f"tiles match the JAX SFinder's catalog (count, class, IoU >= "
+            f"0.99, score within 1e-3, edge and merged flags)")
 
 
 def make_main_tiles(n):
@@ -1225,89 +1277,230 @@ def phase_main(torch, counters):
     return engine, batches, launches
 
 
-def phase_mosaic(torch, counters, tmp):
-    """The CLI on a seeded 2560x2560 FITS mosaic with yolo11l@640 bf16: a
-    tiled run, then a serial run on a 640x640 crop.  Returns the launches
-    of each run and the tiled run's tiles/s."""
+def mosaic_grid():
+    """The mosaic phase's tile windows (x0, x1, y0, y1)."""
+    from caesar_yolo_tpu_torch.utils.tiling import generate_tiles
+    return generate_tiles(0, MOSAIC_SIZE - 1, 0, MOSAIC_SIZE - 1, MOSAIC_TILE,
+                          MOSAIC_TILE, 0.5, 0.5)
+
+
+def mosaic_batches(grid, banded):
+    """Batches of MAIN_BATCH a tiled run dispatches: one series a tile
+    shape, or one a shape within each grid row on the banded path."""
+    key = ((lambda x0, x1, y0, y1: (y0, y1, x1 - x0)) if banded
+           else (lambda x0, x1, y0, y1: (x1 - x0, y1 - y0)))
+    groups = Counter(key(*t) for t in grid)
+    return sum(-(-n // MAIN_BATCH) for n in groups.values())
+
+
+def mosaic_cli(tmp, chain=MOSAIC_CHAIN):
+    """The mosaic phase's CLI flags: image, weights, threshold and chain."""
+    return [f"--image={os.path.join(tmp, 'mosaic.fits')}",
+            f"--weights={os.path.join(tmp, 'yolo11l_seed0.npz')}",
+            f"--scoreThr={MOSAIC_SCORE_THR}", *chain]
+
+
+def run_tiled(torch, flags, banded):
+    """A tiled run of cli.run's configuration (banded: with the device-
+    tiling cap at one band's bytes, which the CLI has no flag for) ->
+    (rc, SFinder, wall s)."""
     from caesar_yolo_tpu_torch.cli import run as cli_run
+    t0 = time.perf_counter()
+    if banded:
+        drill = script("torch_drill_banded_resume")
+        rc, sf = drill.run_with_cap(flags, drill.band_bytes(flags))
+    else:
+        rc, sf = cli_run.run(flags)
+    torch.cuda.synchronize()
+    return rc, sf, time.perf_counter() - t0
+
+
+def route_counts(counters):
+    return {k: (getattr(c, "cluster_launches", None),
+                getattr(c, "stream_launches", None))
+            for k, c in counters.items()}
+
+
+def phase_mosaic(torch, counters, tmp):
+    """The CLI on a seeded 2560x2560 FITS mosaic with yolo11l@640 bf16: the
+    tiled run once per device-tiling mode and statistics context, then a
+    serial run on a 640x640 crop.  Returns the launches of each run, each
+    tiled run's tiles/s and the run of the "auto" mode."""
     from caesar_yolo_tpu_torch.models.convert import save_params
     from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.utils.boxes import catalog_mismatch
     from caesar_yolo_tpu_torch.utils.synth import write_mosaic_fits
-    from caesar_yolo_tpu_torch.utils.tiling import generate_tiles
 
     image = os.path.join(tmp, "mosaic.fits")
     write_mosaic_fits(image, nx=MOSAIC_SIZE, ny=MOSAIC_SIZE, n_sources=400,
                       seed=0, blank_border=16)
-    weights = save_params(init_weights(build_model("yolo11l"), seed=0),
-                          os.path.join(tmp, "yolo11l_seed0.npz"),
-                          meta={"model": "yolo11l", "num_classes": 5})
-    common = [f"--image={image}", f"--weights={weights}", "--preprocessing",
-              "--subtract_bkg", "--chan3_preproc", "--sigma_clip_baseline=0",
-              "--sigma_clip_low=1", "--sigma_clip_up=20",
-              "--normalize_minmax", "--norm_min=0", "--norm_max=255",
-              f"--scoreThr={MOSAIC_SCORE_THR}"]
-    runs = {
-        "tiled": ["--split_img_in_tiles", f"--tile_xsize={MOSAIC_TILE}",
-                  f"--tile_ysize={MOSAIC_TILE}", "--tile_xstep=0.5",
-                  "--tile_ystep=0.5", "--max_ntasks_per_worker=1000",
-                  f"--batch_size={MAIN_BATCH}"],
-        "serial": ["--xmin=0", "--xmax=639", "--ymin=0", "--ymax=639"]}
-    grid = generate_tiles(0, MOSAIC_SIZE - 1, 0, MOSAIC_SIZE - 1,
-                          MOSAIC_TILE, MOSAIC_TILE, 0.5, 0.5)
+    save_params(init_weights(build_model("yolo11l"), seed=0),
+                os.path.join(tmp, "yolo11l_seed0.npz"),
+                meta={"model": "yolo11l", "num_classes": 5})
+    grid = mosaic_grid()
     shapes = Counter((x1 - x0, y1 - y0) for x0, x1, y0, y1 in grid)
-    batches = sum(-(-n // MAIN_BATCH) for n in shapes.values())
+    rows = {(y0, y1) for _, _, y0, y1 in grid}
+    mosaic_bytes = MOSAIC_SIZE * MOSAIC_SIZE * 4
+    implied = {"stream": sum((x1 - x0) * (y1 - y0) for x0, x1, y0, y1
+                             in grid) * 4,
+               "full": mosaic_bytes,
+               "band": sum(MOSAIC_SIZE * (y1 - y0) for y0, y1 in rows) * 4}
     log(f"mosaic grid: {len(grid)} tiles in shapes {dict(shapes)}, "
-        f"{batches} batches of {MAIN_BATCH}")
-    launches, tps = {}, None
-    for name, flags in runs.items():
-        out_json = os.path.join(tmp, f"{name}.json")
-        out_reg = os.path.join(tmp, f"{name}.reg")
+        f"{mosaic_batches(grid, False)} batches of {MAIN_BATCH} "
+        f"({mosaic_batches(grid, True)} on the banded path); pixel bytes "
+        f"host -> device implied by each path: windows {implied['stream']}, "
+        f"mosaic {implied['full']}, bands {implied['band']}")
+    launches, tps, catalogs, runs = {}, {}, {}, {}
+    for name, (chain, extra, path) in MOSAIC_MODES.items():
+        flags = [*mosaic_cli(tmp, chain), *MOSAIC_TILED, *extra,
+                 f"--detect_outfile_json={os.path.join(tmp, name)}.json",
+                 f"--detect_outfile={os.path.join(tmp, name)}.reg"]
         for c in counters.values():
             c.launches = 0
-        t0 = time.perf_counter()
-        rc, sf = cli_run.run([*common, *flags,
-                              f"--detect_outfile_json={out_json}",
-                              f"--detect_outfile={out_reg}"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        routes = route_counts(counters)
+        rc, sf, wall = run_tiled(torch, flags, name == "band")
         launches[name] = {k: c.launches for k, c in counters.items()}
+        after = route_counts(counters)
+        stream = {k: (after[k][1] or 0) - (routes[k][1] or 0)
+                  for k in counters}
         require(rc == 0, f"mosaic {name} run failed")
-        forwards = batches if name == "tiled" else 1
-        expect = {k: n * forwards for k, n in PER_FORWARD.items()}
+        rep = sf.report
+        batches = mosaic_batches(grid, name == "band")
+        expect = {k: 0 for k in counters}
+        expect.update({k: n * batches for k, n in PER_FORWARD.items()})
+        if name.startswith("global"):   # the chain ran once, on the mosaic
+            expect.update(stats=3 * (name == "global"),
+                          histeq=int(name == "global"),
+                          preproc=int(name == "global-readme"))
         log(f"mosaic {name} launches: {launches[name]} (expected {expect} "
-            f"over {forwards} forward passes, none of K3 or of the training "
-            f"kernels)")
-        require(all(launches[name][k] == n for k, n in expect.items())
-                and launches[name]["preproc"] == 0
-                and not any(launches[name][k] for k in TRAIN_ONLY + CLAHE),
+            f"over {batches} forward passes); stream-route launches "
+            f"{ {k: n for k, n in stream.items() if n} }")
+        require(launches[name] == expect,
                 f"mosaic {name} run did not launch the kernels as expected")
-        with open(out_json) as f:
-            cat = json.load(f)
-        objs = cat["sources"] if name == "tiled" else cat["objs"]
-        with open(out_reg) as f:
+        if name.startswith("global"):
+            require(stream == {**{k: 0 for k in counters},
+                               **{k: n for k, n in expect.items() if n
+                                  and k in ("stats", "histeq", "preproc")}},
+                    f"mosaic {name}: the whole-mosaic plane must take the "
+                    f"stream routes ({stream})")
+        require(rep.tiling_mode == path, f"mosaic {name} took the "
+                f"{rep.tiling_mode!r} path, not {path!r}")
+        require(rep.n_tiles == len(grid) and not rep.tile_errors,
+                f"mosaic tiles {rep.n_tiles}, errors {rep.tile_errors}")
+        with open(os.path.join(tmp, f"{name}.json")) as f:
+            objs = json.load(f)["sources"]
+        with open(os.path.join(tmp, f"{name}.reg")) as f:
             regions = f.read().splitlines()
         require(len(objs) > 0, f"mosaic {name}: empty catalog")
         require(len(regions) == 2 + len(objs), f"mosaic {name}: DS9 file")
         boxes = catalog_arrays(objs)[0]
-        limit = MOSAIC_SIZE if name == "tiled" else 640
         require(np.isfinite(boxes).all() and (boxes >= 0).all()
-                and (boxes <= limit).all(), f"mosaic {name}: boxes")
-        if name == "tiled":
-            rep = sf.report
-            require(rep.n_tiles == len(grid) and not rep.tile_errors,
-                    f"mosaic tiles {rep.n_tiles}, errors {rep.tile_errors}")
-            tps = rep.n_tiles / wall
-            log(f"mosaic tiled: {rep.n_tiles} tiles in {wall:.3f} s end to "
-                f"end = {tps:.2f} tiles/s (yolo11l@640 bf16, batch "
-                f"{MAIN_BATCH}, bkg + chan3 + min-max); {len(objs)} stitched "
-                f"sources ({sum(o['merged'] for o in objs)} merged)")
-            log(f"mosaic tiled phase_times: {rep.phase_times}; worker read "
-                f"{rep.read_s:.3f} s, staging {rep.h2d_put_s:.3f} s, main "
-                f"thread draining {rep.drain_s:.3f} s")
-        else:
-            log(f"mosaic serial: 640x640 crop in {wall:.3f} s, "
-                f"{len(objs)} objects")
+                and (boxes <= MOSAIC_SIZE).all(), f"mosaic {name}: boxes")
+        catalogs[name], runs[name] = objs, sf
+        tps[name] = rep.n_tiles / wall
+        log(f"mosaic {name}: {rep.n_tiles} tiles in {wall:.3f} s end to end "
+            f"= {tps[name]:.2f} tiles/s (yolo11l@640 bf16, batch "
+            f"{MAIN_BATCH}), {rep.tiling_mode} path, {rep.h2d_bytes} pixel "
+            f"bytes host -> device (implied {implied[path]}); "
+            f"{len(objs)} stitched sources "
+            f"({sum(o['merged'] for o in objs)} merged)")
+        log(f"mosaic {name} phase_times: {rep.phase_times}; SFinder runtime "
+            f"{rep.runtime_s:.4f} s, setup before it (weights, model) "
+            f"{wall - rep.runtime_s:.4f} s; read_s {rep.read_s:.4f}, "
+            f"h2d_put_s {rep.h2d_put_s:.4f}, drain_s {rep.drain_s:.4f}, max "
+            f"in flight {rep.max_inflight_batches}")
+    # the tile-context catalogs of the three paths agree by the catalog rule
+    for name in ("auto", "band"):
+        why = catalog_mismatch(catalog_arrays(catalogs["off"]),
+                               catalog_arrays(catalogs[name]))
+        same_names = ([o["name"] for o in catalogs["off"]]
+                      == [o["name"] for o in catalogs[name]])
+        log(f"mosaic catalogs off vs {name}: catalog rule "
+            f"{why or 'ok'}, names equal {same_names}, bit-equal "
+            f"{catalogs['off'] == catalogs[name]}")
+        require(why is None and same_names,
+                f"mosaic {name} catalog differs from the streamed one: {why}")
+    log(f"mosaic host -> device bytes: streamed windows "
+        f"{runs['off'].report.h2d_bytes}, mosaic {runs['auto'].report.h2d_bytes}"
+        f" ({runs['off'].report.h2d_bytes / runs['auto'].report.h2d_bytes:.3f}"
+        f"x fewer), bands {runs['band'].report.h2d_bytes}")
+
+    # the serial run on a 640 px crop
+    for c in counters.values():
+        c.launches = 0
+    out_json, out_reg = (os.path.join(tmp, f"serial.{e}") for e in
+                         ("json", "reg"))
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+    t0 = time.perf_counter()
+    rc, _ = cli_run.run([*mosaic_cli(tmp), "--xmin=0", "--xmax=639",
+                         "--ymin=0", "--ymax=639",
+                         f"--detect_outfile_json={out_json}",
+                         f"--detect_outfile={out_reg}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["serial"] = {k: c.launches for k, c in counters.items()}
+    require(rc == 0, "mosaic serial run failed")
+    expect = {k: 0 for k in counters}
+    expect.update(PER_FORWARD)
+    log(f"mosaic serial launches: {launches['serial']} (expected {expect})")
+    require(launches["serial"] == expect,
+            "mosaic serial run did not launch the kernels as expected")
+    with open(out_json) as f:
+        objs = json.load(f)["objs"]
+    with open(out_reg) as f:
+        regions = f.read().splitlines()
+    boxes = catalog_arrays(objs)[0]
+    require(len(objs) > 0 and len(regions) == 2 + len(objs)
+            and np.isfinite(boxes).all() and (boxes >= 0).all()
+            and (boxes <= 640).all(), "mosaic serial: catalog")
+    log(f"mosaic serial: 640x640 crop in {wall:.3f} s, {len(objs)} objects")
     return launches, tps
+
+
+def phase_profile(torch, tmp):
+    """One "auto" tiled run of the mosaic with --profile_dir: the trace must
+    hold events; the device's busy share of the run from its kernels."""
+    prof = os.path.join(tmp, "prof")
+    flags = [*mosaic_cli(tmp), *MOSAIC_TILED, f"--profile_dir={prof}",
+             f"--detect_outfile_json={os.path.join(tmp, 'prof.json')}",
+             f"--detect_outfile={os.path.join(tmp, 'prof.reg')}"]
+    rc, sf, wall = run_tiled(torch, flags, False)
+    require(rc == 0, "profiled mosaic run failed")
+    trace = os.path.join(prof, "mosaic.trace.json")
+    size = os.path.getsize(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    require(len(events) > 0, "the profiler trace is empty")
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                    "gpu_memset")]
+    busy_us = sum(e.get("dur", 0) for e in device)
+    run_s = sf.report.runtime_s
+    log(f"profile: {trace} ({size} bytes, {len(events)} events, "
+        f"{len(device)} device kernels and copies); device busy "
+        f"{busy_us / 1e3:.3f} ms of the run's {run_s * 1e3:.3f} ms "
+        f"(idle share {1 - busy_us / 1e6 / run_s:.4f}; profiler on, wall "
+        f"{wall:.3f} s)")
+
+
+def phase_resume(torch, tmp):
+    """scripts/torch_drill_banded_resume.py's A/B/C at the mosaic phase's
+    size: the tiled CLI's configuration as subprocesses on the banded path,
+    B SIGKILLed once its spool holds a grid row of tiles, C resumed from
+    B's spool; C's catalog must be A's, bit for bit."""
+    drill = script("torch_drill_banded_resume")
+    flags = [*mosaic_cli(tmp), *MOSAIC_TILED]
+    summary = drill.drill(os.path.join(tmp, "drill"), flags,
+                          kill_after=MOSAIC_SIZE * 2 // MOSAIC_TILE,
+                          timeout=300)
+    log(f"resume drill: {json.dumps(summary)}")
+    require(summary["mode"].startswith("band"), "drill did not take bands")
+    require(summary["resumed_tiles_C"] == summary[
+        "killed_with_spooled_tiles"] > 0, "drill resumed no spooled tile")
+    require(summary["catalog_identical_after_resume"],
+            "the resumed catalog differs from the uninterrupted one")
+    log(f"resume: {summary['resumed_tiles_C']} tiles resumed from the "
+        f"killed run's spool, {summary['recomputed_tiles_C']} recomputed; "
+        f"catalog identical to the uninterrupted run's")
 
 
 def phase_eval(torch, counters, tmp, card):
@@ -1442,16 +1635,7 @@ def phase_upsample_ab(torch, engine, batches, tmp):
     from caesar_yolo_tpu_torch.cli import run as cli_run
 
     staged = [engine.put_tiles(bt) for bt in batches]
-    common = [f"--image={os.path.join(tmp, 'mosaic.fits')}",
-              f"--weights={os.path.join(tmp, 'yolo11l_seed0.npz')}",
-              "--preprocessing", "--subtract_bkg", "--chan3_preproc",
-              "--sigma_clip_baseline=0", "--sigma_clip_low=1",
-              "--sigma_clip_up=20", "--normalize_minmax", "--norm_min=0",
-              "--norm_max=255", f"--scoreThr={MOSAIC_SCORE_THR}",
-              "--split_img_in_tiles", f"--tile_xsize={MOSAIC_TILE}",
-              f"--tile_ysize={MOSAIC_TILE}", "--tile_xstep=0.5",
-              "--tile_ystep=0.5", "--max_ntasks_per_worker=1000",
-              f"--batch_size={MAIN_BATCH}",
+    common = [*mosaic_cli(tmp), *MOSAIC_TILED,
               f"--detect_outfile_json={os.path.join(tmp, 'ab.json')}",
               f"--detect_outfile={os.path.join(tmp, 'ab.reg')}"]
     out = {"plain": {"main": [], "mosaic": []}, "k4": {"main": [],
@@ -1780,6 +1964,101 @@ def phase_timing(torch, mods, inputs, engine, batches):
     return rows
 
 
+def mosaic_plane(torch, tmp, shape):
+    """A whole-mosaic plane [1, H, W] f32 on the card: the mosaic phase's
+    FITS as the reader gives it at its size, else a seeded plane made on
+    the card the same way (noise, bright sources, a zero border 16 px wide
+    and a zero block)."""
+    from caesar_yolo_tpu_torch.utils.fits import read_fits
+    if shape == (1, MOSAIC_SIZE, MOSAIC_SIZE):
+        data = read_fits(os.path.join(tmp, "mosaic.fits"))[0]
+        return torch.from_numpy(np.ascontiguousarray(data, np.float32)
+                                ).cuda()[None]
+    _, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(h)
+    x = torch.randn(shape, generator=g, device="cuda") * 0.1
+    bright = torch.rand(shape, generator=g, device="cuda") < 1e-4
+    x += bright * 50.0 * torch.rand(shape, generator=g, device="cuda")
+    x[:, :16] = 0.0
+    x[:, -16:] = 0.0
+    x[:, :, :16] = 0.0
+    x[:, :, -16:] = 0.0
+    x[:, h // 3:h // 3 + h // 10, w // 5:w // 5 + w // 10] = 0.0
+    return x
+
+
+def phase_whole_plane(torch, tmp):
+    """K3, K5 (the mosaic chain's three sigma pairs) and K6 on one
+    whole-mosaic plane at the phase's mosaic size and at 16384 px, each on
+    its stream route (counted), against its plain version under its rule
+    (K3 and K6 bit-equal, K5 by cuda_stats.stats_mismatch), then timed
+    beside its plain version and bound.  Returns the kernels-line rows at
+    the mosaic's size and the rows of both sizes."""
+    from caesar_yolo_tpu_torch.ops import cuda_histeq, cuda_preproc, cuda_stats
+    from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
+    from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
+    from caesar_yolo_tpu_torch.ops.zscale import zscale_limits
+
+    rows, line = [], {}
+    for shape in WHOLE_PLANES:
+        x = mosaic_plane(torch, tmp, shape)
+        n = x.numel()
+        big = n > 2 ** 26
+        vlims = torch.stack(zscale_limits(x), dim=1)
+        kernels = {
+            "preproc": (lambda: cuda_preproc.zscale_minmax(x, vlims),
+                        lambda: cuda_preproc.zscale_minmax_plain(x, vlims),
+                        cuda_preproc.zscale_minmax,
+                        bound_ms(2 * n * 4 + 16, 12 * n, "float32")),
+            "stats": (lambda: cuda_stats.clip_stats(x, *MOSAIC_SIGMAS[0]),
+                      lambda: clip_stats_plain(x, None, *MOSAIC_SIGMAS[0]),
+                      cuda_stats.clip_stats, bound_ms(n * 4, 0, "float32")),
+            "histeq": (lambda: cuda_histeq.equalize_hist_batch(x),
+                       lambda: equalize_hist(x),
+                       cuda_histeq.equalize_hist_batch,
+                       bound_ms(2 * n * 4, 0, "float32"))}
+        for key, (kernel, plain, wrapper, bound) in kernels.items():
+            err = 0.0
+            if key == "stats":
+                for sig in MOSAIC_SIGMAS:
+                    err = max(err, parity_stats(torch, x, sig, "stream", 16))
+            else:
+                before = wrapper.stream_launches
+                got = kernel()
+                torch.cuda.synchronize()
+                ran = wrapper.stream_launches == before + 1
+                ref = plain()
+                if key == "preproc":
+                    same = (torch.equal(got[0], ref[0])
+                            and torch.equal(got[1], ref[1]))
+                    err = (got[0] - ref[0]).abs().max().item()
+                else:
+                    same = (torch.equal(got.isnan(), ref.isnan())
+                            and torch.equal(got.nan_to_num(),
+                                            ref.nan_to_num()))
+                    err = (got.nan_to_num() - ref.nan_to_num()
+                           ).abs().max().item()
+                log(f"parity {key} {shape} (stream route, counted {ran}): "
+                    f"max abs err {err:.3g} (tolerance 0), bit-equal {same}")
+                require(ran and same, f"{key} kernel differs on the whole "
+                        f"plane {shape}")
+                del got, ref
+            row = dict(shape=list(shape), kernel=key,
+                       ms=time_ms(torch, kernel, iters=5 if big else 20),
+                       plain_ms=time_ms(torch, plain, iters=2 if big else 5,
+                                        warmup=1),
+                       library_ms=None, bound=bound, max_abs_err=err)
+            log(f"timing {key} whole plane {shape} (stream route): "
+                f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, bound "
+                f"{bound[0]:.6f} ({bound[1]})")
+            rows.append(row)
+            if not big:
+                line[f"{key}_plane"] = row
+        del x, vlims, kernels
+        torch.cuda.empty_cache()
+    return line, rows
+
+
 KERNELS = {
     "nms": ("nms_suppress", "caesar_yolo_tpu_torch/csrc/nms.cu",
             "caesar_yolo_tpu/detect/pallas_nms.py:85"),
@@ -1803,10 +2082,28 @@ KERNELS = {
               "caesar_yolo_tpu/ops/pallas_shift.py:54"),
     "clahe": ("equalize_adapthist_batch", "caesar_yolo_tpu_torch/csrc/clahe.cu",
               "caesar_yolo_tpu/ops/pallas_clahe.py:137"),
+    # the stream routes on one whole-mosaic plane (global context)
+    "preproc_plane": (f"zscale_minmax stream route [1,{MOSAIC_SIZE},"
+                      f"{MOSAIC_SIZE}]",
+                      "caesar_yolo_tpu_torch/csrc/preproc.cu",
+                      "caesar_yolo_tpu/ops/pallas_preproc.py:72"),
+    "stats_plane": (f"clip_stats stream route [1,{MOSAIC_SIZE},"
+                    f"{MOSAIC_SIZE}]", "caesar_yolo_tpu_torch/csrc/stats.cu",
+                    "caesar_yolo_tpu/ops/pallas_stats.py:146"),
+    "histeq_plane": (f"equalize_hist_batch stream route [1,{MOSAIC_SIZE},"
+                     f"{MOSAIC_SIZE}]",
+                     "caesar_yolo_tpu_torch/csrc/histeq.cu",
+                     "caesar_yolo_tpu/ops/pallas_histeq.py:133"),
 }
+# where each whole-plane row's launches are counted: the global-context
+# mosaic runs (K3 with the README chain)
+PLANE_RUNS = {"preproc_plane": ("global-readme", "preproc"),
+              "stats_plane": ("global", "stats"),
+              "histeq_plane": ("global", "histeq")}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1862,11 +2159,16 @@ def main() -> int:
             phase_golden_mosaic(torch, tmp)
             engine, batches, launches = phase_main(torch, counters)
             mosaic_launches, _ = phase_mosaic(torch, counters, tmp)
+            phase_profile(torch, tmp)
+            phase_resume(torch, tmp)
             eval_launches = phase_eval(torch, counters, tmp, card)
             train_launches = phase_train(torch, counters, tmp, card)
             phase_upsample_ab(torch, engine, batches, tmp)
             phase_shear_ab(torch, card)
+            plane_rows, planes = phase_whole_plane(torch, tmp)
         rows = phase_timing(torch, mods, inputs, engine, batches)
+        rows.update(plane_rows)
+        errs.update({k: r["max_abs_err"] for k, r in plane_rows.items()})
     except Exception:  # report every failure before exiting non-zero
         traceback.print_exc()
         log("FAIL")
@@ -1880,7 +2182,9 @@ def main() -> int:
                     else train_launches[k] if k in TRAIN_ONLY + ("upsample",)
                     else eval_launches["evaluate_dataset+CLAHE"][k]
                     if k in CLAHE
-                    else mosaic_launches["tiled"][k]) for k in KERNELS}
+                    else mosaic_launches[PLANE_RUNS[k][0]][PLANE_RUNS[k][1]]
+                    if k in PLANE_RUNS
+                    else mosaic_launches["auto"][k]) for k in KERNELS}
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         r = rows[key]
@@ -1890,6 +2194,12 @@ def main() -> int:
             "max_abs_err": errs[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    log(json.dumps({"whole_plane": [
+        {"kernel": r["kernel"], "shape": r["shape"], "route": "stream",
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "max_abs_err": r["max_abs_err"]}
+        for r in planes]}))
+    log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """The port's detection CLI: the JAX CLI's flags and defaults, a tiled and
 a serial run on the CPU writing the port SFinder's catalog and DS9 file,
-the unported flags refused, and CUDA by default."""
+the tiled run's device-tiling, statistics-context, spool, profiler and
+tile-image flags taking effect, the unported flags refused, and CUDA by
+default."""
 
 import json
 import os
@@ -41,6 +43,9 @@ TILE_FLAGS = ["--split_img_in_tiles", "--tile_xsize=96", "--tile_ysize=96",
      "--xmax=50", "--ymin=2", "--ymax=60", "--detect_outfile=a.reg",
      "--detect_outfile_json=a.json", "--save_tile_catalog",
      "--devices=cpu", "--pre_nms=1024", "--iouThr=0.4"],
+    ["--weights=w.npz", "--image=m.fits", *TILE_FLAGS, "--resume",
+     "--spool_path=s.jsonl", "--profile_dir=prof", "--device_tiling=on",
+     "--preproc_context=global", "--save_tile_img"],
 ])
 def test_parse_args_matches_jax(argv):
     got, ref = vars(parse_args(argv)), vars(jax_parse_args(argv))
@@ -103,10 +108,7 @@ def test_max_ntasks_guard(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    "--datalist=list.txt", "--int8", "--draw_plots", "--save_plots",
-    "--resume", "--spool_path=s.jsonl", "--profile_dir=prof",
-    "--preproc_context=global", "--device_tiling=on", "--save_tile_img",
-    ".pt"])
+    "--datalist=list.txt", "--int8", "--draw_plots", "--save_plots", ".pt"])
 def test_unported_flags_raise(tmp_path, monkeypatch, flag):
     """Each unported flag raises; --datalist is ported and runs its list
     (here the mosaic, whole-image through the BatchedDetector, writing
@@ -128,6 +130,76 @@ def test_unported_flags_raise(tmp_path, monkeypatch, flag):
         argv.append(flag)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main([*argv, f"--weights={weights}"])
+
+
+def _fake_spool(path, argv, score):
+    """A spool at path under the signature of the run argv configures,
+    holding one object of the given score as tile 0's result."""
+    from caesar_yolo_tpu_torch.cli.run import config_from_args
+    sig = SFinder(None, config_from_args(parse_args(argv)),
+                  device="cpu")._grid_signature()
+    obj = {"name": "S1_t0", "x1": 1.0, "x2": 5.0, "y1": 1.0, "y2": 5.0,
+           "class_id": 1, "class_name": "compact", "score": score,
+           "edge": 0}
+    with open(path, "w") as f:
+        f.write(json.dumps({"gridSig": sig}) + "\n" + json.dumps(
+            {"objs": [obj], "tileId": 0, "workerId": 0,
+             "neighborTileIds": [], "xmin": 0, "xmax": 96, "ymin": 0,
+             "ymax": 96}) + "\n")
+
+
+@pytest.mark.parametrize("flag", [
+    "--resume", "--spool_path=s.jsonl", "--profile_dir=prof",
+    "--preproc_context=global", "--device_tiling=on", "--save_tile_img"])
+def test_tiled_flags_take_effect(tmp_path, monkeypatch, flag):
+    """Each flag the port once refused runs on the CPU and does what it
+    says: a spool (the default one, or the --spool_path one with
+    --resume) is resumed and removed; --profile_dir leaves a trace;
+    --preproc_context=global preprocesses the whole mosaic once on the
+    device-resident path that "auto" takes here; --device_tiling=on ships
+    the mosaic once and gives the streamed run's catalog; --save_tile_img
+    writes each predicted tile's window."""
+    from caesar_yolo_tpu_torch.cli.run import run
+    monkeypatch.chdir(tmp_path)
+    path = _mosaic(tmp_path)
+    argv = [f"--image={path}", f"--weights={WEIGHTS}", "--imgsize=96",
+            "--scoreThr=0.3", "--devices=cpu", *PREPROC_FLAGS, *TILE_FLAGS]
+    rc, base = run([*argv, "--device_tiling=off"])
+    assert rc == 0 and base.report.tiling_mode == "stream"
+    with open("catalog_mosaic.json") as f:
+        streamed = json.load(f)["sources"]
+    extra = [flag]
+    spool = None
+    if flag in ("--resume", "--spool_path=s.jsonl"):
+        spool = tmp_path / ("s.jsonl" if flag != "--resume"
+                            else ".mosaic.tilespool.jsonl")
+        extra = sorted({flag, "--resume"})
+        _fake_spool(spool, [*argv, *extra], 0.99)
+    rc, sf = run([*argv, *extra])
+    assert rc == 0
+    with open("catalog_mosaic.json") as f:
+        sources = json.load(f)["sources"]
+    rep = sf.report
+    if spool is not None:
+        assert 0.99 in {s["score"] for s in sources}
+        assert rep.n_resumed == 1 and not spool.exists()
+    elif flag == "--profile_dir=prof":
+        events = json.loads((tmp_path / "prof" / "mosaic.trace.json")
+                            .read_text())["traceEvents"]
+        assert len(events) > 100
+    elif flag == "--preproc_context=global":
+        assert rep.tiling_mode == "full"
+        assert "preprocess_mosaic" in rep.phase_times
+        assert sources != streamed
+    elif flag == "--device_tiling=on":
+        assert rep.tiling_mode == "full"
+        assert rep.h2d_bytes == 208 * 208 * 4 < base.report.h2d_bytes
+        assert sources == streamed
+    else:
+        names = sorted(p.name for p in tmp_path.glob("timg_*.fits"))
+        assert names == sorted(f"timg_mosaic_tid{tr['tileId']}.fits"
+                               for tr in sf.last_tile_results)
+        assert len(names) == 8
 
 
 def test_main_needs_cuda_unless_asked_for_the_cpu(tmp_path):

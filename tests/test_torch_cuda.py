@@ -728,3 +728,23 @@ def test_clahe_kernels_reject_what_they_cannot_take(dev):
     with pytest.raises(ValueError):
         cuda_clahe.equalize_adapthist_batch(torch.randn(1, 4, 64,
                                                         device=dev))
+
+
+@pytest.mark.parametrize("kernel", ["zscale_minmax", "clip_stats",
+                                    "equalize_hist_batch"])
+def test_planes_past_the_index_limit_are_refused(dev, kernel):
+    """K3, K5 and K6 index a plane with 32-bit ints: a plane of more than
+    cuda_build.MAX_PLANE values is refused before any launch (an expanded
+    view, so nothing is allocated)."""
+    from caesar_yolo_tpu_torch import cuda_build
+    wide = torch.zeros(1, 1, 1, device=dev).expand(1, 32769, 32768)
+    assert wide[0].numel() > cuda_build.MAX_PLANE
+    fn, args = {
+        "zscale_minmax": (cuda_preproc.zscale_minmax,
+                          (torch.zeros(1, 2, device=dev),)),
+        "clip_stats": (cuda_stats.clip_stats, (3.0, 3.0)),
+        "equalize_hist_batch": (cuda_histeq.equalize_hist_batch, ())}[kernel]
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(wide, *args)
+    assert fn.launches == before

@@ -13,8 +13,11 @@ with equal edge and merged flags.
 
 tests/fixtures/torch_port_golden_mosaic_v8n96.npz holds the mosaic, the
 run's configuration and the JAX SFinder.run_tiled sources;
-chip_smoke.py runs the port on the card against it.  Regenerate it from
-the repository root with
+tests/fixtures/torch_port_golden_mosaic_global_v8n96.npz the sources of
+the same run on the device-resident path with the global preprocessing
+context (device_tiling="on", preproc_context="global").  chip_smoke.py
+runs the port on the card against both.  Regenerate them from the
+repository root with
     PYTHONPATH=. python tests/test_torch_sfinder.py
 """
 
@@ -32,6 +35,9 @@ from caesar_yolo_tpu_torch.utils.tiling import generate_tiles
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
 GOLDEN = os.path.join(FIXTURES, "torch_port_golden_mosaic_v8n96.npz")
+GOLDEN_GLOBAL = os.path.join(FIXTURES,
+                             "torch_port_golden_mosaic_global_v8n96.npz")
+GLOBAL = dict(device_tiling="on", preproc_context="global")
 WEIGHTS = os.path.join(FIXTURES, "yolov8n_synth96.npz")
 PREPROC = dict(subtract_bkg=True, chan3_preproc=True,
                sigma_clip_baseline=0.0, sigma_clip_low=1.0,
@@ -70,9 +76,9 @@ def catalog_arrays(sources) -> tuple:
             np.asarray([bool(s.get("merged", False)) for s in sources]))
 
 
-def jax_sfinder(path: str, tiled: bool, out_dir: str) -> dict:
-    """The reference's SFinder on the CPU in f32; returns the catalog
-    and the DS9 text."""
+def jax_sfinder(path: str, tiled: bool, out_dir: str, extra=None) -> dict:
+    """The reference's SFinder on the CPU in f32 (CONFIG updated by
+    extra); returns the catalog."""
     import jax.numpy as jnp
 
     from caesar_yolo_tpu.models.convert import load_params
@@ -82,7 +88,7 @@ def jax_sfinder(path: str, tiled: bool, out_dir: str) -> dict:
 
     params, meta = load_params(WEIGHTS)
     model = build_model(meta["model"], num_classes=int(meta["num_classes"]))
-    kw = dict(CONFIG, split_image_in_tiles=tiled)
+    kw = {**CONFIG, **(extra or {}), "split_image_in_tiles": tiled}
     cfg = SFinderConfig(image_path=path,
                         outfile_json=os.path.join(out_dir, "jax.json"),
                         outfile_ds9=os.path.join(out_dir, "jax.reg"), **kw)
@@ -94,8 +100,10 @@ def jax_sfinder(path: str, tiled: bool, out_dir: str) -> dict:
     return sf.sources
 
 
-def port_sfinder(path: str, tiled: bool, out_dir: str, device="cpu"):
-    """The port's SFinder in f32, after its run."""
+def port_sfinder(path: str, tiled: bool, out_dir: str, device="cpu",
+                 extra=None):
+    """The port's SFinder in f32 (CONFIG updated by extra), after its
+    run."""
     import torch
 
     from caesar_yolo_tpu_torch.models.convert import load_model
@@ -103,7 +111,7 @@ def port_sfinder(path: str, tiled: bool, out_dir: str, device="cpu"):
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder, SFinderConfig
 
     model, _ = load_model(WEIGHTS)
-    kw = dict(CONFIG, split_image_in_tiles=tiled)
+    kw = {**CONFIG, **(extra or {}), "split_image_in_tiles": tiled}
     cfg = SFinderConfig(image_path=path,
                         outfile_json=os.path.join(out_dir, "port.json"),
                         outfile_ds9=os.path.join(out_dir, "port.reg"), **kw)
@@ -114,21 +122,33 @@ def port_sfinder(path: str, tiled: bool, out_dir: str, device="cpu"):
     return sf
 
 
-def load_golden() -> dict:
-    with np.load(GOLDEN) as f:
+def load_golden(path: str = GOLDEN) -> dict:
+    with np.load(path) as f:
         return {k: f[k] for k in f.files}
 
 
-def write_golden(tmp: str) -> dict:
+def golden_arrays(golden: dict) -> tuple:
+    return tuple(golden[k] for k in ("boxes", "scores", "class_ids", "edge",
+                                     "merged"))
+
+
+def write_golden(tmp: str) -> tuple[dict, dict]:
+    """The two fixtures' contents: the mosaic and the JAX catalog in tile
+    context, and the JAX catalog in global context (its mosaic is the
+    first fixture's)."""
     path = os.path.join(tmp, "mosaic.fits")
     mosaic = make_mosaic()
     write_fits(mosaic, path)
-    srcs = catalog_arrays(jax_sfinder(path, True, tmp)["sources"])
-    out = dict(mosaic=mosaic, boxes=srcs[0], scores=srcs[1],
-               class_ids=srcs[2], edge=srcs[3], merged=srcs[4],
-               config=np.asarray(json.dumps({"sfinder": CONFIG,
-                                             "preprocessing": PREPROC})))
-    return out
+    out = []
+    for extra in ({}, GLOBAL):
+        srcs = catalog_arrays(jax_sfinder(path, True, tmp, extra)["sources"])
+        out.append(dict(boxes=srcs[0], scores=srcs[1], class_ids=srcs[2],
+                        edge=srcs[3], merged=srcs[4],
+                        config=np.asarray(json.dumps({
+                            "sfinder": dict(CONFIG, **extra),
+                            "preprocessing": PREPROC}))))
+    out[0]["mosaic"] = mosaic
+    return out[0], out[1]
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +165,9 @@ def mosaic_runs(tmp_path_factory):
         srcs = jax_sfinder(path, tiled, out)
         with open(os.path.join(out, "jax.reg")) as f:
             runs[tiled] = (srcs, f.read())
+    out = os.path.join(tmp, "global")
+    os.makedirs(out)
+    runs["global"] = (jax_sfinder(path, True, out, GLOBAL), None)
     return path, runs
 
 
@@ -187,6 +210,23 @@ def test_golden_mosaic_fixture_is_current(mosaic_runs):
     assert golden["merged"].any() and len(golden["scores"]) >= 5
 
 
+def test_golden_mosaic_global_fixture_is_current(mosaic_runs):
+    """The committed global-context JAX catalog equals a fresh JAX run
+    (device_tiling="on", preproc_context="global") on the mosaic."""
+    golden = load_golden(GOLDEN_GLOBAL)
+    assert json.loads(str(golden["config"])) == {
+        "sfinder": dict(CONFIG, **GLOBAL), "preprocessing": PREPROC}
+    ref = catalog_arrays(mosaic_runs[1]["global"][0]["sources"])
+    for k, r in zip(("class_ids", "edge", "merged"), ref[2:]):
+        np.testing.assert_array_equal(golden[k], r, err_msg=k)
+    np.testing.assert_allclose(golden["boxes"], ref[0], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(golden["scores"], ref[1], atol=1e-4, rtol=0)
+    # the global statistics give another catalog than the tile context's
+    tile = golden_arrays(load_golden())
+    assert catalog_mismatch(tile, golden_arrays(golden)) is not None
+    assert len(golden["scores"]) >= 5
+
+
 def test_port_cpu_matches_golden_mosaic(tmp_path):
     """The port's run_tiled on the CPU against the fixture, by the
     catalog rule with flags (the card runs the same check in
@@ -200,6 +240,22 @@ def test_port_cpu_matches_golden_mosaic(tmp_path):
     assert catalog_mismatch(ref, catalog_arrays(got)) is None
 
 
+def test_port_cpu_matches_golden_mosaic_global(tmp_path):
+    """The port's run_tiled in the global context on the CPU against the
+    global fixture, by the catalog rule with flags, on the full
+    device-resident path (the card runs the same check in
+    chip_smoke.py)."""
+    golden = load_golden(GOLDEN_GLOBAL)
+    path = str(tmp_path / "mosaic.fits")
+    write_fits(load_golden()["mosaic"], path)
+    extra = json.loads(str(golden["config"]))["sfinder"]
+    sf = port_sfinder(path, True, str(tmp_path), extra=extra)
+    got = catalog_arrays(sf.sources["sources"])
+    assert catalog_mismatch(golden_arrays(golden), got) is None
+    assert sf.report.tiling_mode == "full"
+    assert "preprocess_mosaic" in sf.report.phase_times
+
+
 if __name__ == "__main__":
     import tempfile
 
@@ -207,8 +263,10 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
     with tempfile.TemporaryDirectory() as tmp:
-        out = write_golden(tmp)
-    np.savez_compressed(GOLDEN, **out)
-    print(f"wrote {GOLDEN}: {len(out['scores'])} sources "
-          f"({int(out['merged'].sum())} merged, {int(out['edge'].sum())} "
-          f"edge), {os.path.getsize(GOLDEN)} bytes")
+        outs = write_golden(tmp)
+    for path, out in zip((GOLDEN, GOLDEN_GLOBAL), outs):
+        np.savez_compressed(path, **out)
+        print(f"wrote {path}: {len(out['scores'])} sources "
+              f"({int(out['merged'].sum())} merged, "
+              f"{int(out['edge'].sum())} edge), {os.path.getsize(path)} "
+              f"bytes")
