@@ -8,9 +8,11 @@ defaults, plus --devices:
 
 Computes completeness / reliability / F1 with the reference's IoU >= 0.6
 matching rules (reference macros/make_prediction.py:553-694) and the
-COCO-style mAP.  Runs on CUDA; `--devices=cpu` selects the CPU.  --int8
-(ROADMAP.md, Queue 1 item 10), --save_plot (item 5) and .pt weights (item
-10) raise NotImplementedError.
+COCO-style mAP.  `--weights` takes the reference's npz or an ultralytics
+`.pt` checkpoint; the filelist FITS, PNG and JPEG images.  Runs on CUDA;
+`--devices=cpu` selects the CPU.  --int8 (int8 PTQ) and --save_plot (the
+plots) raise NotImplementedError until their features are ported
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -54,14 +56,12 @@ def parse_args(argv=None):
 
 def unported_flags(args) -> list[str]:
     """The given flags whose feature the port does not have yet, each with
-    its ROADMAP.md Queue 1 item."""
+    that feature."""
     out = []
     if args.int8:
-        out.append("--int8 (item 10)")
+        out.append("--int8 (int8 PTQ)")
     if args.save_plot:
-        out.append("--save_plot (item 5)")
-    if args.weights.endswith(".pt"):
-        out.append(".pt weights (item 10)")
+        out.append("--save_plot (the plots)")
     return out
 
 

@@ -9,7 +9,10 @@ defaults and single-dash spellings.
         --normalize_minmax [--split_img_in_tiles --tile_xsize=512 ...]
 
 Runs on CUDA; `--devices=cpu` selects the CPU.  `--weights` takes the
-reference's npz format (models/convert.py).  `--datalist` runs a filelist
+reference's npz format or an ultralytics `.pt` checkpoint, converted on
+the fly (models/convert.py).  `--image` and `--datalist` take FITS, PNG
+and JPEG images (JPEG needs Pillow; utils/fits.py:read_image); tiled runs
+take FITS only, as the reference's do.  `--datalist` runs a filelist
 as the reference package does: tiled through one shared TileEngine with
 --split_img_in_tiles, per image through the SFinder when outfiles or a
 crop window are given, else batched by shape through the BatchedDetector
@@ -19,8 +22,8 @@ shipped to the device once), --preproc_context=global, the crash-resume
 spool (--resume, --spool_path), --profile_dir (a torch.profiler Chrome
 trace) and --save_tile_img.  These flags are refused with
 NotImplementedError until their feature is ported (ROADMAP.md, Queue 1):
-.pt weights, --int8, --draw_plots and --save_plots.  --multigpu is a
-no-op, as in the reference package.
+--int8 (int8 PTQ), --draw_plots and --save_plots (the plots).
+--multigpu is a no-op, as in the reference package.
 """
 
 from __future__ import annotations
@@ -45,14 +48,16 @@ def parse_args(argv=None):
 
     # DATA
     parser.add_argument("--image", required=False, type=str, default="",
-                        help="Input FITS image to detect on")
+                        help="Input image (FITS, PNG or JPEG) to detect "
+                        "on")
     parser.add_argument("--datalist", required=False, default="",
                         help="Filelist of images for batch detection")
     parser.add_argument("--maxnimgs", required=False, type=int, default=-1)
 
     # MODEL
     parser.add_argument("--weights", required=True,
-                        help="Weights in the reference's npz format")
+                        help="Weights: the reference's npz format or an "
+                        "ultralytics .pt checkpoint")
     parser.add_argument("--model", required=False, default="",
                         help="Architecture name (default: from the weights' "
                         "meta, else their file name)")
@@ -133,11 +138,8 @@ def parse_args(argv=None):
 
 def unported_flags(args) -> list[str]:
     """The given flags whose feature the port does not have yet."""
-    out = [f"--{name}" for name in ("int8", "draw_plots", "save_plots")
-           if getattr(args, name)]
-    if args.weights.endswith(".pt"):
-        out.append(".pt weights")
-    return out
+    return [f"--{name}" for name in ("int8", "draw_plots", "save_plots")
+            if getattr(args, name)]
 
 
 def validate_args(args) -> int:
@@ -172,13 +174,19 @@ def validate_args(args) -> int:
 
 
 def load_model_from_args(args):
-    """The model named by the weights' meta (else --model, else the
-    weights' file name) with the weights loaded, on the CPU in f32."""
+    """The model with the weights loaded, on the CPU in f32.  A `.pt`
+    checkpoint is converted on the fly (the architecture from --model,
+    else the file's stem); an npz names its architecture in its meta (else
+    --model, else the weights' file name)."""
     from caesar_yolo_tpu_torch.models.convert import (
+        convert_checkpoint,
         load_jax_params,
         load_params,
     )
     from caesar_yolo_tpu_torch.models.yolo import build_model
+    if args.weights.endswith(".pt"):
+        return convert_checkpoint(args.weights,
+                                  model_name=args.model or None)[0]
     name = args.model or os.path.splitext(os.path.basename(args.weights))[0]
     params, meta = load_params(args.weights)
     model = build_model(meta.get("model", name),

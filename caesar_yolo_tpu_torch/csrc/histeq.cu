@@ -344,13 +344,17 @@ __global__ void init_kernel(int* __restrict__ lims, int* __restrict__ hist,
   if (i < planes * kBins) hist[i] = 0;
 }
 
+// The stream route's in-plane indices are 64-bit: a plane may hold up to
+// 2^31 - 1 values, and the loops step up to kStreamBlocks * kStreamThreads
+// past its end.
 __global__ void __launch_bounds__(kStreamThreads)
-minmax_kernel(const float* __restrict__ x, int* __restrict__ lims, int hw) {
+minmax_kernel(const float* __restrict__ x, int* __restrict__ lims,
+              int64_t hw) {
   const int p = blockIdx.y;
-  const float* xp = x + (size_t)p * hw;
+  const float* xp = x + p * hw;
   float lo = INFINITY, hi = -INFINITY;
   int nan = 0;
-  for (int i = blockIdx.x * kStreamThreads + threadIdx.x; i < hw;
+  for (int64_t i = blockIdx.x * kStreamThreads + threadIdx.x; i < hw;
        i += kStreamBlocks * kStreamThreads) {
     const float v = __ldg(xp + i);
     nan |= isnan(v);
@@ -387,7 +391,7 @@ minmax_kernel(const float* __restrict__ x, int* __restrict__ lims, int hw) {
 
 __global__ void __launch_bounds__(kStreamThreads)
 hist_kernel(const float* __restrict__ x, const int* __restrict__ lims,
-            int* __restrict__ hist, int hw) {
+            int* __restrict__ hist, int64_t hw) {
   __shared__ int wh[kStreamWarps][kBins];
   const int p = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -395,13 +399,13 @@ hist_kernel(const float* __restrict__ x, const int* __restrict__ lims,
     (&wh[0][0])[i] = 0;
   __syncthreads();
   const Lims l = plane_lims(lims, p);
-  const float* xp = x + (size_t)p * hw;
+  const float* xp = x + p * hw;
   // every lane runs the same number of iterations, so the warp-wide
   // match below sees all 32 lanes; lanes past the end carry bin -1
-  const int stride = kStreamBlocks * kStreamThreads;
-  const int base = blockIdx.x * kStreamThreads + threadIdx.x - lane;
-  for (int i0 = base; i0 < hw; i0 += stride) {
-    const int i = i0 + lane;
+  const int64_t stride = kStreamBlocks * kStreamThreads;
+  const int64_t base = blockIdx.x * kStreamThreads + threadIdx.x - lane;
+  for (int64_t i0 = base; i0 < hw; i0 += stride) {
+    const int64_t i = i0 + lane;
     const int b = i < hw ? bin_of(__ldg(xp + i), l) : -1;
     const unsigned same = __match_any_sync(kFull, b);
     if (b >= 0 && lane == __ffs(same) - 1)
@@ -417,7 +421,8 @@ hist_kernel(const float* __restrict__ x, const int* __restrict__ lims,
 
 __global__ void __launch_bounds__(kStreamThreads)
 apply_kernel(const float* __restrict__ x, const int* __restrict__ lims,
-             const int* __restrict__ hist, float* __restrict__ out, int hw) {
+             const int* __restrict__ hist, float* __restrict__ out,
+             int64_t hw) {
   __shared__ float cdf[kBins];
   __shared__ int cum[kBins];
   const int p = blockIdx.y;
@@ -433,15 +438,15 @@ apply_kernel(const float* __restrict__ x, const int* __restrict__ lims,
   __syncthreads();
 
   const Interp q = make_interp(plane_lims(lims, p));
-  const float* xp = x + (size_t)p * hw;
-  float* op = out + (size_t)p * hw;
-  for (int i = blockIdx.x * kStreamThreads + threadIdx.x; i < hw;
+  const float* xp = x + p * hw;
+  float* op = out + p * hw;
+  for (int64_t i = blockIdx.x * kStreamThreads + threadIdx.x; i < hw;
        i += kStreamBlocks * kStreamThreads)
     op[i] = equalised(__ldg(xp + i), q, cdf);
 }
 
 int launch_stream(const float* x, float* out, int* lims, int* hist,
-                  int planes, int hw, cudaStream_t stream) {
+                  int planes, int64_t hw, cudaStream_t stream) {
   init_kernel<<<(planes * kBins + kStreamThreads - 1) / kStreamThreads,
                 kStreamThreads, 0, stream>>>(lims, hist, planes);
   cudaError_t err = cudaGetLastError();
@@ -464,20 +469,20 @@ extern "C" {
 // x [P, HW] f32 -> out [P, HW] f32 in [0, 1] (NaN on a plane holding a
 // NaN).  Cluster route: one cluster of `cluster` blocks of `threads` (512
 // or 1024) threads a plane, lims and hist unused.  Stream route: four
-// launches with scratch lims [P, 3] int32 and hist [P, 256] int32.
-// Returns 0, a CUDA error code, or -1 when the cluster cannot be
-// scheduled.
+// launches with scratch lims [P, 3] int32 and hist [P, 256] int32, planes
+// of up to 2^31 - 1 values (a bin's count is an int32).  Returns 0, a CUDA
+// error code, or -1 when the cluster cannot be scheduled.
 int cy_equalize_hist(const float* x, float* out, int* lims, int* hist,
-                     int planes, int hw, int cluster, int threads,
+                     int planes, int64_t hw, int cluster, int threads,
                      int stream_route, cudaStream_t stream) {
   if (planes == 0 || hw == 0) return (int)cudaSuccess;
-  if (planes > 65535) return (int)cudaErrorInvalidValue;
+  if (planes > 65535 || hw > INT32_MAX) return (int)cudaErrorInvalidValue;
   if (stream_route) return launch_stream(x, out, lims, hist, planes, hw, stream);
   if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
   if (threads == 512)
-    return launch_cluster<512>(x, out, planes, hw, cluster, stream);
+    return launch_cluster<512>(x, out, planes, (int)hw, cluster, stream);
   if (threads == 1024)
-    return launch_cluster<1024>(x, out, planes, hw, cluster, stream);
+    return launch_cluster<1024>(x, out, planes, (int)hw, cluster, stream);
   return (int)cudaErrorInvalidValue;
 }
 

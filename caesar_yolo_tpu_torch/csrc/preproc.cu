@@ -377,14 +377,17 @@ __global__ void zlims_init_kernel(float* __restrict__ zlims, int planes) {
   }
 }
 
-// Calls f(v) for the values of xp[0, hw) this block's thread owns on the
-// stream route: float4s where the plane is 16-byte aligned, else floats.
+// Calls f(i, v) for the values of xp[0, hw) this block's thread owns on
+// the stream route: float4s where the plane is 16-byte aligned, else
+// floats.  In-plane indices are 64-bit: a plane may hold up to 2^31 - 1
+// values, and the loop steps up to 4 * stride past its end.
 template <bool kVec, typename F>
-__device__ __forceinline__ void stream_sweep(const float* xp, int hw, F&& f) {
-  const int t = blockIdx.x * kStreamThreads + threadIdx.x;
-  constexpr int stride = kStreamBlocks * kStreamThreads;
+__device__ __forceinline__ void stream_sweep(const float* xp, int64_t hw,
+                                             F&& f) {
+  const int64_t t = blockIdx.x * kStreamThreads + threadIdx.x;
+  constexpr int64_t stride = kStreamBlocks * kStreamThreads;
   if (kVec) {
-    for (int i = 4 * t; i < hw; i += 4 * stride) {
+    for (int64_t i = 4 * t; i < hw; i += 4 * stride) {
       const float4 v = __ldg(reinterpret_cast<const float4*>(xp + i));
       f(i, v.x);
       f(i + 1, v.y);
@@ -392,18 +395,18 @@ __device__ __forceinline__ void stream_sweep(const float* xp, int hw, F&& f) {
       f(i + 3, v.w);
     }
   } else {
-    for (int i = t; i < hw; i += stride) f(i, __ldg(xp + i));
+    for (int64_t i = t; i < hw; i += stride) f(i, __ldg(xp + i));
   }
 }
 
 template <bool kVec>
 __global__ void __launch_bounds__(kStreamThreads)
 reduce_kernel(const float* __restrict__ x, const float* __restrict__ vlims,
-              int* __restrict__ zlims, int hw) {
+              int* __restrict__ zlims, int64_t hw) {
   const int p = blockIdx.y;
   const Stretch st = make_stretch(vlims[2 * p], vlims[2 * p + 1]);
   float lo = INFINITY, hi = -INFINITY;
-  stream_sweep<kVec>(x + (size_t)p * hw, hw, [&](int, float v) {
+  stream_sweep<kVec>(x + p * hw, hw, [&](int64_t, float v) {
     take(zscale_apply(v, st), lo, hi);
   });
   for (int o = 16; o > 0; o >>= 1) {
@@ -432,21 +435,21 @@ reduce_kernel(const float* __restrict__ x, const float* __restrict__ vlims,
 template <bool kVec>
 __global__ void __launch_bounds__(kStreamThreads)
 apply_kernel(const float* __restrict__ x, const float* __restrict__ vlims,
-             const float* __restrict__ zlims, float* __restrict__ out, int hw,
-             float norm_min, float norm_max) {
+             const float* __restrict__ zlims, float* __restrict__ out,
+             int64_t hw, float norm_min, float norm_max) {
   const int p = blockIdx.y;
   const Stretch st = make_stretch(vlims[2 * p], vlims[2 * p + 1]);
   const Norm nm = make_norm(zlims[2 * p], zlims[2 * p + 1], norm_min,
                             norm_max);
-  float* op = out + (size_t)p * hw;
-  stream_sweep<kVec>(x + (size_t)p * hw, hw, [&](int i, float v) {
+  float* op = out + p * hw;
+  stream_sweep<kVec>(x + p * hw, hw, [&](int64_t i, float v) {
     op[i] = normalised(zscale_apply(v, st), nm);
   });
 }
 
 template <bool kVec>
 int launch_stream(const float* x, const float* vlims, float* zlims,
-                  float* out, int planes, int hw, float norm_min,
+                  float* out, int planes, int64_t hw, float norm_min,
                   float norm_max, cudaStream_t stream) {
   zlims_init_kernel<<<(planes + kStreamThreads - 1) / kStreamThreads,
                       kStreamThreads, 0, stream>>>(zlims, planes);
@@ -471,10 +474,10 @@ extern "C" {
 // where no pixel is valid); out [P, HW] f32.  Cluster route: persistent
 // clusters of `cluster` blocks, each holding its part of a plane in shared
 // memory, copied in `segments` (1 to 8) bulk copies.
-// Stream route: three launches.  Returns 0, a CUDA error code, or -1 when
-// the cluster cannot be scheduled.
+// Stream route: three launches, planes of up to 2^31 - 1 values.  Returns
+// 0, a CUDA error code, or -1 when the cluster cannot be scheduled.
 int cy_zscale_minmax(const float* x, const float* vlims, float* zlims,
-                     float* out, int planes, int hw, float norm_min,
+                     float* out, int planes, int64_t hw, float norm_min,
                      float norm_max, int cluster, int segments,
                      int stream_route, cudaStream_t stream) {
   if (planes == 0 || hw == 0) return (int)cudaSuccess;
@@ -488,10 +491,10 @@ int cy_zscale_minmax(const float* x, const float* vlims, float* zlims,
                                       norm_min, norm_max, stream);
   }
   if (cluster < 1 || cluster > kMaxCluster || segments < 1 ||
-      segments > kMaxSegments)
+      segments > kMaxSegments || hw > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  return launch_cluster(x, vlims, zlims, out, planes, hw, cluster, segments,
-                        norm_min, norm_max, stream);
+  return launch_cluster(x, vlims, zlims, out, planes, (int)hw, cluster,
+                        segments, norm_min, norm_max, stream);
 }
 
 }  // extern "C"

@@ -568,7 +568,7 @@ __device__ void tree_pass(Smem& sm, cg::cluster_group& cl, int& parity,
 
 template <bool kStream, int kThreads>
 __device__ void pin_pass(Smem& sm, cg::cluster_group& cl, int& parity,
-                         const Part& part, int hw) {
+                         const Part& part, int64_t hw) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   State& st = sm.st;
   const float clo_v = st.lo_acc, cup_v = st.up_acc;
@@ -614,7 +614,7 @@ __device__ void pin_pass(Smem& sm, cg::cluster_group& cl, int& parity,
     for (int b = 0; b < 2; ++b) {
       const int t = s.shared ? 0 : b;
       const float m1 = r.f[2 * t], m2 = r.f[2 * t + 1];
-      const int c1 = isinf(m1) ? hw : s.clo[b] + r.i[t];
+      const int64_t c1 = isinf(m1) ? hw : s.clo[b] + r.i[t];
       rv[b] = c1 >= s.k[b] ? m1 : (isfinite(m2) ? m2 : s.hi[b]);
     }
     s.med = __fmul_rn(0.5f, __fadd_rn(rv[0], s.k[1] == s.k[0] ? rv[0] : rv[1]));
@@ -628,7 +628,7 @@ __device__ void pin_pass(Smem& sm, cg::cluster_group& cl, int& parity,
 // would repeat the previous one bit for bit, so the clip loop is done.
 template <bool kStream, int kThreads>
 __device__ bool stats_of(Smem& sm, cg::cluster_group& cl, int& parity,
-                         const Part& part, int hw, bool raw) {
+                         const Part& part, int64_t hw, bool raw) {
   tree_pass<kStream, kThreads, true>(
       sm, cl, parity, part, raw, [raw](State& s, Slot& r) {
         s.converged = !raw && r.i[0] == s.prev_n;
@@ -667,7 +667,7 @@ __device__ bool stats_of(Smem& sm, cg::cluster_group& cl, int& parity,
 // 64 registers a thread, so that 1024 / kThreads blocks share an SM
 template <bool kStream, int kThreads>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
-clip_stats_cluster_kernel(const float* __restrict__ x, int hw, int chunk,
+clip_stats_cluster_kernel(const float* __restrict__ x, int64_t hw, int chunk,
                           float sigma_low, float sigma_up, int maxiters,
                           float* __restrict__ stats, int* __restrict__ counts) {
   extern __shared__ __align__(16) float values[];
@@ -676,10 +676,12 @@ clip_stats_cluster_kernel(const float* __restrict__ x, int hw, int chunk,
   const int rank = (int)cl.block_rank();
   const int p = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t start = (size_t)rank * chunk;
-  const float* src = x + (size_t)p * hw + start;
+  // a plane may hold up to 2^31 - 1 values: in-plane offsets are 64-bit,
+  // a block's part (at most ceil(hw / 16) values) fits an int
+  const int64_t start = (int64_t)rank * chunk;
+  const float* src = x + p * hw + start;
   Part part;
-  part.n = start >= (size_t)hw ? 0 : min(chunk, hw - (int)start);
+  part.n = start >= hw ? 0 : (int)(hw - start < chunk ? hw - start : chunk);
   part.g = src;
   part.s = values;
   part.vec4 = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
@@ -786,11 +788,11 @@ clip_stats_cluster_kernel(const float* __restrict__ x, int hw, int chunk,
 }
 
 template <bool kStream, int kThreads>
-int launch(const float* x, float* stats, int* counts, int planes, int hw,
-           float sigma_low, float sigma_up, int maxiters, int cluster,
-           cudaStream_t stream) {
+int launch(const float* x, float* stats, int* counts, int planes,
+           int64_t hw, float sigma_low, float sigma_up, int maxiters,
+           int cluster, cudaStream_t stream) {
   auto kernel = clip_stats_cluster_kernel<kStream, kThreads>;
-  const int chunk = ((hw + cluster - 1) / cluster + 3) & ~3;
+  const int chunk = (int)(((hw + cluster - 1) / cluster + 3) & ~3LL);
   const size_t smem = kStream ? 0 : (size_t)chunk * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -831,14 +833,16 @@ extern "C" {
 // (n_valid, final kept count).  One cluster of `cluster` blocks of
 // `threads` (512 or 1024) threads a plane; stream_route reads the planes
 // from device memory on every pass instead of holding them in shared
-// memory.  Returns 0, a CUDA error code, or -1 when the cluster cannot be
+// memory.  Planes hold up to 2^31 - 1 values (the counts are int32).
+// Returns 0, a CUDA error code, or -1 when the cluster cannot be
 // scheduled.
 int cy_sigma_clip_stats(const float* x, float* stats, int* counts, int planes,
-                        int hw, float sigma_low, float sigma_up, int maxiters,
-                        int cluster, int threads, int stream_route,
-                        cudaStream_t stream) {
+                        int64_t hw, float sigma_low, float sigma_up,
+                        int maxiters, int cluster, int threads,
+                        int stream_route, cudaStream_t stream) {
   if (planes == 0) return (int)cudaSuccess;
-  if (cluster < 1 || cluster > 16 || planes > 65535 || hw < 1)
+  if (cluster < 1 || cluster > 16 || planes > 65535 || hw < 1 ||
+      hw > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (threads == 1024)
     return stream_route ? launch<true, 1024>(x, stats, counts, planes, hw,

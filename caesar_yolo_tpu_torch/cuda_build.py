@@ -52,10 +52,19 @@ HEADERS = {
     "shift": ["async_copy.cuh"],
 }
 
-# The most values a plane may hold on the kernels that index a plane with
-# 32-bit ints (K3, K5, K6): their stream routes' loops step up to 32768
-# past a plane's last index, so 2^30 keeps every index below 2^31.
-MAX_PLANE = 2 ** 30
+# The most values a plane may hold on K3, K5 and K6.  Their stream routes
+# index a plane with 64-bit ints, but K5's kept counts and K6's bin counts
+# are int32, as the JAX functions' own counts are (x64 off), so a plane
+# ends where int32 counting does: 2^31 - 1 values.
+MAX_PLANE = 2 ** 31 - 1
+
+
+def plane_limit_error(kernel: str, hw: int) -> ValueError:
+    """The refusal of a plane of hw > MAX_PLANE values by `kernel`."""
+    return ValueError(
+        f"{kernel} does not take planes of {hw} values: it counts a plane's "
+        f"values in int32, as the JAX function does, so a plane holds at "
+        f"most 2^31 - 1 values")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -3,7 +3,7 @@
 Counterpart of caesar_yolo_tpu/detect/analyzer.py: gray -> 3 channels,
 preprocessing, the degenerate-channel guard, prediction, the graph-based
 overlap merge, and the JSON catalog and DS9 region outputs.  FITS image
-and plot outputs are not ported yet (ROADMAP.md, Queue 1 item 5).
+and plot outputs are not ported yet (ROADMAP.md, Queue 1: the plots).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ class Analyzer:
         if self.outputs.save_img or self.outputs.draw:
             raise NotImplementedError(
                 "FITS image and plot outputs are not ported yet "
-                "(ROADMAP.md, Queue 1 item 5)")
+                "(ROADMAP.md, Queue 1: the plots)")
         self.class_names = class_names
         self.obj_name_tag = obj_name_tag
         self.detections = Detections()

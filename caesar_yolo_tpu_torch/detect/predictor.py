@@ -15,6 +15,7 @@ import torch
 
 from caesar_yolo_tpu_torch import logger
 from caesar_yolo_tpu_torch.detect.letterbox import (
+    PAD_VALUE,
     letterbox_nchw,
     unletterbox_boxes,
 )
@@ -41,12 +42,23 @@ def prepare_model(model: YOLO, *, fuse: bool, dtype: torch.dtype,
 
 def detect_images(model: YOLO, images: torch.Tensor, *, img_size: int,
                   score_thr: float, iou_thr: float, max_det: int,
-                  pre_nms: int):
+                  pre_nms: int, input_scale: float = 1.0,
+                  channel_flip: bool = False):
     """images [B, H, W, C] f32 on the model's device -> (boxes[B, max_det,
-    4] xyxy in image coords, scores, class_ids, valid, n_dropped[B])."""
+    4] xyxy in image coords, scores, class_ids, valid, n_dropped[B]).
+    input_scale and channel_flip are the ultralytics-parity options of
+    caesar_yolo_tpu/detect/predictor.py: the letterbox pads with
+    PAD_VALUE / input_scale, then the channels are reversed and the pixels
+    scaled, so that ultralytics' 114 pad before its /255 is matched."""
     h, w = images.shape[1:3]
     stem_w = next(model.parameters())          # first conv, compute dtype
-    x = letterbox_nchw(images.permute(0, 3, 1, 2), img_size).to(stem_w.dtype)
+    x = letterbox_nchw(images.permute(0, 3, 1, 2), img_size,
+                       pad_value=PAD_VALUE / input_scale)
+    if channel_flip:
+        x = x.flip(1)
+    if input_scale != 1.0:
+        x = x * input_scale
+    x = x.to(stem_w.dtype)
     if x.is_cuda:
         x = x.contiguous(memory_format=torch.channels_last)
     boxes, scores = decode_dfl(model(x), img_size)
@@ -63,14 +75,18 @@ class Predictor:
       (boxes[B, MAXDET, 4] xyxy in image coords, scores[B, MAXDET],
        class_ids[B, MAXDET], valid[B, MAXDET], n_dropped[B]).
     `device` defaults to CUDA (and raises without it); pass "cpu" to run
-    on the CPU.
+    on the CPU.  `input_scale` multiplies the letterboxed pixels and
+    `channel_flip` reverses their channels (BGR -> RGB), for images in
+    ultralytics' 0-255 convention (1/255 and True reproduce its
+    preprocessing); the defaults leave the path as it is.
     """
 
     def __init__(self, model: YOLO, *, img_size: int = 640,
                  score_thr: float = 0.7, iou_thr: float = 0.5,
                  max_det: int = 300, pre_nms: int = DEFAULT_PRE_NMS,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 fuse: bool = True, device=None):
+                 fuse: bool = True, device=None, input_scale: float = 1.0,
+                 channel_flip: bool = False):
         self.device = resolve_device(device)
         self.in_channels = model.in_channels
         self.img_size = img_size
@@ -78,6 +94,8 @@ class Predictor:
         self.iou_thr = iou_thr
         self.max_det = max_det
         self.pre_nms = pre_nms
+        self.input_scale = input_scale
+        self.channel_flip = channel_flip
         self.model = prepare_model(model, fuse=fuse, dtype=compute_dtype,
                                    device=self.device)
 
@@ -88,7 +106,9 @@ class Predictor:
             images = images[None]
         return detect_images(self.model, images, img_size=self.img_size,
                              score_thr=self.score_thr, iou_thr=self.iou_thr,
-                             max_det=self.max_det, pre_nms=self.pre_nms)
+                             max_det=self.max_det, pre_nms=self.pre_nms,
+                             input_scale=self.input_scale,
+                             channel_flip=self.channel_flip)
 
     def predict_image(self, image):
         """Single [H, W, C] image -> host numpy (boxes[N, 4], scores[N],

@@ -27,7 +27,7 @@ from caesar_yolo_tpu_torch.evaluation.metrics import (
     read_yolo_labels,
 )
 from caesar_yolo_tpu_torch.outputs.catalog import CLASS_NAMES
-from caesar_yolo_tpu_torch.utils.fits import read_fits
+from caesar_yolo_tpu_torch.utils.fits import read_fits, read_image
 
 
 def read_filelist(path: str) -> list[str]:
@@ -36,22 +36,25 @@ def read_filelist(path: str) -> list[str]:
 
 
 def load_eval_image(img_path: str):
-    """[H, W] float32 in [0, 1], or None on a read failure.
+    """[H, W] or [H, W, C] float32 in [0, 1], or None on a read failure.
 
     FITS images are min-maxed per image, the convention train/dataset.py's
     load_sample applies, so validation during training and cli.evaluate
-    score the distribution the model was trained on.  PNG/JPEG input needs
-    read_image, which the port does not have yet."""
-    if not img_path.endswith(".fits"):
-        raise NotImplementedError(
-            f"{img_path}: PNG/JPEG input needs read_image, not ported yet "
-            f"(ROADMAP.md, Queue 1 item 5)")
-    res = read_fits(img_path)
+    score the distribution the model was trained on.  PNG/JPEG come from
+    read_image, divided by 255 where they are not already in [0, 1], as
+    the reference package does."""
+    if img_path.endswith(".fits"):
+        res = read_fits(img_path)
+        if res is None:
+            return None
+        img = np.asarray(res[0], np.float32)
+        lo, hi = float(img.min()), float(img.max())
+        return (img - lo) / (hi - lo) if hi > lo else np.zeros_like(img)
+    res = read_image(img_path)
     if res is None:
         return None
     img = np.asarray(res[0], np.float32)
-    lo, hi = float(img.min()), float(img.max())
-    return (img - lo) / (hi - lo) if hi > lo else np.zeros_like(img)
+    return img / 255.0 if img.max() > 1.5 else img
 
 
 def detect_files(detector: BatchedDetector, paths):

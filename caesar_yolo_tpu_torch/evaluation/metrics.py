@@ -4,7 +4,7 @@ and COCO-style mAP.
 A numpy copy of caesar_yolo_tpu/evaluation/metrics.py (the port may not
 import the JAX package), without its figure writers, which need
 matplotlib, a package the port does not depend on (cli.evaluate refuses
---save_plot; ROADMAP.md, Queue 1 item 5).  Like the reference package it
+--save_plot until the plots are ported; ROADMAP.md, Queue 1).  Like the reference package it
 re-implements the reference evaluation macro's exact counting rules
 (reference macros/make_prediction.py:328-441 completeness, :446-547
 reliability; IoU >= 0.6 match criterion at :559,:633; F1 = 2CR/(C+R),

@@ -1,18 +1,51 @@
-"""Weights in the reference's npz format.
+"""Weights: ultralytics `.pt` checkpoints and the reference's npz format.
 
-The reference saves its params pytree flattened to '/'-joined keys
-(caesar_yolo_tpu/models/convert.py:save_params).  The port's module tree
-carries the same names, so carrying weights across is a mechanical walk:
-'/' becomes '.', and conv kernels turn from HWIO to OIHW.
+Counterpart of caesar_yolo_tpu/models/convert.py.
+
+The reference's users hold ultralytics `.pt` checkpoints (reference
+scripts/run.py:347 loads them into ultralytics; README.md:190-207 lists
+the published ones).  `load_torch_state_dict` reads one without the
+ultralytics package: the pickle names ultralytics classes, and a "ghost
+module" unpickler makes each class that is missing at load time a bare
+nn.Module subclass, enough to walk `state_dict()`.  `convert_state_dict`
+maps its keys onto the port's module tree, which keeps torch's OIHW
+layout, so no transpose is needed.  The mapping relies on these layout
+facts of the published architectures:
+  - `model.model` is a flat Sequential whose indices are the yaml rows,
+    the order in which models/yolo.py builds its layers;
+  - the Detect head's cv2 is the box branch (Conv, Conv, Conv2d) and cv3
+    the class branch (v8: Conv, Conv, Conv2d; v11: (DWConv, Conv) twice,
+    then Conv2d); dfl.conv.weight is the fixed arange kernel, dropped
+    (decode takes the expectation itself).
+
+The reference's npz: its params pytree flattened to '/'-joined keys plus
+a `__meta__` JSON entry (caesar_yolo_tpu/models/convert.py:save_params).
+The port's module tree carries the same names, so carrying weights across
+is a mechanical walk: '/' becomes '.', and conv kernels turn from HWIO to
+OIHW.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import pickle
+import re
 
 import numpy as np
 import torch
 
+from caesar_yolo_tpu_torch import logger
+from caesar_yolo_tpu_torch.models.layers import (
+    C2PSA,
+    C2f,
+    C3,
+    C3k2,
+    Concat,
+    Conv,
+    SPPF,
+    Upsample,
+)
 from caesar_yolo_tpu_torch.models.yolo import YOLO, build_model
 
 
@@ -121,3 +154,205 @@ def load_model(path: str) -> tuple[YOLO, dict]:
     model = build_model(meta["model"],
                         num_classes=int(meta.get("num_classes", 5)))
     return load_jax_params(model, params), meta
+
+
+# ---------------------------------------------------------------------------
+# Ultralytics .pt checkpoints, without ultralytics
+# ---------------------------------------------------------------------------
+
+class _GhostUnpickler(pickle.Unpickler):
+    """Resolves each class the pickle names but this process cannot import
+    to a fabricated bare nn.Module subclass of that name."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            return type(name, (torch.nn.Module,), {"__module__": module})
+
+
+class _GhostPickleModule:
+    """The `pickle_module` torch.load takes: its Unpickler is the ghost
+    one."""
+    Unpickler = _GhostUnpickler
+
+    @staticmethod
+    def load(f, **kw):
+        return _GhostUnpickler(f).load()
+
+
+def load_torch_state_dict(pt_path: str) -> dict[str, np.ndarray]:
+    """{key: float32 array} of an ultralytics .pt checkpoint: its `ema`
+    model where present, else its `model`, else the file's own plain
+    state_dict."""
+    ckpt = torch.load(pt_path, map_location="cpu", weights_only=False,
+                      pickle_module=_GhostPickleModule)
+    if isinstance(ckpt, dict):
+        model = ckpt.get("ema") or ckpt.get("model") or ckpt
+    else:
+        model = ckpt
+    if hasattr(model, "state_dict"):
+        sd = model.state_dict()
+    elif isinstance(model, dict):
+        sd = model  # already a flat state_dict
+    else:
+        raise ValueError(f"cannot find a model/state_dict in {pt_path}")
+    return {k: v.detach().to(torch.float32).cpu().numpy()
+            for k, v in sd.items() if hasattr(v, "detach")}
+
+
+class _Mapper:
+    """Takes ultralytics keys into the port's nested (OIHW) tree, keeping
+    the keys it used."""
+
+    def __init__(self, sd: dict[str, np.ndarray]):
+        self.sd = sd
+        self.used: set[str] = set()
+
+    def take(self, key: str) -> np.ndarray:
+        if key not in self.sd:
+            raise KeyError(f"missing checkpoint key: {key}")
+        self.used.add(key)
+        return self.sd[key]
+
+    def conv_block(self, p: str) -> dict:
+        return {"w": self.take(f"{p}.conv.weight"),
+                "bn": {"gamma": self.take(f"{p}.bn.weight"),
+                       "beta": self.take(f"{p}.bn.bias"),
+                       "mean": self.take(f"{p}.bn.running_mean"),
+                       "var": self.take(f"{p}.bn.running_var")}}
+
+    def conv_raw(self, p: str) -> dict:
+        return {"w": self.take(f"{p}.weight"), "b": self.take(f"{p}.bias")}
+
+    def bottleneck(self, p: str) -> dict:
+        return {"cv1": self.conv_block(f"{p}.cv1"),
+                "cv2": self.conv_block(f"{p}.cv2")}
+
+    def c2f(self, module: C2f, p: str) -> dict:
+        return {"cv1": self.conv_block(f"{p}.cv1"),
+                "cv2": self.conv_block(f"{p}.cv2"),
+                "m": [self.bottleneck(f"{p}.m.{j}")
+                      for j in range(len(module.m))]}
+
+    def c3(self, module: C3, p: str) -> dict:
+        return {"cv1": self.conv_block(f"{p}.cv1"),
+                "cv2": self.conv_block(f"{p}.cv2"),
+                "cv3": self.conv_block(f"{p}.cv3"),
+                "m": [self.bottleneck(f"{p}.m.{j}")
+                      for j in range(len(module.m))]}
+
+    def c3k2(self, module: C3k2, p: str) -> dict:
+        return {"cv1": self.conv_block(f"{p}.cv1"),
+                "cv2": self.conv_block(f"{p}.cv2"),
+                "m": [self.c3(sub, f"{p}.m.{j}") if isinstance(sub, C3)
+                      else self.bottleneck(f"{p}.m.{j}")
+                      for j, sub in enumerate(module.m)]}
+
+    def sppf(self, p: str) -> dict:
+        return {"cv1": self.conv_block(f"{p}.cv1"),
+                "cv2": self.conv_block(f"{p}.cv2")}
+
+    def psablock(self, p: str) -> dict:
+        return {"attn": {"qkv": self.conv_block(f"{p}.attn.qkv"),
+                         "proj": self.conv_block(f"{p}.attn.proj"),
+                         "pe": self.conv_block(f"{p}.attn.pe")},
+                "ffn1": self.conv_block(f"{p}.ffn.0"),
+                "ffn2": self.conv_block(f"{p}.ffn.1")}
+
+    def c2psa(self, module: C2PSA, p: str) -> dict:
+        return {"cv1": self.conv_block(f"{p}.cv1"),
+                "cv2": self.conv_block(f"{p}.cv2"),
+                "m": [self.psablock(f"{p}.m.{j}")
+                      for j in range(len(module.m))]}
+
+    def detect_head(self, head, p: str) -> dict:
+        """v8's class branch is cv3.L.{0,1,2}; v11's (DWConv, Conv) pairs
+        are cv3.L.0.{0,1} and cv3.L.1.{0,1}, then cv3.L.2."""
+        out = {"box": [], "cls": []}
+        for lvl, cls_branch in enumerate(head.cls):
+            out["box"].append([self.conv_block(f"{p}.cv2.{lvl}.0"),
+                               self.conv_block(f"{p}.cv2.{lvl}.1"),
+                               self.conv_raw(f"{p}.cv2.{lvl}.2")])
+            if len(cls_branch) == 3:
+                cls = [self.conv_block(f"{p}.cv3.{lvl}.0"),
+                       self.conv_block(f"{p}.cv3.{lvl}.1")]
+            else:
+                cls = [self.conv_block(f"{p}.cv3.{lvl}.{a}.{b}")
+                       for a in (0, 1) for b in (0, 1)]
+            out["cls"].append(cls + [self.conv_raw(f"{p}.cv3.{lvl}.2")])
+        return out
+
+
+def convert_state_dict(sd: dict[str, np.ndarray],
+                       model: YOLO) -> dict[str, torch.Tensor]:
+    """A flat ultralytics state_dict -> `model`'s state_dict (f32, OIHW).
+    Raises KeyError on a missing key; logs a warning on unused keys
+    (num_batches_tracked and the DFL kernel are expected to be left)."""
+    m = _Mapper(sd)
+    tree = {}
+    for i, (name, _) in enumerate(model.graph):
+        mod = getattr(model, name)
+        p = f"model.{i}"
+        if isinstance(mod, Conv):
+            tree[name] = m.conv_block(p)
+        elif isinstance(mod, C3k2):
+            tree[name] = m.c3k2(mod, p)
+        elif isinstance(mod, C2f):
+            tree[name] = m.c2f(mod, p)
+        elif isinstance(mod, SPPF):
+            tree[name] = m.sppf(p)
+        elif isinstance(mod, C2PSA):
+            tree[name] = m.c2psa(mod, p)
+        elif not isinstance(mod, (Upsample, Concat)):
+            raise TypeError(f"unmapped module type {type(mod)} at layer {i}")
+    tree["head"] = m.detect_head(model.head, f"model.{len(model.graph)}")
+    unused = [k for k in sd if k not in m.used
+              and not k.endswith("num_batches_tracked") and ".dfl." not in k]
+    if unused:
+        logger.warning("Converter: %d unused checkpoint keys (first: %s)",
+                       len(unused), unused[:5])
+    return {key.replace("/", "."): torch.from_numpy(
+                np.array(value, dtype=np.float32))
+            for key, value in _flatten(tree)}
+
+
+def infer_num_classes(sd: dict, default: int = 5) -> int:
+    """The class count: the length of the first class branch's final conv
+    bias (the one head shape that holds it), else `default`."""
+    nc_keys = [k for k in sd if ".cv3." in k and k.endswith("2.bias")]
+    return int(sd[sorted(nc_keys)[0]].shape[0]) if nc_keys else default
+
+
+def _infer_model_name(stem: str) -> str:
+    """The stem itself if it is an architecture name, else the first
+    `yolov8<s>` / `yolo11<s>` token inside it, else the stem unchanged
+    (build_model then raises).  A fullmatch, not a prefix test: 'yolo11best'
+    starts like a name but is not one, so the token search still applies
+    to it."""
+    if re.fullmatch(r"yolo(?:v8|v11|11)[nsmlx]?", stem):
+        return stem
+    found = re.search(r"yolo(?:v8|v11|11)[nsmlx]", stem)
+    return found.group(0) if found else stem
+
+
+def convert_checkpoint(pt_path: str, out_path: str | None = None,
+                       model_name: str | None = None,
+                       num_classes: int | None = None):
+    """An ultralytics .pt -> (the port's model with its weights, on the
+    CPU in f32; meta {"model", "num_classes"}), also saved in the
+    reference's npz format when `out_path` is given.  The architecture
+    defaults to the one named in the file's stem (`_infer_model_name`), the
+    class count to the head's (`infer_num_classes`)."""
+    name = model_name or _infer_model_name(
+        os.path.splitext(os.path.basename(pt_path))[0])
+    sd = load_torch_state_dict(pt_path)
+    if num_classes is None:
+        num_classes = infer_num_classes(sd)
+    model = build_model(name, num_classes=num_classes)
+    model.load_state_dict(convert_state_dict(sd, model), strict=True)
+    meta = {"model": name, "num_classes": num_classes}
+    if out_path:
+        written = save_params(model, out_path, meta=meta)
+        logger.info("Saved converted weights to %s", written)
+    return model, meta

@@ -62,11 +62,12 @@ def equalize_hist_batch(planes: torch.Tensor) -> torch.Tensor:
     if not planes.is_cuda:
         return equalize_hist(planes)
     if (planes.ndim != 3 or planes.dtype != torch.float32
-            or planes.shape[0] > 65535 or planes[0].numel() > cuda_build.MAX_PLANE):
+            or planes.shape[0] > 65535):
         raise ValueError(f"hist-eq kernel does not take planes "
                          f"{tuple(planes.shape)} {planes.dtype} (it reads up "
-                         f"to 65535 f32 planes [P, H, W] of at most 2^30 "
-                         f"values)")
+                         f"to 65535 f32 planes [P, H, W])")
+    if planes[0].numel() > cuda_build.MAX_PLANE:
+        raise cuda_build.plane_limit_error("hist-eq kernel", planes[0].numel())
     return launch(planes, *plan(planes[0].numel()))
 
 
@@ -103,8 +104,8 @@ def launch(planes, route, cluster, threads):
 def _entry():
     """The C entry point, its argument types set once."""
     fn = cuda_build.load("histeq").cy_equalize_hist
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

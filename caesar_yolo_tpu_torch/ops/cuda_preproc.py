@@ -43,7 +43,7 @@ MAX_BLOCK_VALUES = 53248
 SEGMENT_VALUES = 12800
 MAX_SEGMENTS = 8
 UNSCHEDULABLE = -1      # the C entry point's code for a refused cluster
-ENTRY_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+ENTRY_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64]
               + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
@@ -111,8 +111,7 @@ def zscale_minmax(planes: torch.Tensor, vlims: torch.Tensor,
                          f"{tuple(vlims.shape)} {vlims.dtype}")
     hw = planes.shape[1] * planes.shape[2]
     if hw > cuda_build.MAX_PLANE:
-        raise ValueError(f"zscale+minmax kernel does not take planes of "
-                         f"{hw} values")
+        raise cuda_build.plane_limit_error("zscale+minmax kernel", hw)
     return launch(planes, vlims, norm_min, norm_max, *plan(hw))
 
 

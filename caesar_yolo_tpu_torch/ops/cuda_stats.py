@@ -70,13 +70,15 @@ def clip_stats(values: torch.Tensor, sigma_low: float, sigma_up: float,
     if not values.is_cuda:
         return clip_stats_plain(values, mask, sigma_low, sigma_up, maxiters)
     if (mask is not None or values.ndim != 3
-            or values.dtype != torch.float32 or values.shape[0] > 65535
-            or values[0].numel() > cuda_build.MAX_PLANE):
+            or values.dtype != torch.float32 or values.shape[0] > 65535):
         raise ValueError(
             f"sigma-clip kernel does not take values {tuple(values.shape)} "
             f"{values.dtype}{' with an explicit mask' if mask is not None else ''}"
-            f" (it reads up to 65535 f32 planes [P, H, W] of at most 2^30 "
-            f"values and derives their mask)")
+            f" (it reads up to 65535 f32 planes [P, H, W] and derives their "
+            f"mask)")
+    if values[0].numel() > cuda_build.MAX_PLANE:
+        raise cuda_build.plane_limit_error("sigma-clip kernel",
+                                           values[0].numel())
     return launch(values, sigma_low, sigma_up, maxiters,
                   *plan(values[0].numel()))
 
@@ -109,7 +111,7 @@ def launch(values, sigma_low, sigma_up, maxiters, route, cluster, threads):
 def _entry():
     """The C entry point, its argument types set once."""
     fn = cuda_build.load("stats").cy_sigma_clip_stats
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64]
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int

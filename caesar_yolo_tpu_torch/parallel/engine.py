@@ -11,7 +11,7 @@ a full-width band of one, is shipped to the device once (`put_mosaic`),
 optionally preprocessed there as one plane (`preprocess_mosaic`, the
 global statistics context), and batches of windows are cut from it on
 the device by one gather (`process_mosaic_async`).  The device mesh is
-not ported yet (ROADMAP.md, Queue 1 item 4).
+not ported yet (ROADMAP.md, Queue 1: multi-GPU).
 """
 
 from __future__ import annotations

@@ -23,10 +23,13 @@ own, so a spool of either package resumes in the other.  The host then
 sorts the results by tile id, flags edge sources, stitches them across
 tiles (parallel/stitch.py) and writes the JSON catalog and DS9 regions.
 `profile_dir` records the tiled run with torch.profiler (a Chrome trace);
-`save_tile_img` writes each predicted tile's raw window as FITS.
+`save_tile_img` writes each predicted tile's raw window as FITS.  The
+serial path (`run`) also takes PNG and JPEG images (utils/fits.py:
+read_image), with the crop window honoured; tiled runs take FITS only, as
+the reference's do.
 
-Not ported yet (ROADMAP.md, Queue 1): plots, PNG/JPEG input and multi-GPU
-runs (the spool's rank suffix and stripe wait for the latter).
+Not ported yet (ROADMAP.md, Queue 1): plots and multi-GPU runs (the
+spool's rank suffix and stripe wait for the latter).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from caesar_yolo_tpu_torch.utils.fits import (
     beam_area_from_header,
     get_fits_header,
     read_fits_crop,
+    read_image,
     write_fits,
 )
 from caesar_yolo_tpu_torch.utils.tiling import (
@@ -70,8 +74,6 @@ from caesar_yolo_tpu_torch.utils.tiling import (
     make_tile_windows,
     neighbor_table,
 )
-
-ROADMAP = "ROADMAP.md, Queue 1"
 
 
 @dataclass(frozen=True)
@@ -163,47 +165,92 @@ class SFinder:
         self.nx = self.ny = -1
         self.xmin = self.ymin = 0
         self.last_tile_results: list[dict] = []
+        self._image_cache = None  # a PNG/JPEG decode, reused by run()
 
     def _crop(self) -> bool:
         cfg = self.config
         return (cfg.image_xmin >= 0 and cfg.image_xmax > 0
                 and cfg.image_ymin >= 0 and cfg.image_ymax > 0)
 
-    def _is_fits(self) -> bool:
-        ext = os.path.splitext(self.config.image_path)[1]
-        if ext != ".fits":
-            logger.error("Only FITS images are supported by the port (got "
-                         "%s; PNG/JPEG input waits, %s)", ext, ROADMAP)
-            return False
-        return True
-
     # -- image metadata ------------------------------------------------------
 
     def set_img_size_params(self) -> int:
-        """Image size / crop range / beam area from the FITS header
-        (reference inference.py:354-477)."""
+        """Image size / crop range / beam area: from the FITS header, or
+        from the decoded PNG/JPEG, whose decode `run` reuses (reference
+        inference.py:354-477)."""
         cfg = self.config
-        if not self._is_fits():
-            return -1
-        self.header = get_fits_header(cfg.image_path)
-        if self.header is None:
-            logger.error("Header read from image %s is None!", cfg.image_path)
-            return -1
+        fits = os.path.splitext(cfg.image_path)[1] == ".fits"
+        if fits:
+            self.header = get_fits_header(cfg.image_path)
+            if self.header is None:
+                logger.error("Header read from image %s is None!",
+                             cfg.image_path)
+                return -1
         if self._crop():
             self.xmin, self.ymin = cfg.image_xmin, cfg.image_ymin
             self.xmax, self.ymax = cfg.image_xmax, cfg.image_ymax
             self.nx = self.xmax - self.xmin + 1
             self.ny = self.ymax - self.ymin + 1
         else:
-            if "NAXIS1" not in self.header or "NAXIS2" not in self.header:
-                logger.error("NAXIS1/NAXIS2 missing in header!")
-                return -1
-            self.nx = int(self.header["NAXIS1"])
-            self.ny = int(self.header["NAXIS2"])
+            if fits:
+                if "NAXIS1" not in self.header or "NAXIS2" not in self.header:
+                    logger.error("NAXIS1/NAXIS2 missing in header!")
+                    return -1
+                self.nx = int(self.header["NAXIS1"])
+                self.ny = int(self.header["NAXIS2"])
+            else:
+                res = read_image(cfg.image_path)
+                if res is None:
+                    return -1
+                self._image_cache = res
+                self.ny, self.nx = res[0].shape[:2]
             self.xmin, self.ymin = 0, 0
             self.xmax, self.ymax = self.nx - 1, self.ny - 1
-        self.beam_info = beam_area_from_header(self.header)
+        if self.header is not None:
+            self.beam_info = beam_area_from_header(self.header)
         return 0
+
+    def _read_serial_image(self):
+        """The serial path's pixels: the FITS window, or the PNG/JPEG with
+        the crop window cut from it -> array, or None (logged)."""
+        cfg = self.config
+        ext = os.path.splitext(cfg.image_path)[1]
+        crop = self._crop()
+        if ext == ".fits":
+            # config crop bounds are INCLUSIVE; read_fits_crop's window is
+            # exclusive, so serial and tiled runs cover the same pixels
+            res = read_fits_crop(
+                cfg.image_path, cfg.image_xmin,
+                cfg.image_xmax + 1 if crop else cfg.image_xmax,
+                cfg.image_ymin,
+                cfg.image_ymax + 1 if crop else cfg.image_ymax,
+                strip_deg_axis=True)
+            if res is None:
+                logger.error("Failed to read image %s!", cfg.image_path)
+                return None
+            return res[0]
+        if ext not in (".png", ".jpg", ".jpeg"):
+            logger.error("Unsupported image format (%s) given!", ext)
+            return None
+        res = (self._image_cache if self._image_cache is not None
+               else read_image(cfg.image_path))
+        if res is None:
+            return None
+        data = res[0]
+        if crop:
+            # the reference ignores the crop flags for PNG/JPEG
+            # (inference.py:511-519), but the Analyzer offsets every
+            # catalog position by the crop origin, so the window is cut
+            # too, as the reference package does
+            h, w = data.shape[:2]
+            if cfg.image_xmax >= w or cfg.image_ymax >= h:
+                logger.error("Crop window [%d:%d, %d:%d] exceeds image size "
+                             "%dx%d!", cfg.image_xmin, cfg.image_xmax,
+                             cfg.image_ymin, cfg.image_ymax, w, h)
+                return None
+            data = data[cfg.image_ymin:cfg.image_ymax + 1,
+                        cfg.image_xmin:cfg.image_xmax + 1]
+        return data
 
     # -- serial path ---------------------------------------------------------
 
@@ -214,18 +261,9 @@ class SFinder:
         if self.set_img_size_params() < 0:
             return -1
         cfg = self.config
-        # config crop bounds are INCLUSIVE; read_fits_crop's window is
-        # exclusive, so serial and tiled runs cover the same pixels
-        crop = self._crop()
-        res = read_fits_crop(
-            cfg.image_path, cfg.image_xmin,
-            cfg.image_xmax + 1 if crop else cfg.image_xmax, cfg.image_ymin,
-            cfg.image_ymax + 1 if crop else cfg.image_ymax,
-            strip_deg_axis=True)
-        if res is None:
-            logger.error("Failed to read image %s!", cfg.image_path)
+        image_data = self._read_serial_image()
+        if image_data is None:
             return -1
-        image_data = res[0]
 
         if self._predictor is None:
             self._predictor = Predictor(
@@ -280,6 +318,9 @@ class SFinder:
     def _run_tiled_impl(self) -> int:
         t0 = time.time()
         cfg = self.config
+        if os.path.splitext(cfg.image_path)[1] != ".fits":
+            logger.error("Only FITS images are supported in tiled runs!")
+            return -1
         if self.set_img_size_params() < 0:
             return -1
         grid = generate_tiles(self.xmin, self.xmax, self.ymin, self.ymax,

@@ -7,9 +7,9 @@ image with normalised `class cx cy w h` rows), fixed-shape batches (gt
 boxes padded to max_gt with a mask), a shuffle that is a pure function of
 (seed, epoch), and threaded prefetch one batch ahead.
 
-FITS images go through the port's reader (utils/fits.py).  PNG/JPEG need
-`read_image`, which the port does not have yet: they raise
-NotImplementedError (ROADMAP.md, Queue 1 item 5).
+FITS images go through the port's reader (utils/fits.py), min-maxed per
+image; PNG/JPEG through its `read_image` (JPEG needs Pillow), divided by
+255 where they are not already in [0, 1], as the reference package does.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import numpy as np
 
 from caesar_yolo_tpu_torch import logger
 from caesar_yolo_tpu_torch.detect.letterbox import letterbox_geometry
-from caesar_yolo_tpu_torch.utils.fits import read_fits
+from caesar_yolo_tpu_torch.utils.fits import read_fits, read_image
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".fits")
 
@@ -165,17 +165,22 @@ def load_sample(img_path: str, img_size: int, max_gt: int,
     count, boxes still in the img_size letterbox frame; the consumer
     letterboxes on the device (detect/letterbox.letterbox_batch)."""
     ext = os.path.splitext(img_path)[1].lower()
-    if ext != ".fits":
-        raise NotImplementedError(
-            f"{img_path}: PNG/JPEG input needs read_image, not ported yet "
-            f"(ROADMAP.md, Queue 1 item 5)")
-    res = read_fits(img_path)
-    if res is None:
-        return None
-    img = np.asarray(res[0], np.float32)
-    # FITS pixels are instrument units: min-max them to [0, 1] per image
-    lo, hi = float(img.min()), float(img.max())
-    img = (img - lo) / (hi - lo) if hi > lo else np.zeros_like(img)
+    if ext == ".fits":
+        res = read_fits(img_path)
+        if res is None:
+            return None
+        img = np.asarray(res[0], np.float32)
+        # FITS pixels are instrument units: min-max them to [0, 1] per
+        # image
+        lo, hi = float(img.min()), float(img.max())
+        img = (img - lo) / (hi - lo) if hi > lo else np.zeros_like(img)
+    else:
+        res = read_image(img_path)
+        if res is None:
+            return None
+        img = np.asarray(res[0], np.float32)
+        if img.max() > 1.5:
+            img = img / 255.0
     if img.ndim == 2:
         img = img[:, :, None]
     if img.shape[-1] == 1 and not native:

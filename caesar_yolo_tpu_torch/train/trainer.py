@@ -2,7 +2,7 @@
 parameter EMA, precise-BN and checkpoints.
 
 Counterpart of caesar_yolo_tpu/train/trainer.py on one device (the mesh
-and data-parallel path is ROADMAP.md Queue 1 item 7).  The update is the
+and data-parallel path waits for multi-GPU, ROADMAP.md Queue 1).  The update is the
 reference's optax chain written out (trainer.py:94-102), per parameter:
 
     g = clip_by_global_norm(raw gradients, 10)

@@ -1,11 +1,19 @@
 """First-party FITS image I/O (pure numpy, no astropy/fitsio dependency).
 
 A copy of caesar_yolo_tpu/utils/fits.py: the port may not import the JAX
-package, not even its host-only modules.  Ported: header parsing and
-reads, full and windowed image reads, minimal writes, the beam area and
-the linear part of the WCS (`Wcs.from_header`).  Not ported yet:
-`read_image` (PNG/JPEG) and the WCS pixel <-> world transforms
-(ROADMAP.md, Queue 1 item 5).
+package, not even its host-only modules.  Header parsing and reads, full
+and windowed image reads, minimal writes, the beam area, the WCS (`Wcs`:
+the linear part, and the SIN/TAN/linear pixel <-> world transforms in
+f64), and `read_image` for FITS, PNG and JPEG.
+
+`read_image` returns what the reference's matplotlib reader returns.  PNG
+is decoded here with the standard library's zlib and struct, so it needs
+neither matplotlib nor Pillow: colour types 0, 2, 3, 4 and 6, every bit
+depth the format allows, the five row filters and Adam7 interlacing; a
+bad CRC, a truncated stream or anything else malformed
+raises ValueError naming it.  JPEG is decoded through Pillow where it
+imports, as matplotlib does, and raises ImportError naming the missing
+decoder elsewhere.
 
 Replaces the reference's astropy/fitsio usage (reference utils.py:123-418):
   - full image reads with NaN->0 and 4D->2D squeeze       (utils.py:193-246)
@@ -22,6 +30,9 @@ BITPIX -64 and 64-bit integers), which `torch.from_numpy` takes.
 from __future__ import annotations
 
 import math
+import os
+import struct
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -444,12 +455,17 @@ def write_fits(data: np.ndarray, filename: str, header: FitsHeader | None = None
 
 @dataclass
 class Wcs:
-    """The linear part of a celestial WCS, read from a header.
+    """Projection-aware celestial WCS: pixel <-> world for 2 axes.
 
-    The fields of caesar_yolo_tpu/utils/fits.py:Wcs (reference
-    utils.py:233-242): reference pixel and value, axis types, the full
-    2x2 linear matrix (CDELT x PC, or CD, or CDELT with CROTA2) and
-    LONPOLE.  The pixel <-> world transforms are not ported yet.
+    caesar_yolo_tpu/utils/fits.py:Wcs (the reference builds an astropy
+    WCS, utils.py:233-242): reference pixel and value, axis types, the
+    full 2x2 linear matrix (CDELT x PC, or CD, or CDELT with CROTA2) and
+    LONPOLE.  SIN and TAN (the zenithal projections of radio continuum
+    mosaics) follow the FITS-WCS convention (Calabretta & Greisen 2002):
+    linear part -> projection plane -> native spherical (phi, theta) ->
+    celestial by the rotation with LONPOLE (180 by default); other CTYPEs
+    take the linear transform.  Pixel coordinates are 0-based; all
+    arithmetic is f64.
     """
 
     crpix: tuple = (1.0, 1.0)
@@ -519,6 +535,83 @@ class Wcs:
             logger.warning("Failed to get wcs from header (err=%s)!", str(e))
             return None
 
+    @property
+    def projection(self) -> str:
+        """'SIN' / 'TAN' for supported zenithal projections, else ''."""
+        t = self.ctype[0].upper()
+        for proj in ("SIN", "TAN"):
+            if t.endswith("-" + proj):
+                return proj
+        return ""
+
+    # -- linear part ---------------------------------------------------------
+
+    def _pixel_to_plane(self, x, y):
+        dx = np.asarray(x, np.float64) + 1 - self.crpix[0]
+        dy = np.asarray(y, np.float64) + 1 - self.crpix[1]
+        (m11, m12), (m21, m22) = self.m
+        return m11 * dx + m12 * dy, m21 * dx + m22 * dy
+
+    def _plane_to_pixel(self, ix, iy):
+        (m11, m12), (m21, m22) = self.m
+        det = m11 * m22 - m12 * m21
+        dx = (m22 * ix - m12 * iy) / det
+        dy = (-m21 * ix + m11 * iy) / det
+        return dx + self.crpix[0] - 1, dy + self.crpix[1] - 1
+
+    # -- full transform ------------------------------------------------------
+
+    def pixel_to_world(self, x, y):
+        ix, iy = self._pixel_to_plane(x, y)
+        proj = self.projection
+        if not proj:
+            return self.crval[0] + ix, self.crval[1] + iy
+        # projection plane -> native spherical (zenithal: phi from -y axis)
+        phi = np.arctan2(ix, -iy)
+        r = np.hypot(ix, iy)  # degrees
+        if proj == "TAN":
+            theta = np.arctan2(180.0 / np.pi, r)
+        else:  # SIN (orthographic)
+            theta = np.arccos(np.clip(r * np.pi / 180.0, 0.0, 1.0))
+        # native -> celestial (C&G 2002 eq. 2 inverse, pole at crval)
+        a0 = math.radians(self.crval[0])
+        d0 = math.radians(self.crval[1])
+        dphi = phi - math.radians(self.lonpole)
+        sin_t, cos_t = np.sin(theta), np.cos(theta)
+        dec = np.arcsin(np.clip(
+            sin_t * math.sin(d0) + cos_t * math.cos(d0) * np.cos(dphi),
+            -1.0, 1.0))
+        ra = a0 + np.arctan2(
+            -cos_t * np.sin(dphi),
+            sin_t * math.cos(d0) - cos_t * math.sin(d0) * np.cos(dphi))
+        return np.degrees(ra) % 360.0, np.degrees(dec)
+
+    def world_to_pixel(self, ra, dec):
+        proj = self.projection
+        if not proj:
+            return self._plane_to_pixel(
+                np.asarray(ra, np.float64) - self.crval[0],
+                np.asarray(dec, np.float64) - self.crval[1])
+        a = np.radians(np.asarray(ra, np.float64))
+        d = np.radians(np.asarray(dec, np.float64))
+        a0 = math.radians(self.crval[0])
+        d0 = math.radians(self.crval[1])
+        da = a - a0
+        theta = np.arcsin(np.clip(
+            np.sin(d) * math.sin(d0) + np.cos(d) * math.cos(d0) * np.cos(da),
+            -1.0, 1.0))
+        phi = math.radians(self.lonpole) + np.arctan2(
+            -np.cos(d) * np.sin(da),
+            np.sin(d) * math.cos(d0) - np.cos(d) * math.sin(d0) * np.cos(da))
+        if proj == "TAN":
+            r = (180.0 / np.pi) * np.cos(theta) / np.maximum(
+                np.sin(theta), 1e-15)
+        else:  # SIN
+            r = (180.0 / np.pi) * np.cos(theta)
+        ix = r * np.sin(phi)
+        iy = -r * np.cos(phi)
+        return self._plane_to_pixel(ix, iy)
+
 
 def beam_area_from_header(header: FitsHeader):
     """Compute beam area in pixels (reference inference.py:430-470).
@@ -541,3 +634,225 @@ def beam_area_from_header(header: FitsHeader):
         "dx": dx, "dy": dy, "bmaj": bmaj, "bmin": bmin, "pa": pa,
         "pixel_area": pixel_area, "beam_area": a / pixel_area,
     }
+
+
+# ---------------------------------------------------------------------------
+# PNG and JPEG (read_image)
+# ---------------------------------------------------------------------------
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> (samples a pixel, the bit depths the format allows)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+              3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's seven passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_chunks(buf: bytes):
+    """(type, data) of each chunk of a PNG stream up to IEND, each CRC
+    checked."""
+    if buf[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG stream (bad signature)")
+    pos = 8
+    while True:
+        if pos + 12 > len(buf):
+            raise ValueError("truncated PNG stream (it ends before IEND)")
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        end = pos + 12 + length
+        name = kind.decode("latin-1")
+        if end > len(buf):
+            raise ValueError(f"truncated PNG stream (inside a {name} chunk)")
+        data = buf[pos + 8:end - 4]
+        if zlib.crc32(kind + data) != struct.unpack(">I", buf[end - 4:end])[0]:
+            raise ValueError(f"bad CRC in a PNG {name} chunk")
+        yield kind, data
+        if kind == b"IEND":
+            return
+        pos = end
+
+
+def _average_or_paeth(cur: bytearray, prev: bytes, bpp: int, kind: int):
+    """Undo row filter 3 (Average) or 4 (Paeth) in place: each byte
+    depends on the one bpp before it, so this is a loop over bytes."""
+    for i in range(bpp):  # no left neighbour: both predict the byte above
+        cur[i] = (cur[i] + (prev[i] >> 1 if kind == 3 else prev[i])) & 0xFF
+    for i in range(bpp, len(cur)):
+        a, b = cur[i - bpp], prev[i]
+        if kind == 3:
+            pred = (a + b) >> 1
+        else:
+            c = prev[i - bpp]
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+        cur[i] = (cur[i] + pred) & 0xFF
+
+
+def _unfilter(raw: bytes, pos: int, h: int, bpp: int, stride: int):
+    """The h scanlines of `stride` bytes at raw[pos:], each led by its
+    filter type, unfiltered -> (uint8 [h, stride], the position after)."""
+    need = h * (stride + 1)
+    if pos + need > len(raw):
+        raise ValueError("truncated PNG image data")
+    rows = np.frombuffer(raw, np.uint8, need, pos).reshape(h, stride + 1)
+    out = rows[:, 1:].copy()
+    prev = np.zeros(stride, np.uint8)
+    for y, kind in enumerate(rows[:, 0].tolist()):
+        cur = out[y]
+        if kind == 1:    # Sub: a running sum along each byte lane
+            cur[:] = np.cumsum(cur.reshape(-1, bpp), axis=0,
+                               dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            cur += prev
+        elif kind in (3, 4):
+            row = bytearray(cur.tobytes())
+            _average_or_paeth(row, prev.tobytes(), bpp, kind)
+            cur[:] = np.frombuffer(row, np.uint8)
+        elif kind != 0:
+            raise ValueError(f"unknown PNG row filter type {kind}")
+        prev = cur
+    return out, pos + need
+
+
+def _png_samples(rows: np.ndarray, w: int, channels: int, depth: int):
+    """Unfiltered scanlines uint8 [h, stride] -> samples [h, w, channels]
+    (uint16 at depth 16, else uint8)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, channels)
+    if depth == 8:
+        return rows.reshape(h, w, channels)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :w, None]
+
+
+def decode_png(buf: bytes):
+    """A PNG stream -> (samples [H, W, channels] uint8 or uint16, colour
+    type, bit depth, palette [N, 3] uint8 or None, tRNS bytes or None).
+    Raises ValueError naming what is malformed."""
+    ihdr, palette, trns, idat = None, None, None, []
+    for kind, data in _png_chunks(buf):
+        if kind == b"IHDR":
+            ihdr = data
+        elif kind == b"PLTE":
+            palette = np.frombuffer(data, np.uint8)[:len(data) // 3 * 3
+                                                    ].reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = data
+        elif kind == b"IDAT":
+            idat.append(data)
+    if ihdr is None or len(ihdr) != 13:
+        raise ValueError("PNG stream without a valid IHDR chunk")
+    w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB",
+                                                              ihdr)
+    if ctype not in _PNG_TYPES or depth not in _PNG_TYPES[ctype][1]:
+        raise ValueError(f"PNG colour type {ctype} at bit depth {depth} is "
+                         f"not a PNG format")
+    if comp != 0 or filt != 0 or interlace > 1:
+        raise ValueError(f"PNG compression, filter or interlace method "
+                         f"({comp}, {filt}, {interlace}) is not a PNG one")
+    if w == 0 or h == 0:
+        raise ValueError("PNG image of zero size")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    if not idat:
+        raise ValueError("PNG stream without an IDAT chunk")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data ({e})") from None
+    channels = _PNG_TYPES[ctype][0]
+    bits = channels * depth
+    bpp = max(1, bits // 8)   # the filters' byte distance to the left
+    if not interlace:
+        rows, _ = _unfilter(raw, 0, h, bpp, (w * bits + 7) // 8)
+        samples = _png_samples(rows, w, channels, depth)
+    else:                     # Adam7: seven sub-images, one after another
+        samples = np.zeros((h, w, channels),
+                           np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+            if pw > 0 and ph > 0:
+                rows, pos = _unfilter(raw, pos, ph, bpp,
+                                      (pw * bits + 7) // 8)
+                samples[y0::dy, x0::dx] = _png_samples(rows, pw, channels,
+                                                       depth)
+    return samples, ctype, depth, palette, trns
+
+
+def read_png(buf: bytes) -> np.ndarray:
+    """A PNG stream -> the float32 array matplotlib's imread returns for
+    it (through Pillow's modes): grey [H, W] at v / (2^depth - 1), except
+    that 1-bit grey is 0 or 1 and 2- and 4-bit grey is Pillow's 8-bit
+    expansion divided by 3 or 15; everything else [H, W, 3 or 4] at
+    v / 255, with 16-bit colour cut to its high byte and grey + alpha
+    expanded to RGBA.  A palette expands to RGBA, its alpha from tRNS; a
+    tRNS chunk of a grey or RGB image is ignored, as matplotlib ignores
+    it."""
+    samples, ctype, depth, palette, trns = decode_png(buf)
+    f32 = np.float32
+    if ctype == 0:
+        v = samples[:, :, 0]
+        top = (1 << depth) - 1
+        if depth == 1:
+            return v.astype(f32)
+        if depth < 8:
+            v = v * (255 // top)
+        return np.divide(v, top, dtype=f32)
+    if ctype == 3:
+        idx = samples[:, :, 0]
+        if int(idx.max()) >= len(palette):
+            raise ValueError("PNG palette index past the end of its PLTE")
+        alpha = np.full(256, 255, np.uint8)
+        if trns:
+            alpha[:len(trns)] = np.frombuffer(trns[:256], np.uint8)
+        rgba = np.concatenate([palette[idx], alpha[idx][:, :, None]], axis=2)
+        return np.divide(rgba, 255, dtype=f32)
+    v = samples if depth == 8 else (samples >> 8).astype(np.uint8)
+    if ctype == 4:
+        v = v[:, :, [0, 0, 0, 1]]
+    return np.divide(v, 255, dtype=f32)
+
+
+def _read_jpeg(filename: str) -> np.ndarray:
+    """uint8 [H, W] or [H, W, 3 or 4] of a JPEG, decoded by Pillow as
+    matplotlib's imread decodes it (pil_to_array)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError(
+            f"{filename}: JPEG input needs Pillow (PIL), the decoder that "
+            f"matplotlib reads JPEG with, and it does not import here; "
+            f"convert the image to PNG or FITS") from None
+    with Image.open(filename) as im:
+        if im.mode not in ("RGBA", "RGBX", "RGB", "L"):
+            im = im.convert("RGBA")
+        return np.asarray(im)
+
+
+def read_image(filename: str):
+    """Read a FITS, PNG or JPEG image (reference inference.py:498-523) ->
+    (data, header or None), or None for another extension.  PNG and JPEG
+    give float32 in [0, 1] (matplotlib's values), alpha stripped."""
+    ext = os.path.splitext(filename)[1].lower()
+    if ext == ".fits":
+        res = read_fits_crop(filename, -1, -1, -1, -1, strip_deg_axis=True)
+        if res is None:
+            return None
+        data, header, _ = res
+        return data, header
+    if ext == ".png":
+        with open(filename, "rb") as f:
+            data = read_png(f.read())
+    elif ext in (".jpg", ".jpeg"):
+        data = _read_jpeg(filename)
+    else:
+        logger.error("Unsupported image format (%s) given!", ext)
+        return None
+    if data.ndim == 3 and data.shape[2] == 4:
+        data = data[:, :, :3]
+    if data.dtype == np.uint8:
+        data = data.astype(np.float32) / 255.0
+    return data, None

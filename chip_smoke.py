@@ -65,6 +65,20 @@ Phases (any failure exits non-zero before the last line):
             banded runs as subprocesses, one SIGKILLed once its spool holds
             a grid row of tiles, then resumed; the catalog must be the
             uninterrupted run's, bit for bit
+  pt        the main phase's seeded yolo11l written as an ultralytics
+            checkpoint ({"model", "ema", "epoch"}, ultralytics' keys, its
+            classes in a module gone at load time): cli.convert's npz must
+            hold save_params' leaves bit for bit, and cli.run serially on
+            the mosaic's 640x640 crop (README chain, bf16) must write the
+            same catalog from the .pt as from the npz, launching K1, K2 and
+            K3; the .pt load-and-convert time beside the npz load time
+  image     the crop as an 8-bit RGB PNG and a 16-bit grey PNG (this
+            script's stdlib encoder): read_image must give the written
+            values / 255 or / 65535 exactly, and cli.run on each must write
+            Analyzer.predict's catalog on the same array; cli.evaluate on 32
+            labelled 132 px PNG cutouts (README chain, K3 once a batch),
+            images/s; JPEG through Pillow where it imports, else refused
+            with the error that names it
   golden-train
             2 f32 steps (TF32 off) of the port's Trainer on the committed
             batch from yolov8n_synth96 against the JAX Trainer's numbers
@@ -95,10 +109,12 @@ Phases (any failure exits non-zero before the last line):
             transposed copy and a row launch and on K8's column route, in
             turns (transpose, column, column, transpose); the same bits
   planes    K3, K5 (three sigma pairs) and K6 on whole-mosaic planes
-            [1, 2560, 2560] and [1, 16384, 16384] on their stream routes
-            (counted) against their plain versions (K3, K6 bit-equal, K5 by
-            its rule), timed beside their bounds (a `whole_plane` line; the
-            2560 px rows join the `kernels` line)
+            [1, 2560, 2560], [1, 16384, 16384] and [1, 32769, 32768]
+            (2^30 + 32768 values, 4 GiB, past 32-bit indices) on their
+            stream routes (counted) against their plain versions (K3, K6
+            bit-equal, K5 by its rule), timed beside their bounds, each
+            plane freed before the next (a `whole_plane` line; the 2560 px
+            rows join the `kernels` line)
   timing    each kernel, its plain version and (where one exists) the
             PyTorch library call, by CUDA events (K1, K2, K2's backward,
             K3, K5, K6 and K8 also by device time under torch.profiler, K1,
@@ -251,7 +267,10 @@ MOSAIC_MODES = {
 }
 # whole-mosaic planes: the phase's mosaic, and a plane at half the
 # device-tiling cap (1 GiB of f32)
-WHOLE_PLANES = ((1, MOSAIC_SIZE, MOSAIC_SIZE), (1, 16384, 16384))
+# the mosaic's plane, a survey field's, and one past 2^30 values (4 GiB in
+# f32; the stream routes' 64-bit indices)
+WHOLE_PLANES = ((1, MOSAIC_SIZE, MOSAIC_SIZE), (1, 16384, 16384),
+                (1, 32769, 32768))
 
 
 def log(*args):
@@ -1457,6 +1476,344 @@ def phase_mosaic(torch, counters, tmp):
     return launches, tps
 
 
+# --------------------------------------------------------- .pt and PNG input
+
+ULTRA_MODULES = ("chip_smoke_ultralytics", "chip_smoke_ultralytics.nn",
+                 "chip_smoke_ultralytics.nn.tasks")
+BN_LEAVES = {"gamma": "bn.weight", "beta": "bn.bias",
+             "mean": "bn.running_mean", "var": "bn.running_var"}
+
+
+def ultralytics_state(model):
+    """The port's YOLO weights under an ultralytics checkpoint's keys
+    (model.<yaml row>..., conv/bn leaves by ultralytics' names, the Detect
+    head at the last row: cv2 the box branch, cv3 the class branch, whose
+    v11 (DWConv, Conv) pairs are cv3.L.0.{0,1} and cv3.L.1.{0,1})."""
+    row = {name: i for i, (name, _) in enumerate(model.graph)}
+    state = model.state_dict()
+    out = {}
+    for key, t in state.items():
+        *path, leaf = key.split(".")
+        if path[-1] == "bn":
+            path, tail = path[:-1], BN_LEAVES[leaf]
+        elif leaf == "w" and ".".join(path + ["b"]) not in state:
+            tail = "conv.weight"
+        else:
+            tail = {"w": "weight", "b": "bias"}[leaf]
+        if path[0] == "head":
+            _, branch, lvl, j = path
+            j = int(j)
+            if branch == "box":
+                mod = f"cv2.{lvl}.{j}"
+            elif len(model.head.cls[int(lvl)]) == 3:
+                mod = f"cv3.{lvl}.{j}"
+            else:
+                mod = f"cv3.{lvl}.{j // 2}.{j % 2}" if j < 4 else f"cv3.{lvl}.2"
+            parts = [f"model.{len(model.graph)}", mod]
+        else:
+            parts = [f"model.{row[path[0]]}",
+                     *({"ffn1": "ffn.0", "ffn2": "ffn.1"}.get(p, p)
+                       for p in path[1:])]
+        out[".".join([*parts, tail])] = t.detach().float().cpu().clone()
+    return out
+
+
+def save_ultralytics_pt(torch, path, state, epoch=0):
+    """Pickle `state` ({ultralytics key: tensor}) as ultralytics saves a
+    checkpoint, {"model": m, "ema": m, "epoch": ...}, with m a module tree
+    whose classes live in a module that is gone once the file is written
+    (so a reader must resolve them without it)."""
+    import types
+
+    from torch import nn
+
+    class Node(nn.Module):
+        pass
+
+    class DetectionModel(nn.Module):
+        pass
+
+    mods = [types.ModuleType(n) for n in ULTRA_MODULES]
+    for cls in (Node, DetectionModel):
+        cls.__module__ = ULTRA_MODULES[-1]
+        cls.__qualname__ = cls.__name__
+        setattr(mods[-1], cls.__name__, cls)
+    for parent, child in zip(mods, mods[1:]):
+        setattr(parent, child.__name__.rsplit(".", 1)[1], child)
+    sys.modules.update(zip(ULTRA_MODULES, mods))
+    try:
+        root = DetectionModel()
+        for key, t in state.items():
+            *parts, leaf = key.split(".")
+            node = root
+            for part in parts:
+                if part not in node._modules:
+                    node.add_module(part, Node())
+                node = node._modules[part]
+            if leaf.startswith("running_") or not t.is_floating_point():
+                node.register_buffer(leaf, t.clone())
+            else:
+                node.register_parameter(leaf, nn.Parameter(t.clone(), False))
+        torch.save({"model": root, "ema": root, "epoch": epoch}, path)
+    finally:
+        for name in ULTRA_MODULES:
+            del sys.modules[name]
+
+
+def write_png(path, samples, color_type):
+    """samples [H, W, C] uint8 or uint16 -> a PNG file of that colour type
+    (0 grey, 2 RGB), every row filtered with Sub, by the standard library's
+    zlib and struct."""
+    import struct
+    import zlib
+    h, w, c = samples.shape
+    depth = 16 if samples.dtype == np.uint16 else 8
+    raw = np.ascontiguousarray(samples.astype(">u2" if depth == 16
+                                              else np.uint8)
+                               ).reshape(h, -1).view(np.uint8)
+    bpp = c * depth // 8
+    sub = raw.copy()
+    sub[:, bpp:] = raw[:, bpp:] - raw[:, :-bpp]
+    body = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                             color_type, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(body, 6)) + chunk(b"IEND", b""))
+
+
+def readme_launches(counters):
+    """The launches of one serial forward with the README chain."""
+    expect = {k: 0 for k in counters}
+    expect.update(nms=1, attn=2, upsample=2, preproc=1)
+    return expect
+
+
+def serial_cli(torch, counters, flags, what):
+    """cli.run serially with `flags`; its launches must be one README-chain
+    forward's.  Returns (the JSON catalog, wall s)."""
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+    out = next(f.split("=", 1)[1] for f in flags
+               if f.startswith("--detect_outfile_json="))
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc, _ = cli_run.run(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    require(rc == 0, f"{what}: cli.run failed")
+    log(f"{what} launches: {launches}")
+    require(launches == readme_launches(counters),
+            f"{what} did not launch K1, K2 and K3 as expected")
+    with open(out) as f:
+        return json.load(f), wall
+
+
+def phase_pt(torch, counters, tmp):
+    """The main phase's seeded yolo11l as an ultralytics checkpoint
+    (written by this script, its classes gone at load time): cli.convert's
+    npz leaves must be bit-equal to save_params of the model, and cli.run
+    serially on the mosaic's 640x640 crop (README chain, bf16) must write
+    the same catalog from the .pt as from the npz."""
+    from caesar_yolo_tpu_torch.cli import convert as cli_convert
+    from caesar_yolo_tpu_torch.detect.predictor import Predictor
+    from caesar_yolo_tpu_torch.models.convert import (convert_checkpoint,
+                                                      load_model)
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.utils.fits import read_fits_crop
+
+    model = init_weights(build_model("yolo11l"), seed=0)
+    pt = os.path.join(tmp, "yolo11l.pt")
+    npz = os.path.join(tmp, "yolo11l_seed0.npz")   # the mosaic phase's
+    save_ultralytics_pt(torch, pt, ultralytics_state(model), epoch=300)
+    converted = os.path.join(tmp, "converted.npz")
+    t0 = time.perf_counter()
+    require(cli_convert.main([pt, converted]) == 0, "cli.convert failed")
+    convert_s = time.perf_counter() - t0
+    with np.load(npz) as ref, np.load(converted) as got:
+        same = (sorted(ref.files) == sorted(got.files)
+                and all(ref[k].dtype == got[k].dtype
+                        and np.array_equal(ref[k], got[k])
+                        for k in ref.files))
+        n_leaves = len(ref.files) - 1
+    log(f"pt: cli.convert {os.path.getsize(pt)} bytes -> npz of {n_leaves} "
+        f"leaves in {convert_s:.3f} s; leaves and meta bit-equal to "
+        f"save_params: {same}")
+    require(same, "cli.convert's npz differs from save_params of the model")
+    t0 = time.perf_counter()
+    from_pt = convert_checkpoint(pt)[0]
+    pt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_npz = load_model(npz)[0]
+    npz_s = time.perf_counter() - t0
+    log(f"pt: yolo11l .pt load and convert {pt_s:.4f} s, npz load "
+        f"{npz_s:.4f} s (both to a model on the CPU in f32)")
+    # every slot of the raw detections, before merge, on the crop
+    tile = read_fits_crop(os.path.join(tmp, "mosaic.fits"), 0, 640, 0,
+                          640)[0]
+    tile = np.repeat(np.nan_to_num(tile)[:, :, None], 3, axis=-1)
+    raw = [[t.cpu() for t in Predictor(m, img_size=MAIN_SIZE,
+                                       score_thr=MOSAIC_SCORE_THR,
+                                       pre_nms=PRE_NMS).predict_batch(tile)]
+           for m in (from_pt, from_npz)]
+    same = all(torch.equal(a, b) for a, b in zip(*raw))
+    log(f"pt: raw detections of the two models on the crop ({MAIN_SIZE} "
+        f"px, bf16): {int(raw[1][3].sum())} valid of {raw[1][3].numel()} "
+        f"slots, every slot bit-equal {same}")
+    require(same, "the .pt and npz models detect differently")
+    crop = [f"--image={os.path.join(tmp, 'mosaic.fits')}", "--xmin=0",
+            "--xmax=639", "--ymin=0", "--ymax=639",
+            f"--scoreThr={MOSAIC_SCORE_THR}", *README_CHAIN]
+    cats, walls = {}, {}
+    for name, weights in (("pt", pt), ("npz", npz)):
+        cats[name], walls[name] = serial_cli(
+            torch, counters,
+            [*crop, f"--weights={weights}",
+             f"--detect_outfile_json={os.path.join(tmp, f'w_{name}.json')}",
+             f"--detect_outfile={os.path.join(tmp, f'w_{name}.reg')}"],
+            f"pt: cli.run --weights=yolo11l.{name}")
+    log(f"pt: serial 640x640 crop, README chain, bf16: {len(cats['pt']['objs'])}"
+        f" objects from the .pt in {walls['pt']:.3f} s, "
+        f"{len(cats['npz']['objs'])} from the npz in {walls['npz']:.3f} s; "
+        f"catalogs identical {cats['pt'] == cats['npz']}")
+    require(len(cats["npz"]["objs"]) > 0 and cats["pt"] == cats["npz"],
+            "the .pt and npz catalogs differ")
+
+
+def phase_image(torch, counters, tmp):
+    """PNG and JPEG input: the mosaic's 640x640 crop as an 8-bit RGB PNG
+    and a 16-bit grey PNG (this script's encoder) read back exactly; the
+    serial cli.run on each equal to Analyzer.predict on the same array;
+    cli.evaluate on 32 labelled 132 px PNG cutouts (K3 once a batch);
+    JPEG through Pillow where it imports, else its clear refusal."""
+    from caesar_yolo_tpu_torch.cli import evaluate as cli_evaluate
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+    from caesar_yolo_tpu_torch.cli.preproc_args import (
+        build_preprocessor_from_args)
+    from caesar_yolo_tpu_torch.detect.analyzer import (Analyzer,
+                                                       AnalyzerOutputs)
+    from caesar_yolo_tpu_torch.detect.predictor import Predictor
+    from caesar_yolo_tpu_torch.models.convert import load_model
+    from caesar_yolo_tpu_torch.utils.fits import (read_fits, read_fits_crop,
+                                                  read_image)
+    from caesar_yolo_tpu_torch.utils.synth import write_labelled_cutouts
+
+    def quantise(x, top):
+        x = np.nan_to_num(np.asarray(x, np.float64))
+        span = float(x.max() - x.min()) or 1.0
+        return np.round((x - x.min()) / span * top)
+
+    npz = os.path.join(tmp, "yolo11l_seed0.npz")
+    crop = read_fits_crop(os.path.join(tmp, "mosaic.fits"), 0, 640, 0,
+                          640)[0]
+    q16 = quantise(crop, 65535).astype(np.uint16)
+    q8 = (q16 >> 8).astype(np.uint8)
+    rgb = np.stack([q8, (q8.astype(np.uint16) * 3 // 4).astype(np.uint8),
+                    q8 // 2], axis=-1)
+    pngs = {"rgb8": (rgb, 2, 255), "grey16": (q16[:, :, None], 0, 65535)}
+    model = load_model(npz)[0]
+    for name, (samples, ctype, top) in pngs.items():
+        path = os.path.join(tmp, f"crop_{name}.png")
+        write_png(path, samples, ctype)
+        data, header = read_image(path)
+        want = np.divide(samples, top, dtype=np.float32)
+        want = want[:, :, 0] if ctype == 0 else want
+        exact = (header is None and data.dtype == np.float32
+                 and np.array_equal(data, want))
+        log(f"image: {name} PNG {os.path.getsize(path)} bytes read back "
+            f"{data.shape} {data.dtype}, equal to the written values / "
+            f"{top}: {exact}")
+        require(exact, f"read_image of the {name} PNG differs")
+        flags = [f"--image={path}", f"--weights={npz}",
+                 f"--scoreThr={MOSAIC_SCORE_THR}", *README_CHAIN,
+                 f"--detect_outfile_json={path}.json",
+                 f"--detect_outfile={path}.reg"]
+        got, wall = serial_cli(torch, counters, flags,
+                               f"image: cli.run on the {name} PNG")
+        args = cli_run.parse_args(flags)
+        cfg = cli_run.config_from_args(args)
+        analyzer = Analyzer(
+            Predictor(model, img_size=cfg.img_size, score_thr=cfg.score_thr,
+                      iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms),
+            preprocessor=build_preprocessor_from_args(args),
+            soft_merge_thr=cfg.merge_overlap_iou_thr_soft,
+            hard_merge_thr=cfg.merge_overlap_iou_thr_hard,
+            outputs=AnalyzerOutputs(outfile_json=f"{path}.ref.json",
+                                    outfile_ds9=f"{path}.ref.reg"),
+            class_names=cfg.class_names)
+        require(analyzer.predict(data, f"crop_{name}") == 0,
+                f"Analyzer.predict on the {name} PNG failed")
+        with open(f"{path}.ref.json") as f:
+            ref = json.load(f)
+        log(f"image: {name} PNG serial run {wall:.3f} s, "
+            f"{len(got['objs'])} objects; equal to Analyzer.predict on the "
+            f"read array: {got == ref}")
+        require(len(ref["objs"]) > 0 and got == ref,
+                f"the {name} PNG catalog differs from Analyzer.predict's")
+
+    # cli.evaluate on labelled PNG cutouts
+    root = os.path.join(tmp, "png_cutouts")
+    fits_paths = write_labelled_cutouts(root, MAIN_BATCH,
+                                        sizes=(TRAIN_CUTOUT,), seed=500)
+    paths = []
+    for p in fits_paths:
+        q = quantise(read_fits(p)[0], 255).astype(np.uint8)
+        paths.append(os.path.splitext(p)[0] + ".png")
+        write_png(paths[-1], q[:, :, None], 0)
+    filelist = os.path.join(root, "png_list.txt")
+    with open(filelist, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc, report = cli_evaluate.run([f"--weights={npz}",
+                                   f"--filelist={filelist}", *README_CHAIN,
+                                   f"--batch_size={MAIN_BATCH}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"image: cli.evaluate on {len(paths)} PNG cutouts of "
+        f"{TRAIN_CUTOUT} px: {wall:.3f} s = {len(paths) / wall:.2f} "
+        f"images/s (yolo11l@640 bf16, batch {MAIN_BATCH}, README chain), "
+        f"launches {launches}")
+    require(rc == 0 and launches["preproc"] == 1 and launches["nms"] == 1,
+            "cli.evaluate on PNG did not run one K3 and K1 launch a batch")
+
+    # JPEG: through Pillow where it imports, else refused by name
+    jpg = os.path.join(tmp, "crop.jpg")
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is None:
+        with open(jpg, "wb") as f:
+            f.write(b"\xff\xd8\xff\xd9")
+        try:
+            read_image(jpg)
+            refused = ""
+        except ImportError as e:
+            refused = str(e)
+        log(f"image: JPEG without Pillow refused: {refused!r}")
+        require("Pillow" in refused, "JPEG without Pillow was not refused "
+                "by name")
+    else:
+        Image.fromarray(rgb).save(jpg, quality=95)
+        got, wall = serial_cli(
+            torch, counters,
+            [f"--image={jpg}", f"--weights={npz}",
+             f"--scoreThr={MOSAIC_SCORE_THR}", *README_CHAIN,
+             f"--detect_outfile_json={jpg}.json",
+             f"--detect_outfile={jpg}.reg"], "image: cli.run on the JPEG")
+        log(f"image: JPEG through Pillow, {len(got['objs'])} objects in "
+            f"{wall:.3f} s")
+
+
 def phase_profile(torch, tmp):
     """One "auto" tiled run of the mosaic with --profile_dir: the trace must
     hold events; the device's busy share of the run from its kernels."""
@@ -1989,11 +2346,12 @@ def mosaic_plane(torch, tmp, shape):
 
 def phase_whole_plane(torch, tmp):
     """K3, K5 (the mosaic chain's three sigma pairs) and K6 on one
-    whole-mosaic plane at the phase's mosaic size and at 16384 px, each on
-    its stream route (counted), against its plain version under its rule
-    (K3 and K6 bit-equal, K5 by cuda_stats.stats_mismatch), then timed
-    beside its plain version and bound.  Returns the kernels-line rows at
-    the mosaic's size and the rows of both sizes."""
+    whole-mosaic plane of each of WHOLE_PLANES (the phase's mosaic, 16384
+    px, and 2^30 + 32768 values), each on its stream route (counted),
+    against its plain version under its rule (K3 and K6 bit-equal, K5 by
+    cuda_stats.stats_mismatch), then timed beside its plain version and
+    bound; each plane is freed before the next.  Returns the kernels-line
+    rows at the mosaic's size and the rows of every size."""
     from caesar_yolo_tpu_torch.ops import cuda_histeq, cuda_preproc, cuda_stats
     from caesar_yolo_tpu_torch.ops.histeq import equalize_hist
     from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
@@ -2004,6 +2362,7 @@ def phase_whole_plane(torch, tmp):
         x = mosaic_plane(torch, tmp, shape)
         n = x.numel()
         big = n > 2 ** 26
+        huge = n > 2 ** 30
         vlims = torch.stack(zscale_limits(x), dim=1)
         kernels = {
             "preproc": (lambda: cuda_preproc.zscale_minmax(x, vlims),
@@ -2044,9 +2403,12 @@ def phase_whole_plane(torch, tmp):
                         f"plane {shape}")
                 del got, ref
             row = dict(shape=list(shape), kernel=key,
-                       ms=time_ms(torch, kernel, iters=5 if big else 20),
-                       plain_ms=time_ms(torch, plain, iters=2 if big else 5,
-                                        warmup=1),
+                       ms=time_ms(torch, kernel,
+                                  iters=3 if huge else 5 if big else 20,
+                                  warmup=1 if huge else 3),
+                       plain_ms=time_ms(torch, plain,
+                                        iters=1 if huge else 2 if big else 5,
+                                        warmup=0 if huge else 1),
                        library_ms=None, bound=bound, max_abs_err=err)
             log(f"timing {key} whole plane {shape} (stream route): "
                 f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, bound "
@@ -2161,6 +2523,8 @@ def main() -> int:
             mosaic_launches, _ = phase_mosaic(torch, counters, tmp)
             phase_profile(torch, tmp)
             phase_resume(torch, tmp)
+            phase_pt(torch, counters, tmp)
+            phase_image(torch, counters, tmp)
             eval_launches = phase_eval(torch, counters, tmp, card)
             train_launches = phase_train(torch, counters, tmp, card)
             phase_upsample_ab(torch, engine, batches, tmp)

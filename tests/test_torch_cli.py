@@ -112,7 +112,9 @@ def test_max_ntasks_guard(tmp_path):
 def test_unported_flags_raise(tmp_path, monkeypatch, flag):
     """Each unported flag raises; --datalist is ported and runs its list
     (here the mosaic, whole-image through the BatchedDetector, writing
-    out_mosaic.json and .reg into the working directory)."""
+    out_mosaic.json and .reg into the working directory), and so are .pt
+    weights (the fixture's as an ultralytics checkpoint, converted on the
+    fly: the npz's catalog)."""
     path = _mosaic(tmp_path)
     weights = WEIGHTS
     argv = [f"--image={path}", "--devices=cpu", "--imgsize=96"]
@@ -124,10 +126,20 @@ def test_unported_flags_raise(tmp_path, monkeypatch, flag):
         assert (tmp_path / "out_mosaic.reg").exists()
         return
     if flag == ".pt":
-        weights = str(tmp_path / "w.pt")
-        open(weights, "w").close()
-    else:
-        argv.append(flag)
+        import chip_smoke as cs
+        pt = str(tmp_path / "yolov8n_synth96.pt")
+        cs.save_ultralytics_pt(torch, pt,
+                               cs.ultralytics_state(load_model(WEIGHTS)[0]))
+        cats = []
+        for w in (pt, WEIGHTS):
+            out = tmp_path / f"{os.path.basename(w)}.json"
+            assert main([*argv, f"--weights={w}", "--scoreThr=0.3",
+                         f"--detect_outfile_json={out}",
+                         f"--detect_outfile={out}.reg"]) == 0
+            cats.append(json.loads(out.read_text()))
+        assert cats[0] == cats[1]
+        return
+    argv.append(flag)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main([*argv, f"--weights={weights}"])
 

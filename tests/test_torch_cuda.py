@@ -730,21 +730,57 @@ def test_clahe_kernels_reject_what_they_cannot_take(dev):
                                                         device=dev))
 
 
+BIG_PLANE = (1, 32769, 32768)   # 2^30 + 32768 values, 4 GiB in f32
+
+
+def test_planes_past_2_to_the_30_on_the_stream_routes(dev):
+    """K3, K5 and K6 compute one whole-mosaic plane of 2^30 + 32768 values
+    on their stream routes (64-bit in-plane indices), counted there: K3 and
+    K6 bit-equal to their plain versions, K5 by cuda_stats.stats_mismatch
+    (the mosaic chain's three sigma pairs)."""
+    x = cs.mosaic_plane(torch, None, BIG_PLANE)
+    assert x[0].numel() > 2 ** 30
+    vlims = torch.stack(zscale_limits(x), dim=1)
+    k3 = cuda_preproc.zscale_minmax
+    before = k3.stream_launches
+    out, zlims = k3(x, vlims)
+    torch.cuda.synchronize()
+    assert k3.stream_launches == before + 1
+    ref_out, ref_zlims = cuda_preproc.zscale_minmax_plain(x, vlims)
+    assert torch.equal(zlims, ref_zlims)
+    assert torch.equal(out, ref_out)
+    del out, ref_out
+    for sig in cs.MOSAIC_SIGMAS:
+        cs.parity_stats(torch, x, sig, "stream", cuda_stats.CLUSTER)
+    k6 = cuda_histeq.equalize_hist_batch
+    before = k6.stream_launches
+    got = k6(x)
+    torch.cuda.synchronize()
+    assert k6.stream_launches == before + 1
+    ref = equalize_hist(x)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+    del x, got, ref
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("kernel", ["zscale_minmax", "clip_stats",
                                     "equalize_hist_batch"])
-def test_planes_past_the_index_limit_are_refused(dev, kernel):
-    """K3, K5 and K6 index a plane with 32-bit ints: a plane of more than
-    cuda_build.MAX_PLANE values is refused before any launch (an expanded
-    view, so nothing is allocated)."""
+def test_planes_past_int32_counts_are_refused(dev, kernel):
+    """K3, K5 and K6 count a plane's values in int32, as the JAX functions
+    do: a plane of more than cuda_build.MAX_PLANE = 2^31 - 1 values is
+    refused before any launch (an expanded view, so nothing is
+    allocated)."""
     from caesar_yolo_tpu_torch import cuda_build
-    wide = torch.zeros(1, 1, 1, device=dev).expand(1, 32769, 32768)
-    assert wide[0].numel() > cuda_build.MAX_PLANE
+    assert cuda_build.MAX_PLANE == 2 ** 31 - 1
+    wide = torch.zeros(1, 1, 1, device=dev).expand(1, 65536, 32768)
+    assert wide[0].numel() == cuda_build.MAX_PLANE + 1
     fn, args = {
         "zscale_minmax": (cuda_preproc.zscale_minmax,
                           (torch.zeros(1, 2, device=dev),)),
         "clip_stats": (cuda_stats.clip_stats, (3.0, 3.0)),
         "equalize_hist_batch": (cuda_histeq.equalize_hist_batch, ())}[kernel]
     before = fn.launches
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="int32"):
         fn(wide, *args)
     assert fn.launches == before

@@ -216,7 +216,8 @@ need = {"parallel.sfinder", "parallel.stitch", "cli.run", "cli.preproc_args",
         "utils.fits", "utils.tiling", "ops.cuda_upsample", "ops.cuda_shift",
         "train.loss", "train.augment", "train.dataset", "train.trainer",
         "cli.train", "ops.clahe", "ops.cuda_clahe", "detect.batch",
-        "evaluation.metrics", "evaluation.evaluate", "cli.evaluate"}
+        "evaluation.metrics", "evaluation.evaluate", "cli.evaluate",
+        "models.convert", "cli.convert"}
 assert {pkg.__name__ + "." + n for n in need} <= set(names), names
 print(len(names))
 """

@@ -441,9 +441,17 @@ def test_dataset_batches_match_jax(tmp_path, native):
 
 
 def test_dataset_refuses_png(tmp_path):
+    """PNG is read (tests/test_torch_image_input.py holds it to the JAX
+    loader), but a malformed one is refused with the fault named: a stream
+    cut inside its image data."""
+    import chip_smoke as cs
     from caesar_yolo_tpu_torch.train.dataset import load_sample
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        load_sample(str(tmp_path / "x.png"), 64, 4)
+    path = tmp_path / "x.png"
+    cs.write_png(str(path), np.arange(64 * 64, dtype=np.uint8
+                                      ).reshape(64, 64, 1), 0)
+    path.write_bytes(path.read_bytes()[:60])
+    with pytest.raises(ValueError, match="truncated"):
+        load_sample(str(path), 64, 4)
 
 
 def test_cli_train_cpu_writes_last_and_npz(tmp_path):
