@@ -10,9 +10,10 @@ Computes completeness / reliability / F1 with the reference's IoU >= 0.6
 matching rules (reference macros/make_prediction.py:553-694) and the
 COCO-style mAP.  `--weights` takes the reference's npz or an ultralytics
 `.pt` checkpoint; the filelist FITS, PNG and JPEG images.  Runs on CUDA;
-`--devices=cpu` selects the CPU.  --int8 (int8 PTQ) and --save_plot (the
-plots) raise NotImplementedError until their features are ported
-(ROADMAP.md, Queue 1).
+`--devices=cpu` selects the CPU.  --int8 quantizes the dense convs (int8
+PTQ) after calibrating on the first filelist image.  --save_plot (the
+plots) raises NotImplementedError until the plots are ported (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def parse_args(argv=None):
     p.add_argument("--maxnimgs", type=int, default=-1)
     p.add_argument("--pre_nms", type=int, default=512)
     p.add_argument("--int8", action="store_true",
-                   help="int8 PTQ inference (not ported yet)")
+                   help="int8 PTQ inference calibrated on the first "
+                        "filelist image (models/quant.py)")
     p.add_argument("--batch_size", type=int, default=32,
                    help="images per device batch")
     p.add_argument("--save_detail", default="",
@@ -58,8 +60,6 @@ def unported_flags(args) -> list[str]:
     """The given flags whose feature the port does not have yet, each with
     that feature."""
     out = []
-    if args.int8:
-        out.append("--int8 (int8 PTQ)")
     if args.save_plot:
         out.append("--save_plot (the plots)")
     return out
@@ -75,20 +75,33 @@ def run(argv=None):
     from caesar_yolo_tpu_torch.cli.preproc_args import (
         build_preprocessor_from_args,
     )
-    from caesar_yolo_tpu_torch.cli.run import load_model_from_args
+    from caesar_yolo_tpu_torch.cli.run import (
+        load_model_from_args,
+        quantize_from_image,
+    )
     from caesar_yolo_tpu_torch.evaluation import evaluate_dataset
+    from caesar_yolo_tpu_torch.evaluation.evaluate import read_filelist
 
+    model = load_model_from_args(args)
+    preproc = build_preprocessor_from_args(args)
+    device = args.devices or None
+    engine_kwargs = {}
+    if args.int8:
+        first = read_filelist(args.filelist)
+        model = quantize_from_image(model, first[0] if first else "",
+                                    preproc, args.imgsize, device)
+        engine_kwargs = {"fuse": False}
     report = evaluate_dataset(
-        load_model_from_args(args), args.filelist,
+        model, args.filelist,
         label_dir=args.label_dir or None,
-        preprocessor=build_preprocessor_from_args(args),
+        preprocessor=preproc,
         img_size=args.imgsize, score_thr=args.scoreThr,
         nms_iou_thr=args.iouThr_nms, pre_nms=args.pre_nms,
         batch_size=args.batch_size,
         soft_merge_thr=args.merge_overlap_iou_thr_soft,
         hard_merge_thr=args.merge_overlap_iou_thr_hard,
         iou_thr=args.iouThr_match, max_images=args.maxnimgs,
-        detail_out=args.save_detail, device=args.devices or None)
+        detail_out=args.save_detail, device=device, **engine_kwargs)
     print(report.summary())
     return 0, report
 

@@ -20,9 +20,12 @@ crop window are given, else batched by shape through the BatchedDetector
 device-tiling modes (--device_tiling auto/on/off: the mosaic or its bands
 shipped to the device once), --preproc_context=global, the crash-resume
 spool (--resume, --spool_path), --profile_dir (a torch.profiler Chrome
-trace) and --save_tile_img.  These flags are refused with
-NotImplementedError until their feature is ported (ROADMAP.md, Queue 1):
---int8 (int8 PTQ), --draw_plots and --save_plots (the plots).
+trace) and --save_tile_img.  --int8 quantizes the dense convs (int8 PTQ,
+models/quant.py) after calibrating on up to three crops of the input image
+(with --datalist, of its first image); on the card their convs run on
+kernel K9.  These flags are refused with NotImplementedError until their
+feature is ported (ROADMAP.md, Queue 1): --draw_plots and --save_plots
+(the plots).
 --multigpu is a no-op, as in the reference package.
 """
 
@@ -95,7 +98,9 @@ def parse_args(argv=None):
                         help="Ship tiles to the device as bfloat16 (half "
                         "the host->device bytes; ~0.4%% pixel rounding)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 PTQ inference (not ported yet)")
+                        help="int8 PTQ inference: quantize dense convs "
+                        "after calibrating activation ranges on samples "
+                        "from the input image (models/quant.py)")
     parser.add_argument("--merge_overlap_iou_thr_soft", type=float,
                         default=0.3)
     parser.add_argument("--merge_overlap_iou_thr_hard", type=float,
@@ -138,7 +143,7 @@ def parse_args(argv=None):
 
 def unported_flags(args) -> list[str]:
     """The given flags whose feature the port does not have yet."""
-    return [f"--{name}" for name in ("int8", "draw_plots", "save_plots")
+    return [f"--{name}" for name in ("draw_plots", "save_plots")
             if getattr(args, name)]
 
 
@@ -194,6 +199,38 @@ def load_model_from_args(args):
     return load_jax_params(model, params)
 
 
+def quantize_from_image(model, image_path, preproc, img_size, device=None):
+    """int8 PTQ for the CLI (the reference's cli/run.py:182-207):
+    calibrate the activation ranges on up to three square crops of side
+    min(h, w, 640) of the input image itself (its corners (0, 0) and
+    (h - s, w - s) and its centre), prepared as the engine prepares
+    tiles, then quantize.  Returns the int8 model, for engines built with
+    fuse=False."""
+    import numpy as np
+
+    from caesar_yolo_tpu_torch.evaluation.evaluate import load_eval_image
+    from caesar_yolo_tpu_torch.models.quant import (
+        calibration_inputs_from_tiles,
+        quantize_model,
+    )
+
+    a = load_eval_image(image_path) if image_path else None
+    if a is None:
+        raise ValueError(f"cannot read calibration image {image_path}")
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w = a.shape[:2]
+    s = min(h, w, 640)
+    corners = {(0, 0), (h - s, w - s), ((h - s) // 2, (w - s) // 2)}
+    tiles = np.stack([a[cy:cy + s, cx:cx + s] for cy, cx in sorted(corners)])
+    calib = calibration_inputs_from_tiles(
+        tiles, preprocessor=preproc, img_size=img_size,
+        nchan=model.in_channels, device=device)
+    logger.info("int8 PTQ: calibrated on %d %dpx crops of %s",
+                len(tiles), s, image_path)
+    return quantize_model(model, calib)
+
+
 def config_from_args(args):
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinderConfig
     return SFinderConfig(
@@ -240,7 +277,8 @@ def _per_image_config(cfg, path: str, n: int):
                    spool_path=_per_image_path(cfg.spool_path, path, n))
 
 
-def run_datalist_tiled(model, cfg, images, preproc, device=None) -> int:
+def run_datalist_tiled(model, cfg, images, preproc, device=None,
+                       engine_kwargs=None) -> int:
     """Tiled detection over a datalist, every image through ONE shared
     TileEngine."""
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
@@ -248,7 +286,8 @@ def run_datalist_tiled(model, cfg, images, preproc, device=None) -> int:
     status, engine = 0, None
     for path in images:
         sf = SFinder(model, _per_image_config(cfg, path, len(images)),
-                     preprocessor=preproc, engine=engine, device=device)
+                     preprocessor=preproc, engine=engine, device=device,
+                     engine_kwargs=engine_kwargs)
         rc = sf.run_tiled()
         engine = sf._engine
         if rc != 0:
@@ -257,7 +296,8 @@ def run_datalist_tiled(model, cfg, images, preproc, device=None) -> int:
     return status
 
 
-def run_datalist_serial(model, cfg, images, preproc, device=None) -> int:
+def run_datalist_serial(model, cfg, images, preproc, device=None,
+                        engine_kwargs=None) -> int:
     """Per-image SFinder runs (outfile overrides, crop windows) sharing ONE
     Predictor."""
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
@@ -266,7 +306,7 @@ def run_datalist_serial(model, cfg, images, preproc, device=None) -> int:
     for path in images:
         sf = SFinder(model, _per_image_config(cfg, path, len(images)),
                      preprocessor=preproc, predictor=predictor,
-                     device=device)
+                     device=device, engine_kwargs=engine_kwargs)
         rc = sf.run()
         predictor = sf._predictor
         if rc != 0:
@@ -275,7 +315,8 @@ def run_datalist_serial(model, cfg, images, preproc, device=None) -> int:
     return status
 
 
-def run_datalist_batched(model, cfg, images, preproc, device=None) -> int:
+def run_datalist_batched(model, cfg, images, preproc, device=None,
+                         engine_kwargs=None) -> int:
     """Whole-image detection over a datalist, batched by shape through the
     BatchedDetector; writes out_<stem>.json and out_<stem>.reg per image
     into the working directory (the reference dispatches the model once
@@ -295,7 +336,7 @@ def run_datalist_batched(model, cfg, images, preproc, device=None) -> int:
         model, preprocessor=preproc, img_size=cfg.img_size,
         score_thr=cfg.score_thr, iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms,
         batch_size=cfg.batch_size, relay_dtype=cfg.relay_dtype,
-        device=device)
+        device=device, **(engine_kwargs or {}))
     detections, shapes = detect_files(detector, images)
     status, n_total = 0, 0
     for path in images:
@@ -344,8 +385,15 @@ def run(argv=None):
     cfg = config_from_args(args)
     preproc = build_preprocessor_from_args(args)
     device = args.devices or None
+    images = read_filelist(args.datalist) if args.datalist else []
+    engine_kwargs = {}
+    if args.int8:
+        calib_image = ((images[0] if images else "") if args.datalist
+                       else args.image)
+        model = quantize_from_image(model, calib_image, preproc,
+                                    args.imgsize, device)
+        engine_kwargs = {"fuse": False}
     if args.datalist:
-        images = read_filelist(args.datalist)
         if args.maxnimgs > 0:
             images = images[:args.maxnimgs]
         if args.split_img_in_tiles:
@@ -356,8 +404,10 @@ def run(argv=None):
             route = run_datalist_serial
         else:
             route = run_datalist_batched
-        return route(model, cfg, images, preproc, device), None
-    sf = SFinder(model, cfg, preprocessor=preproc, device=device)
+        return route(model, cfg, images, preproc, device,
+                     engine_kwargs), None
+    sf = SFinder(model, cfg, preprocessor=preproc, device=device,
+                 engine_kwargs=engine_kwargs)
     rc = sf.run_tiled() if args.split_img_in_tiles else sf.run()
     return (0 if rc == 0 else 1), sf
 

@@ -29,14 +29,17 @@ def prepare_model(model: YOLO, *, fuse: bool, dtype: torch.dtype,
                   device: torch.device) -> YOLO:
     """A copy of `model` ready for inference: BN folded in f32 (the
     reference's fuse_model_params / _fuse_head), conv weights cast to
-    `dtype` (biases stay f32), moved to `device` (channels_last on
-    CUDA)."""
+    `dtype` (biases stay f32; an int8 model's quantized Convs keep their
+    int8 weights and f32 scales), moved to `device` (channels_last on
+    CUDA, which lays int8 weights out as K9 reads them).  The copy's
+    `compute_dtype` is `dtype`."""
     model = copy.deepcopy(model).float().eval()
     if fuse:
         fuse_tree(model)
     model = cast_weights(model.to(device=device), dtype)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
+    model.compute_dtype = dtype
     return model
 
 
@@ -51,14 +54,13 @@ def detect_images(model: YOLO, images: torch.Tensor, *, img_size: int,
     PAD_VALUE / input_scale, then the channels are reversed and the pixels
     scaled, so that ultralytics' 114 pad before its /255 is matched."""
     h, w = images.shape[1:3]
-    stem_w = next(model.parameters())          # first conv, compute dtype
     x = letterbox_nchw(images.permute(0, 3, 1, 2), img_size,
                        pad_value=PAD_VALUE / input_scale)
     if channel_flip:
         x = x.flip(1)
     if input_scale != 1.0:
         x = x * input_scale
-    x = x.to(stem_w.dtype)
+    x = x.to(model.compute_dtype)
     if x.is_cuda:
         x = x.contiguous(memory_format=torch.channels_last)
     boxes, scores = decode_dfl(model(x), img_size)

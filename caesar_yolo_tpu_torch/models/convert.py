@@ -94,10 +94,12 @@ def load_params(path: str):
 
 def state_from_params(params) -> dict[str, torch.Tensor]:
     """The reference's params pytree (numpy arrays) -> the port's
-    state_dict: '/' -> '.', 4-D conv kernels HWIO -> OIHW."""
+    state_dict: '/' -> '.', 4-D conv kernels HWIO -> OIHW; float leaves in
+    f32, the int8 weights of a quantized tree (models/quant.py) in int8."""
     state = {}
     for key, value in _flatten(params):
-        arr = np.asarray(value, dtype=np.float32)
+        arr = np.asarray(value)
+        arr = arr if arr.dtype == np.int8 else arr.astype(np.float32)
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         state[key.replace("/", ".")] = torch.from_numpy(arr.copy())
@@ -106,11 +108,12 @@ def state_from_params(params) -> dict[str, torch.Tensor]:
 
 def params_from_state(state: dict) -> dict:
     """The inverse of `state_from_params`: the port's state_dict -> the
-    reference's params pytree of numpy f32 arrays ('.' -> '/', 4-D conv
-    kernels OIHW -> HWIO)."""
+    reference's params pytree of numpy f32 arrays, int8 weights kept int8
+    ('.' -> '/', 4-D conv kernels OIHW -> HWIO)."""
     flat = {}
     for key, value in state.items():
-        arr = value.detach().cpu().float().numpy()
+        value = value.detach().cpu()
+        arr = (value if value.dtype == torch.int8 else value.float()).numpy()
         if arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)
         # a copy: .numpy() of a CPU tensor shares its memory
@@ -142,8 +145,15 @@ def save_params(model: YOLO, path: str, meta: dict | None = None) -> str:
 
 def load_jax_params(model: YOLO, params) -> YOLO:
     """Carry the reference's params pytree into `model` (strict: every
-    key on both sides must match)."""
-    model.load_state_dict(state_from_params(params), strict=True)
+    key on both sides must match).  A fused tree (no BatchNorm leaves, as
+    the reference's fuse_model_params writes) fuses `model` first; a
+    quantized one (the reference's quantize_model: fused, {wq, ws, xs, b}
+    on the int8 convs) also gives it its int8 layers (quant.int8_layout)."""
+    state = state_from_params(params)
+    if not any(".bn." in k for k in state):
+        from caesar_yolo_tpu_torch.models.quant import int8_layout
+        int8_layout(model, state)
+    model.load_state_dict(state, strict=True)
     return model
 
 

@@ -16,8 +16,12 @@ Inside `train_mode(model)` the convs follow the reference's train mode
 input's dtype on each call, BatchNorm normalises with the current
 batch's f32 mean and biased variance over N, H, W (optionally recording
 them for precise-BN), and in bf16 the conv output is bf16 while BN's
-`y * scale + shift` runs in f32 and is cast back.  int8 is not ported
-yet.
+`y * scale + shift` runs in f32 and is cast back.
+
+int8 PTQ (models/quant.py): inside `quant_calibrate(model)` every Conv
+records the running max|x| of its inputs; `Conv.to_int8` turns a fused
+Conv into the reference's quantized layer (layers.py:139-149), whose
+forward is the int8 conv of models/cuda_qconv.py (kernel K9 on CUDA).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from caesar_yolo_tpu_torch.models import cuda_attn
+from caesar_yolo_tpu_torch.models import cuda_attn, cuda_qconv
 from caesar_yolo_tpu_torch.ops import cuda_upsample
 
 BN_EPS = 1e-3
@@ -49,9 +53,10 @@ def add_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
 
 def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Conv weights to the compute dtype, in place; biases and BN
-    statistics stay f32, as the reference casts only `w`."""
+    statistics stay f32, as the reference casts only `w` (an int8 Conv has
+    none)."""
     for m in module.modules():
-        if isinstance(m, (Conv, Conv2dRaw)):
+        if isinstance(m, (Conv, Conv2dRaw)) and m.w is not None:
             m.w.data = m.w.data.to(dtype)
     return module
 
@@ -81,6 +86,27 @@ class train_mode:
         return False
 
 
+class quant_calibrate:
+    """Context manager: while it is open, every Conv of `module` (in
+    inference mode, not yet int8) records the running max|x| of its input
+    in f32 into the returned dict, keyed by the Conv module (the
+    reference's quant_calibrate, keyed by id(module))."""
+
+    def __init__(self, module: nn.Module, collect: dict | None = None):
+        self.convs = [m for m in module.modules() if isinstance(m, Conv)]
+        self.collect = {} if collect is None else collect
+
+    def __enter__(self):
+        for m in self.convs:
+            m.calib = self.collect
+        return self.collect
+
+    def __exit__(self, *exc):
+        for m in self.convs:
+            m.calib = None
+        return False
+
+
 class BatchNorm(nn.Module):
     """Inference BatchNorm statistics, named as the reference's `bn` dict."""
 
@@ -102,7 +128,10 @@ class Conv(nn.Module):
 
     Unfused, the conv output stays f32 through the BN epilogue and is cast
     to the input dtype afterwards, as in the reference; `fuse()` folds BN
-    into `w` and an f32 bias `b` (in f32, before any cast of the weights)."""
+    into `w` and an f32 bias `b` (in f32, before any cast of the weights).
+    `to_int8` makes a fused Conv the reference's int8 layer: `w` gives way
+    to `wq` (int8, OIHW), `ws` (f32 [cout]) and `xs` (f32, one value),
+    named as the reference's quantized params."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, s: int = 1,
                  groups: int = 1, act: bool = True):
@@ -113,12 +142,22 @@ class Conv(nn.Module):
         self.w = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bn = BatchNorm(cout)
         self.b = None
+        self.register_buffer("wq", None)
+        self.register_buffer("ws", None)
+        self.register_buffer("xs", None)
         self.train_mode = False
         self.bn_collect = None
+        self.calib = None
 
     def forward(self, x):
         if self.train_mode:
             return self._train_forward(x)
+        if self.wq is not None:
+            return cuda_qconv.qconv(x, self.wq, self.ws, self.xs, self.b,
+                                    self.s, self.pad, self.act)
+        if self.calib is not None:
+            amax = float(x.float().abs().amax())
+            self.calib[self] = max(self.calib.get(self, 0.0), amax)
         if self.bn is not None:
             y = F.conv2d(x, self.w, None, self.s, self.pad, 1, self.groups)
             scale, shift = self.bn.scale_shift()
@@ -155,6 +194,18 @@ class Conv(nn.Module):
                               .to(self.w.dtype))
         self.b = nn.Parameter(shift)
         self.bn = None
+
+    @torch.no_grad()
+    def to_int8(self, wq: torch.Tensor, ws: torch.Tensor,
+                xs: torch.Tensor) -> None:
+        """Make this fused Conv an int8 one with the given int8 weights
+        (OIHW), per-output-channel weight scales and input scale."""
+        if self.bn is not None or self.b is None:
+            raise ValueError("to_int8 takes a fused Conv (fuse() first)")
+        self.w = None
+        self.wq = wq.to(torch.int8)
+        self.ws = ws.float()
+        self.xs = xs.float().reshape(())
 
 
 class Conv2dRaw(nn.Module):

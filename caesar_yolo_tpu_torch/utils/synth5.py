@@ -1,0 +1,257 @@
+"""Five-class synthetic radio-source cutouts, rendered on the device.
+
+Counterpart of caesar_yolo_tpu/utils/synth5.py.  The reference's quality
+table is a per-class F1 over five radio morphologies (reference
+README.md:154-161):
+
+  0 spurious             sidelobe / PSF-artifact pattern (ring lobes)
+  1 compact              point-like, ~beam-sized elliptical Gaussian
+  2 extended             elongated multi-component diffuse emission
+  3 extended-multisland  several DISJOINT islands sharing ONE gt box
+  4 flagged              bright source contaminated by a linear artifact
+
+Each cutout holds up to ``max_src`` sources on a jittered 2x2 quadrant
+grid; each slot draws a class and renders it by a masked select over the
+five field formulas, with its ground-truth box at the 2-sigma extent of
+its morphology.
+
+The random draws are split from the rendering, as in train/augment.py:
+`draw_multiclass_params` takes every random value from a torch.Generator
+and `render_multiclass` turns them into images and boxes, vectorised over
+cutouts and slots, as plain PyTorch on the draws' device.  The JAX module
+draws from jax.random key chains instead; the tests rebuild those draws
+and feed them to `render_multiclass`, which computes the JAX module's
+formulas in the same f32 order.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from caesar_yolo_tpu_torch.utils.device import resolve_device
+
+# Reference class ids / names (README.md:154-161).
+CLASS_NAMES = ("spurious", "compact", "extended", "extended-multisland",
+               "flagged")
+NATIVE_SIZE = 132  # the reference dataset's cutout size (README.md:163)
+
+# jittered 2x2 quadrant anchors, in units of the cutout size
+_QUADS = ((0.3, 0.3), (0.7, 0.3), (0.3, 0.7), (0.7, 0.7))
+_ISLANDS = 3
+
+
+def draw_multiclass_params(gen: torch.Generator, batch: int, *,
+                           size: int = NATIVE_SIZE, max_src: int = 4,
+                           noise: float = 0.08) -> dict:
+    """Every random value of `batch` cutouts, from `gen` on its device:
+
+    noise   [B, size, size] f32, the noise plane (noise * N(0, 1))
+    n_src   [B] int64 in [0, max_src], the sources present
+    perm    [B, max_src] int64, the quadrant of each slot
+    cls     [B, max_src] int64 in [0, 4]
+    jitter  [B, max_src, 2] f32 in [-0.08 size, 0.08 size), x and y
+    theta   [B, max_src] f32 in [0, pi)
+    t       [B, max_src, 8] f32 in [0, 1), the shape parameters
+    phi_u, sig_u, amp_u
+            [B, max_src, 3] f32 in [0, 1), the islands' angle offsets,
+            widths and amplitudes (extended-multisland)
+    """
+    dev = gen.device
+    jit_amp = 0.08 * size
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    plane = noise * torch.randn((batch, size, size), generator=gen,
+                                device=dev)
+    n_src = torch.randint(0, max_src + 1, (batch,), generator=gen,
+                          device=dev)
+    perm = torch.argsort(rand(batch, 4), dim=1)[:, :max_src]
+    cls = torch.randint(0, 5, (batch, max_src), generator=gen, device=dev)
+    return {"noise": plane, "n_src": n_src, "perm": perm, "cls": cls,
+            "jitter": rand(batch, max_src, 2) * (2 * jit_amp) - jit_amp,
+            "theta": rand(batch, max_src) * math.pi,
+            "t": rand(batch, max_src, 8),
+            "phi_u": rand(batch, max_src, _ISLANDS),
+            "sig_u": rand(batch, max_src, _ISLANDS),
+            "amp_u": rand(batch, max_src, _ISLANDS)}
+
+
+def _ellipse_extents(sa, sb, ct, st):
+    """Axis-aligned half extents of the 2-sigma rotated ellipse."""
+    hx = 2.0 * torch.sqrt((sa * ct) ** 2 + (sb * st) ** 2)
+    hy = 2.0 * torch.sqrt((sa * st) ** 2 + (sb * ct) ** 2)
+    return hx, hy
+
+
+def _slot_fields(draws: dict, size: int):
+    """The five field formulas of every slot (render_slot,
+    synth5.py:76-157) -> (fields [5, B, S, size, size], half extents
+    hx [5, B, S], hy [5, B, S], cx [B, S], cy [B, S]) in class order."""
+    dev = draws["noise"].device
+    px = size / float(NATIVE_SIZE)  # morphology params scale with size
+    grid = torch.arange(size, dtype=torch.float32, device=dev)
+    yy, xx = grid[:, None], grid[None, :]
+    qc = torch.tensor(_QUADS, dtype=torch.float32, device=dev) * size
+    quad = qc[draws["perm"]]                                  # [B, S, 2]
+    cx = quad[..., 0] + draws["jitter"][..., 0]
+    cy = quad[..., 1] + draws["jitter"][..., 1]
+    theta, t = draws["theta"], draws["t"]
+    ct, st = torch.cos(theta), torch.sin(theta)
+
+    def e(a):  # a per-slot value against the [size, size] grid
+        return a[..., None, None]
+
+    dx, dy = xx - e(cx), yy - e(cy)
+    u = dx * e(ct) + dy * e(st)
+    v = -dx * e(st) + dy * e(ct)
+    r = torch.sqrt(u * u + v * v + 1e-9)
+    tk = [t[..., i] for i in range(8)]
+
+    # -- 1 compact: beam-sized, near-circular
+    sa_c = (2.0 + 2.0 * tk[0]) * px
+    sb_c = sa_c / (1.0 + 0.3 * tk[1])
+    amp_c = 1.0 + 4.0 * tk[2]
+    f_c = e(amp_c) * torch.exp(-0.5 * (u ** 2 / e(sa_c) ** 2
+                                       + v ** 2 / e(sb_c) ** 2))
+    hx_c, hy_c = _ellipse_extents(sa_c, sb_c, ct, st)
+
+    # -- 2 extended: elongated + secondary diffuse component
+    sa_e = (6.0 + 5.0 * tk[0]) * px
+    sb_e = sa_e / (2.2 + 1.8 * tk[1])
+    amp_e = 0.6 + 1.9 * tk[2]
+    off_e = 0.8 * sa_e * (2.0 * tk[3] - 1.0)
+    f_e = (e(amp_e) * torch.exp(-0.5 * (u ** 2 / e(sa_e) ** 2
+                                        + v ** 2 / e(sb_e) ** 2))
+           + e(0.5 * amp_e) * torch.exp(
+               -0.5 * ((u - e(off_e)) ** 2 / e(0.6 * sa_e) ** 2
+                       + v ** 2 / e(sb_e) ** 2)))
+    hx_e, hy_e = _ellipse_extents(sa_e, sb_e, ct, st)
+
+    # -- 3 extended-multisland: 3 disjoint islands, ONE gt box
+    ks = torch.arange(_ISLANDS, dtype=torch.float32, device=dev)
+    phis = (theta[..., None] + ks * (2.0 * np.pi / _ISLANDS)
+            + 0.3 * (2.0 * draws["phi_u"] - 1.0))
+    rad = (7.0 + 5.0 * tk[4]) * px
+    ox = rad[..., None] * torch.cos(phis)
+    oy = rad[..., None] * torch.sin(phis)
+    sig_k = (2.0 + 1.0 * draws["sig_u"]) * px
+    amp_k = (1.0 + 3.0 * tk[5])[..., None] * (0.7 + 0.3 * draws["amp_u"])
+    f_m = sum(e(amp_k[..., k]) * torch.exp(
+        -((dx - e(ox[..., k])) ** 2 + (dy - e(oy[..., k])) ** 2)
+        / e(2.0 * sig_k[..., k] ** 2)) for k in range(_ISLANDS))
+    hx_m = (ox.abs() + 2.0 * sig_k).amax(-1)
+    hy_m = (oy.abs() + 2.0 * sig_k).amax(-1)
+
+    # -- 0 spurious: low-amplitude PSF sidelobe ring pattern
+    r0 = (4.0 + 4.0 * tk[0]) * px
+    amp_s = 0.35 + 0.65 * tk[2]
+    f_s = e(amp_s) * torch.cos(np.pi * r / e(r0)) \
+        * torch.exp(-r ** 2 / e(2.0 * (1.2 * r0) ** 2))
+    hx_s = hy_s = 1.5 * r0
+
+    # -- 4 flagged: bright compact + linear artifact stripe
+    sa_f = (2.0 + 1.5 * tk[0]) * px
+    amp_f = 3.0 + 5.0 * tk[2]
+    wl = (7.0 + 6.0 * tk[3]) * px
+    ww = (1.0 + 1.0 * tk[4]) * px
+    f_f = e(amp_f) * torch.exp(-0.5 * (u ** 2 + v ** 2) / e(sa_f) ** 2) \
+        + e(0.35 * amp_f) * torch.exp(-0.5 * (v ** 2 / e(ww) ** 2
+                                              + u ** 2 / e(wl) ** 2))
+    hx_f = torch.maximum(2.0 * sa_f,
+                         2.0 * wl * ct.abs() + 2.0 * ww * st.abs())
+    hy_f = torch.maximum(2.0 * sa_f,
+                         2.0 * wl * st.abs() + 2.0 * ww * ct.abs())
+
+    return (torch.stack([f_s, f_c, f_e, f_m, f_f]),
+            torch.stack([hx_s, hx_c, hx_e, hx_m, hx_f]),
+            torch.stack([hy_s, hy_c, hy_e, hy_m, hy_f]), cx, cy)
+
+
+def render_multiclass(draws: dict, *, size: int = NATIVE_SIZE,
+                      max_src: int = 4):
+    """Draws (`draw_multiclass_params`) -> (img3 [B, size, size, 3] f32 in
+    [0, 1], labels [B, max_src] int64, boxes [B, max_src, 4] xyxy in
+    cutout pixels, mask [B, max_src] bool), on the draws' device.
+
+    Each slot's field and box are its class's, selected by a one-hot mask
+    as the reference does; masked slots add nothing; the slots are added
+    to the noise plane in slot order and the sum is min-max normalised
+    (the FITS load convention of train/dataset.load_sample)."""
+    fields, hxs, hys, cx, cy = _slot_fields(draws, size)
+    cls = draws["cls"]
+    onehot = torch.arange(5, device=cls.device)[:, None, None] == cls
+    field = torch.where(onehot[..., None, None], fields, 0.0).sum(0)
+    hx = torch.where(onehot, hxs, 0.0).sum(0)
+    hy = torch.where(onehot, hys, 0.0).sum(0)
+    boxes = torch.stack([cx - hx, cy - hy, cx + hx, cy + hy], dim=-1)
+    boxes = boxes.clamp(0.0, float(size))
+    mask = torch.arange(max_src, device=cls.device) < draws["n_src"][:, None]
+    img = draws["noise"]
+    for j in range(max_src):
+        img = img + torch.where(mask[:, j, None, None], field[:, j], 0.0)
+    lo = img.amin(dim=(1, 2), keepdim=True)
+    hi = img.amax(dim=(1, 2), keepdim=True)
+    img = (img - lo) / torch.clamp(hi - lo, min=1e-6)
+    return img[..., None].repeat(1, 1, 1, 3), cls, boxes, mask
+
+
+def make_multiclass_batch(seed: int, batch: int, *, size: int = NATIVE_SIZE,
+                          max_src: int = 4, noise: float = 0.08,
+                          device=None):
+    """`batch` cutouts from `seed` -> render_multiclass's tensors on
+    `device` (CUDA by default; "cpu" for the CPU).  The draws come from a
+    CPU generator, so a seed gives the same cutouts on every device."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    draws = draw_multiclass_params(gen, batch, size=size, max_src=max_src,
+                                   noise=noise)
+    draws = {k: v.to(dev) for k, v in draws.items()}
+    return render_multiclass(draws, size=size, max_src=max_src)
+
+
+def write_multiclass_dataset(directory: str, n_images: int,
+                             seed: int = 0, size: int = NATIVE_SIZE,
+                             max_src: int = 4, device=None):
+    """Write a YOLO-format dataset (FITS cutouts, label txts and
+    dataset.yaml) of five-class cutouts, the files cli.train and
+    cli.evaluate read; the reference's file names and label lines.
+    Returns the image paths."""
+    from caesar_yolo_tpu_torch.utils.fits import FitsHeader, write_fits
+
+    img_dir = os.path.join(directory, "images")
+    lab_dir = os.path.join(directory, "labels")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(lab_dir, exist_ok=True)
+    imgs, labels, boxes, mask = (
+        t.cpu().numpy() for t in make_multiclass_batch(
+            seed, n_images, size=size, max_src=max_src, device=device))
+    header = FitsHeader()
+    header["BUNIT"] = "JY/BEAM"
+    paths = []
+    for i in range(n_images):
+        stem = f"synth5_{seed}_{i:05d}"
+        fpath = os.path.join(img_dir, stem + ".fits")
+        write_fits(imgs[i, :, :, 0].astype(np.float32), fpath, header)
+        lines = []
+        for j in range(max_src):
+            if not mask[i, j]:
+                continue
+            x0, y0, x1, y1 = boxes[i, j]
+            cxn = (x0 + x1) / 2.0 / size
+            cyn = (y0 + y1) / 2.0 / size
+            wn = (x1 - x0) / size
+            hn = (y1 - y0) / size
+            lines.append(f"{int(labels[i, j])} {cxn:.6f} {cyn:.6f} "
+                         f"{wn:.6f} {hn:.6f}")
+        with open(os.path.join(lab_dir, stem + ".txt"), "w") as fh:
+            fh.write("\n".join(lines) + ("\n" if lines else ""))
+        paths.append(fpath)
+    with open(os.path.join(directory, "dataset.yaml"), "w") as fh:
+        fh.write("names:\n" + "".join(
+            f"  {i}: {n}\n" for i, n in enumerate(CLASS_NAMES)))
+    return paths

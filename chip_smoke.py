@@ -79,6 +79,29 @@ Phases (any failure exits non-zero before the last line):
             labelled 132 px PNG cutouts (README chain, K3 once a batch),
             images/s; JPEG through Pillow where it imports, else refused
             with the error that names it
+  synth5    64 five-class cutouts (utils/synth5.py) rendered on the card
+            against the plain CPU render of the same draws (labels and
+            masks equal, images within 1e-5, boxes within 1e-4 px); then
+            the trained tests/fixtures/torch_quality5_v8n.npz (yolov8n)
+            in bf16 at 640 px on 512 held-out cutouts: the quality gate
+            (macro-F1 > 0.5, every class's F1 > 0.2) and its table
+  golden-bf16
+            the port's bf16 Predictor at 640 px with the trained model on
+            16 cutouts against the JAX package's bf16 outputs
+            (tests/fixtures/torch_port_golden_bf16_q5.npz), by ROADMAP's
+            bf16 rule (tests/test_torch_golden_bf16.bf16_mismatch)
+  int8      K9 (csrc/qconv.cu, the int8 conv) bit-equal to its plain version
+            on the shapes of QCONV_SHAPES and, by forward hooks, on every
+            dense conv of yolo11l at 640 px, batch 32; cli.run --int8
+            serially on the mosaic's 640x640 crop with yolo11l (calibrated
+            on three crops of the mosaic; K1-K4 and K9 counted); the
+            trained five-class model in int8 on the 512 held-out cutouts:
+            the quality gate, the macro-F1 drop from bf16, and the cutouts
+            on which the JAX quality test's per-image rule (same count,
+            IoU >= 0.85, same classes, scores within 0.1) holds against
+            bf16, beside the same count for f32 against bf16;
+            TileEngine staged tiles/s of yolo11l@640 batch 32, bf16 and
+            int8 in turns; K9's timing row
   golden-train
             2 f32 steps (TF32 off) of the port's Trainer on the committed
             batch from yolov8n_synth96 against the JAX Trainer's numbers
@@ -117,7 +140,9 @@ Phases (any failure exits non-zero before the last line):
             rows join the `kernels` line)
   timing    each kernel, its plain version and (where one exists) the
             PyTorch library call, by CUDA events (K1, K2, K2's backward,
-            K3, K5, K6 and K8 also by device time under torch.profiler, K1,
+            K3, K5, K6, K8 and K9 also by device time under torch.profiler,
+            K9 beside torch._int_mm on its unfolded input and cuDNN's bf16
+            conv of the same shape, K1,
             K2's backward, K3, K4's backward, K6 and K8 per launch, K2 at
             both N, K3 also at the eval cutouts, K7's whole call at the
             eval cutouts and the tile size beside the stream route's
@@ -136,6 +161,7 @@ JAX or the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -149,6 +175,8 @@ from contextlib import nullcontext
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the device of the synth5, golden-bf16 and int8 phases
+DEVICE = "cuda"
 MAIN_BATCH = 32
 MAIN_BATCHES = 3
 MAIN_SIZE = 640
@@ -156,7 +184,15 @@ PRE_NMS = 512
 
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# device_ms queues its calls behind a spin of QUEUE_SPIN_CYCLES GPU cycles
+# (at least QUEUE_SPIN_S at the H100's 1980 MHz) and kernel_split opens
+# each profiler session with PROFILE_PRIME launches of a 1000-cycle spin:
+# torch.profiler drops the first records of a session, one more about
+# every 13 s of the process's life, whatever the kernels' lengths
+# (scripts/torch_profiler_clock.py; PERF.md §6)
+QUEUE_SPIN_CYCLES, QUEUE_SPIN_S = 200_000_000, 0.1
+PROFILE_PRIME = 256
 
 # tolerances of the parity phase (bf16 attention: cuda_attn.bf16_mismatch,
 # at most BF16_ATOL and a changed share of at most BF16_MAX_CHANGED_SHARE;
@@ -265,12 +301,43 @@ MOSAIC_MODES = {
     "global": (MOSAIC_CHAIN, ["--preproc_context=global"], "full"),
     "global-readme": (README_CHAIN, ["--preproc_context=global"], "full"),
 }
-# whole-mosaic planes: the phase's mosaic, and a plane at half the
-# device-tiling cap (1 GiB of f32)
-# the mosaic's plane, a survey field's, and one past 2^30 values (4 GiB in
+# whole-mosaic planes: the mosaic's plane, a survey field's, and one past 2^30 values (4 GiB in
 # f32; the stream routes' 64-bit indices)
 WHOLE_PLANES = ((1, MOSAIC_SIZE, MOSAIC_SIZE), (1, 16384, 16384),
                 (1, 32769, 32768))
+# the synth5 phase: cutouts rendered on the card against the CPU (rules of
+# tests/test_torch_synth5.py), the trained five-class model and its
+# held-out evaluation
+SYNTH5_PARITY = 64
+SYNTH5_IMG_TOL, SYNTH5_BOX_TOL = 1e-5, 1e-4
+QUALITY5_NPZ = os.path.join("tests", "fixtures", "torch_quality5_v8n.npz")
+QUALITY5_EVAL = 512
+# the JAX quality test's int8 rules (tests/test_quant.py): IoU >= 0.85, the
+# same classes, scores within 0.1, per image
+INT8_IOU, INT8_SCORE_TOL = 0.85, 0.1
+# the trained model in int8 against its bf16 on the held-out cutouts: its
+# macro-F1 at most INT8_MF1_DROP below, and the per-image rule holding on
+# at least INT8_RULE_HELD of them.  Set from this script's readings on the
+# H100 (PERF.md §6): the sound int8 model -0.0005 and 476; the control,
+# every int8 conv's xs times INT8_CONTROL_XS, 0.0378 and 427, must miss
+INT8_MF1_DROP = 0.02
+INT8_RULE_HELD = 450
+INT8_CONTROL_XS = 1.25
+# K9's parity shapes: the stem (cin 3, 3x3 stride 2), 3x3 stride 1 and 2,
+# 1x1, odd cout and cin not multiples of 16 or 32, batch 1 to 32, bf16 and
+# f32, in the layouts the model hands over (channels_last, a channel slice
+# of it, NCHW): (b, cin, cout, h, w, k, stride, dtype, layout)
+QCONV_SHAPES = (
+    (2, 3, 16, 24, 24, 3, 2, "bfloat16", "channels_last"),
+    (1, 3, 64, 17, 19, 3, 2, "float32", "nchw"),
+    (3, 32, 48, 12, 12, 3, 1, "bfloat16", "channels_last"),
+    (2, 64, 64, 10, 9, 3, 2, "float32", "channels_last"),
+    (4, 40, 72, 8, 8, 1, 1, "bfloat16", "slice"),
+    (2, 13, 37, 11, 7, 3, 1, "float32", "slice"),
+    (1, 19, 5, 9, 10, 1, 1, "bfloat16", "nchw"),
+    (32, 24, 20, 6, 6, 3, 1, "bfloat16", "channels_last"),
+    (32, 17, 131, 4, 4, 3, 2, "float32", "channels_last"),
+)
 
 
 def log(*args):
@@ -301,22 +368,27 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters=20, by_kernel=False):
-    """Device time of fn() in ms: the time of the kernels it launches under
-    torch.profiler over iters calls, over iters (no host launch gaps); with
-    by_kernel, {kernel name: ms a call}."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(torch, fn, iters=20):
+    """Device time of fn() in ms a call: CUDA events around iters calls
+    queued behind a spin of QUEUE_SPIN_CYCLES, so the card runs them back
+    to back (no host launch gap; the card's own gap between launches, about
+    a microsecond, stays in).  A host that takes longer than the spin to
+    queue the calls fails the run."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    names = Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            names[e.name] += e.device_time_total / 1e3 / iters
-    return dict(names) if by_kernel else sum(names.values())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    require(host < QUEUE_SPIN_S, f"device_ms: the host took {host:.3f} s "
+            f"to queue {iters} calls, longer than the spin")
+    return start.elapsed_time(end) / iters
 
 
 def kernel_name(name):
@@ -328,13 +400,26 @@ def kernel_name(name):
     return short.strip() or name
 
 
-def kernel_split(torch, fn):
-    """{kernel name: device ms a call} of fn() under torch.profiler, the
-    launches of kernels of one name summed."""
+def kernel_split(torch, fn, iters=20):
+    """{kernel name: device ms a call} of fn(): device_ms shared among the
+    kernels it launches (launches of one name summed) by their time under
+    torch.profiler, in a session opened by PROFILE_PRIME spins, left out."""
+    from torch.profiler import ProfilerActivity, profile
+    total = device_ms(torch, fn, iters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PRIME):
+            torch.cuda._sleep(1000)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
     split = Counter()
-    for name, ms in device_ms(torch, fn, by_kernel=True).items():
-        split[kernel_name(name)] += ms
-    return {name: round(ms, 5) for name, ms in split.items()}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.name):
+            split[kernel_name(e.name)] += e.device_time_total
+    kept = sum(split.values())
+    require(kept > 0, "kernel_split: the profiler kept no kernel record")
+    return {name: round(total * t / kept, 5) for name, t in split.items()}
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -780,6 +865,398 @@ def parity_train_kernels(torch, dev, errs, inputs):
                 del imgs, shifts, got, ref
     require(bad == 0, "row shift kernel differs")
     errs["shift"] = 0.0
+
+
+def qconv_case(torch, shape, dev, seed):
+    """K9's inputs for a QCONV_SHAPES entry on `dev`, drawn on the CPU from
+    `seed`: x in the entry's layout, wq int8 in channels_last memory
+    ([cout][k][k][cin], as prepare_model lays it out), ws, xs (a little
+    under max|x| / 127, so some inputs clip) and b."""
+    b, cin, cout, h, w, k, _, dtype, layout = shape
+    g = torch.Generator().manual_seed(seed)
+    dtype = getattr(torch, dtype)
+    if layout == "slice":        # a channel slice of a channels_last tensor
+        x = (torch.randn((b, 2 * cin + 3, h, w), generator=g) * 1.7).to(
+            dev, dtype).contiguous(memory_format=torch.channels_last)
+        x = x[:, cin + 3:]
+    else:
+        x = (torch.randn((b, cin, h, w), generator=g) * 1.7).to(dev, dtype)
+        if layout == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                       dtype=torch.int8).to(dev).contiguous(
+                           memory_format=torch.channels_last)
+    ws = (torch.rand(cout, generator=g) * 0.02 + 1e-4).to(dev)
+    bias = torch.randn(cout, generator=g).to(dev)
+    xs = (x.float().abs().amax() / 127.0 * 0.9).reshape(())
+    return x, wq, ws, xs, bias
+
+
+def phase_synth5(torch):
+    """Five-class cutouts rendered on the card against the plain CPU render
+    of the same draws, then the trained five-class model in bf16 on the
+    held-out cutouts (the quality gate).  Returns (the model, its
+    macro-F1 and merged detections)."""
+    from caesar_yolo_tpu_torch.models.convert import load_model
+    from caesar_yolo_tpu_torch.utils.synth5 import (CLASS_NAMES,
+                                                    draw_multiclass_params,
+                                                    render_multiclass)
+    q5 = script("torch_train_quality5")
+    draws = draw_multiclass_params(
+        torch.Generator().manual_seed(q5.HELDOUT_SEED0), SYNTH5_PARITY)
+    ref = render_multiclass(draws)
+    dev_draws = {k: v.to(DEVICE) for k, v in draws.items()}
+    got = [t.cpu() for t in render_multiclass(dev_draws)]
+    render_ms = time_ms(torch, lambda: render_multiclass(dev_draws), iters=10)
+    img_err = float((got[0] - ref[0]).abs().max())
+    box_err = float((got[2] - ref[2]).abs().max())
+    same = torch.equal(got[1], ref[1]) and torch.equal(got[3], ref[3])
+    log(f"synth5: {SYNTH5_PARITY} cutouts rendered on the card in "
+        f"{render_ms:.3f} ms against the CPU render of the same draws: "
+        f"labels and masks equal {same}, images max abs err {img_err:.3g} "
+        f"(limit {SYNTH5_IMG_TOL}), boxes {box_err:.3g} px (limit "
+        f"{SYNTH5_BOX_TOL})")
+    require(same and img_err <= SYNTH5_IMG_TOL and box_err <= SYNTH5_BOX_TOL,
+            "synth5: the card's render differs from the CPU's")
+
+    model, meta = load_model(os.path.join(REPO, QUALITY5_NPZ))
+    t0 = time.perf_counter()
+    mf1, pl, table = q5_heldout(q5, model)
+    wall = time.perf_counter() - t0
+    log(f"synth5: {QUALITY5_NPZ} ({meta.get('steps')} steps, trained "
+        f"macro-F1 {meta.get('macro_f1')}) on {QUALITY5_EVAL} held-out "
+        f"cutouts at {MAIN_SIZE} px, bf16: macro-F1 {mf1:.4f}, "
+        f"{QUALITY5_EVAL / wall:.1f} cutouts/s")
+    for name in (*CLASS_NAMES, "source_cumulative"):
+        log(f"  {name}: {table[name]}")
+    require(q5.passes_gate(table, CLASS_NAMES),
+            "synth5: the trained model is below the quality gate")
+    return model, (mf1, pl)
+
+
+def q5_heldout(q5, model, **kw):
+    """One five-class model's held-out evaluation at 640 px (Predictor
+    keywords `kw`; bf16 by default) -> (macro-F1, merged detections per
+    cutout, class table)."""
+    from caesar_yolo_tpu_torch.detect.predictor import Predictor
+    from caesar_yolo_tpu_torch.utils.synth5 import CLASS_NAMES
+    pred = Predictor(model, img_size=MAIN_SIZE, score_thr=q5.EVAL_SCORE_THR,
+                     iou_thr=0.5, **kw)
+    rep, _, pl = q5.evaluate_predictor(pred, QUALITY5_EVAL,
+                                       q5.HELDOUT_SEED0, DEVICE)
+    table = q5.class_table(rep, CLASS_NAMES)
+    return q5.macro_f1(table, CLASS_NAMES), pl, table
+
+
+def phase_golden_bf16(torch):
+    """The port's bf16 Predictor at 640 px on the card against the JAX
+    package's bf16 outputs on 16 five-class cutouts with the trained model
+    (tests/test_torch_golden_bf16.py writes them and holds ROADMAP's bf16
+    rule)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_torch_golden_bf16 as golden_bf16
+
+    golden = golden_bf16.load_golden()
+    got = golden_bf16.port_outputs(golden["images"], DEVICE)
+    why = golden_bf16.detection_mismatch(golden, got)
+    gaps = golden_bf16.logit_gaps(golden, got)
+    log(f"golden-bf16: {int(got['valid'].sum())} detections on "
+        f"{len(golden['images'])} cutouts at 640 px against the JAX bf16 "
+        f"fixture's {int(golden['valid'].sum())}: bf16 partners both ways "
+        f"-> {why or 'ok'}; stride mean class logits "
+        f"{np.round(got['cls_mean'], 5).tolist()} vs "
+        f"{np.round(golden['cls_mean'], 5).tolist()}, gaps "
+        f"{np.round(gaps, 5).tolist()} against the rule's "
+        f"{golden_bf16.LOGIT_MEAN_TOL}: "
+        + ("ok" if (gaps <= golden_bf16.LOGIT_MEAN_TOL).all()
+           else "past the rule, the recorded fault of ROADMAP Queue 3"))
+    require(why is None, f"golden-bf16: {why}")
+    return gaps
+
+
+def quality_rule_failure(a, b):
+    """The JAX quality test's per-image rule (tests/test_quant.py:
+    test_quantized_detection_quality) on two merged detection sets
+    ({"bboxes", "scores", "labels"}): the same count, every box of a with
+    a box of b at IoU >= 0.85, the same classes, the sorted scores within
+    0.1.  Returns the first part that fails, or None."""
+    from caesar_yolo_tpu_torch.utils.boxes import iou_matrix_np
+    if len(a["scores"]) != len(b["scores"]):
+        return "count"
+    if not len(a["scores"]):
+        return None
+    iou = iou_matrix_np(np.asarray(a["bboxes"], float).reshape(-1, 4),
+                        np.asarray(b["bboxes"], float).reshape(-1, 4))
+    if not (iou.max(axis=1) >= INT8_IOU).all():
+        return "iou"
+    if sorted(a["labels"]) != sorted(b["labels"]):
+        return "class"
+    if np.abs(np.sort(a["scores"]) - np.sort(b["scores"])).max() \
+            >= INT8_SCORE_TOL:
+        return "score"
+    return None
+
+
+def rule_failures(ref, got):
+    """{part: cutouts} of quality_rule_failure over paired cutouts."""
+    return dict(Counter(filter(None, (quality_rule_failure(a, b)
+                                      for a, b in zip(ref, got)))))
+
+
+def int8_miss(bf16, got):
+    """The int8-against-bf16 limits on two held-out evaluations (macro-F1,
+    detections) -> (what `got` misses of them or None, the cutouts on which
+    the per-image rule held, its failing parts)."""
+    fails = rule_failures(bf16[1], got[1])
+    held = QUALITY5_EVAL - sum(fails.values())
+    drop = bf16[0] - got[0]
+    why = ([f"macro-F1 {drop:.4f} below bf16's (limit {INT8_MF1_DROP})"]
+           if drop > INT8_MF1_DROP else [])
+    if held < INT8_RULE_HELD:
+        why.append(f"the per-image rule held on {held}/{QUALITY5_EVAL} "
+                   f"cutouts (limit {INT8_RULE_HELD})")
+    return "; ".join(why) or None, held, fails
+
+
+def qconv_parity(torch, cuda_qconv):
+    """K9 against qconv_plain on QCONV_SHAPES (both activations); returns
+    the largest abs error (bit-equal: 0)."""
+    err = 0.0
+    for i, shape in enumerate(QCONV_SHAPES):
+        x, wq, ws, xs, b = qconv_case(torch, shape, DEVICE, i)
+        for act in (True, False):
+            got = cuda_qconv.qconv(x, wq, ws, xs, b, shape[6], shape[5] // 2,
+                                   act)
+            ref = cuda_qconv.qconv_plain(x, wq, ws, xs, b, shape[6],
+                                         shape[5] // 2, act)
+            e = float((got.float() - ref.float()).abs().max())
+            log(f"parity K9 qconv {shape} act={act}: bit-equal "
+                f"{torch.equal(got, ref)}, max abs err {e:.3g}")
+            require(torch.equal(got, ref), f"K9 differs at {shape}")
+            err = max(err, e)
+    return err
+
+
+def qconv_model_parity(torch, cuda_qconv, qmodel, x):
+    """Every int8 conv of one forward of the prepared int8 model on x,
+    held to qconv_plain on its own input (bit-equal) by forward hooks.
+    Returns ({(cin, cout, h, w, k, stride): count}, max abs err)."""
+    from caesar_yolo_tpu_torch.models.layers import Conv
+    shapes, errs = Counter(), [0.0]
+
+    def check(m, args, out):
+        xin = args[0]
+        ref = cuda_qconv.qconv_plain(xin, m.wq, m.ws, m.xs, m.b, m.s, m.pad,
+                                     m.act)
+        key = (m.cin, m.cout, xin.shape[2], xin.shape[3], m.k, m.s)
+        require(torch.equal(out, ref), f"K9 differs in yolo11l at {key}")
+        errs[0] = max(errs[0], float((out.float() - ref.float()).abs().max()))
+        shapes[key] += 1
+
+    hooks = [m.register_forward_hook(check) for m in qmodel.modules()
+             if isinstance(m, Conv) and m.wq is not None]
+    try:
+        with torch.inference_mode():
+            qmodel(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes, errs[0]
+
+
+def qconv_timing(torch, cuda_qconv, key, err):
+    """K9's row of the kernels line at one yolo11l shape (batch 32, bf16):
+    CUDA events and device time, the plain version, the bound (bytes, and
+    int8 ops at the dense peak), torch._int_mm on the unfolded int8 input
+    (the same integer product) as the library time, and cuDNN's bf16 conv
+    of the shape beside it."""
+    import torch.nn.functional as F
+    cin, cout, h, w, k, stride = key
+    g = torch.Generator().manual_seed(9)
+    x = (torch.randn((MAIN_BATCH, cin, h, w), generator=g)).to(
+        DEVICE, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                       dtype=torch.int8).to(DEVICE).contiguous(
+                           memory_format=torch.channels_last)
+    ws = (torch.rand(cout, generator=g) * 0.01 + 1e-4).to(DEVICE)
+    b = torch.randn(cout, generator=g).to(DEVICE)
+    xs = (x.float().abs().amax() / 127.0).reshape(())
+    pad = k // 2
+    kernel = lambda: cuda_qconv.qconv(x, wq, ws, xs, b, stride, pad, True)
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    m, kk = MAIN_BATCH * ho * wo, k * k * cin
+    nbytes = x.numel() * 2 + wq.numel() + m * cout * 2 + 8 * cout + 4
+    row = dict(ms=time_ms(torch, kernel, iters=100, warmup=10),
+               plain_ms=time_ms(torch, lambda: cuda_qconv.qconv_plain(
+                   x, wq, ws, xs, b, stride, pad, True), iters=5),
+               bound=bound_ms(nbytes, 2 * m * cout * kk, "int8"))
+    split = kernel_split(torch, kernel)
+    again = time_ms(torch, kernel, iters=100, warmup=10)
+    xq = cuda_qconv.quantize_input(x, xs)
+    a = F.unfold(xq, k, padding=pad, stride=stride).transpose(1, 2).reshape(
+        m, kk).to(torch.int8).contiguous()
+    # F.unfold orders K as (c, r, s): the weights [K, N] in that order
+    bt = wq.permute(1, 2, 3, 0).reshape(kk, cout).contiguous()
+    row["library_ms"] = time_ms(torch, lambda: torch._int_mm(a, bt))
+    wb = torch.randn((cout, cin, k, k), generator=g).to(
+        DEVICE, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cudnn_ms = time_ms(torch, lambda: F.conv2d(x, wb, None, stride, pad))
+    log(f"timing K9 qconv [{MAIN_BATCH},{cin},{h},{w}] bf16 -> {cout} ch, "
+        f"{k}x{k} stride {stride} (yolo11l's most launched 3x3 shape at "
+        f"640 px; M={m} N={cout} K={kk}): {row['ms']:.5f} ms (after the "
+        f"profiler {again:.5f}; device {sum(split.values()):.5f}: {split}), "
+        f"plain {row['plain_ms']:.5f}, "
+        f"bound {row['bound'][0]:.6f} ({row['bound'][1]}); torch._int_mm on "
+        f"the unfolded int8 input {row['library_ms']:.5f} ms; cuDNN's bf16 "
+        f"conv of the shape {cudnn_ms:.5f} ms")
+    row["cudnn_bf16_ms"] = cudnn_ms
+    row["max_abs_err"] = err
+    return row
+
+
+def phase_int8(torch, counters, tmp, q5_model, q5_bf16):
+    """int8 PTQ on the card: K9 bit-equal to its plain version on
+    QCONV_SHAPES and on every dense conv of yolo11l at 640 px, batch 32
+    (forward hooks on real activations); cli.run --int8 serially on the
+    mosaic's 640x640 crop with yolo11l (K1-K4 and K9 counted); the trained
+    five-class model in int8 on the held-out cutouts (the quality gate and
+    the limits against bf16, which a control must miss); TileEngine staged
+    tiles/s of yolo11l at 640 px, batch 32, int8 and bf16 in turns; K9's
+    timing row.  `q5_bf16` is the trained model's bf16 (macro-F1,
+    detections).  Returns (the row, K9's launches on the CLI path)."""
+    from caesar_yolo_tpu_torch.detect.predictor import prepare_model
+    from caesar_yolo_tpu_torch.models import cuda_qconv, quant
+    from caesar_yolo_tpu_torch.models.layers import Conv
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+    from caesar_yolo_tpu_torch.utils.synth5 import (CLASS_NAMES,
+                                                    make_multiclass_batch)
+    q5 = script("torch_train_quality5")
+
+    err = qconv_parity(torch, cuda_qconv)
+    # yolo11l, calibrated on the main path's tiles with the README chain
+    pre = build_preprocessor(zscale_stretch=True, normalize_minmax=True)
+    model = init_weights(build_model("yolo11l"), seed=0)
+    tiles = make_main_tiles(MAIN_BATCH)
+    calib = quant.calibration_inputs_from_tiles(tiles[:4], preprocessor=pre,
+                                                img_size=MAIN_SIZE)
+    qmodel = quant.quantize_model(model, calib)
+    n_int8 = sum(isinstance(m, Conv) and m.wq is not None
+                 for m in qmodel.modules())
+    x = quant.calibration_inputs_from_tiles(
+        np.concatenate([tiles[:MAIN_BATCH // 2], tiles[MAIN_BATCH // 2 + 1:],
+                        tiles[:1]]), preprocessor=pre, img_size=MAIN_SIZE)[0]
+    shapes, e = qconv_model_parity(
+        torch, cuda_qconv, prepare_model(qmodel, fuse=False,
+                                         dtype=torch.bfloat16,
+                                         device=torch.device(DEVICE)), x)
+    err = max(err, e)
+    log(f"parity K9 on yolo11l@{MAIN_SIZE} batch {MAIN_BATCH}: {n_int8} "
+        f"int8 convs of {len(shapes)} shapes, every one bit-equal to "
+        f"qconv_plain on its own input: {dict(shapes)}")
+    require(sum(shapes.values()) == n_int8, "K9 parity missed a conv")
+    top = max((kv for kv in shapes.items() if kv[0][4] == 3),
+              key=lambda kv: (kv[1], kv[0][0] * kv[0][2] * kv[0][3]))[0]
+
+    # cli.run --int8 on the crop: the calibration (3 crops of the whole
+    # mosaic, one batch: K3 once, one bf16 forward: K2 twice, K4 twice),
+    # then one int8 forward
+    flags = [f"--image={os.path.join(tmp, 'mosaic.fits')}", "--xmin=0",
+             "--xmax=639", "--ymin=0", "--ymax=639",
+             f"--scoreThr={MOSAIC_SCORE_THR}", *README_CHAIN, "--int8",
+             f"--weights={os.path.join(tmp, 'yolo11l_seed0.npz')}",
+             f"--detect_outfile_json={os.path.join(tmp, 'int8.json')}",
+             f"--detect_outfile={os.path.join(tmp, 'int8.reg')}"]
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc, _ = cli_run.run(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    expect = readme_launches(counters)
+    expect.update(preproc=2, attn=4, upsample=4, qconv=n_int8)
+    with open(os.path.join(tmp, "int8.json")) as f:
+        cat = json.load(f)
+    log(f"int8: cli.run --int8 yolo11l on the 640x640 crop (README chain): "
+        f"{len(cat['objs'])} objects in {wall:.3f} s; launches {launches}")
+    require(rc == 0 and launches == expect,
+            f"int8: cli.run --int8 launched {launches}, expected {expect}")
+
+    # the trained five-class model: int8 against bf16 on the held-out set
+    # by the limits, the control against them; int8 calibrated in f32 (a
+    # calibration mistake that only the CPU tests can see) and f32 (TF32
+    # off) against bf16 by the same measures: what rounding alone does
+    cal = make_multiclass_batch(q5.CAL_SEED0, 16, max_src=q5.MAX_SRC,
+                                device=DEVICE)[0]
+    q5_int8, q5_int8_f32cal = (quant.quantize_model(
+        q5_model, quant.calibration_inputs_from_tiles(
+            cal, img_size=MAIN_SIZE, compute_dtype=dt))
+        for dt in (torch.bfloat16, torch.float32))
+    t0 = time.perf_counter()
+    mf1, pl, table = got = q5_heldout(q5, q5_int8, fuse=False)
+    wall = time.perf_counter() - t0
+    why, held, fails = int8_miss(q5_bf16, got)
+    control = copy.deepcopy(q5_int8)
+    for m in control.modules():
+        if isinstance(m, Conv) and m.wq is not None:
+            m.xs *= INT8_CONTROL_XS
+    ctl = q5_heldout(q5, control, fuse=False)
+    why_ctl, held_ctl, fails_ctl = int8_miss(q5_bf16, ctl)
+    f32cal = q5_heldout(q5, q5_int8_f32cal, fuse=False)
+    why_f32cal, held_f32cal, _ = int8_miss(q5_bf16, f32cal)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        pl32 = q5_heldout(q5, q5_model, compute_dtype=torch.float32)[1]
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    fails32 = rule_failures(q5_bf16[1], pl32)
+    log(f"int8: the trained five-class model in int8 on {QUALITY5_EVAL} "
+        f"held-out cutouts: macro-F1 {mf1:.4f} against bf16 "
+        f"{q5_bf16[0]:.4f} (drop {q5_bf16[0] - mf1:+.4f}, limit "
+        f"{INT8_MF1_DROP}), {QUALITY5_EVAL / wall:.1f} cutouts/s; the JAX "
+        f"quality test's per-image rule (same count, IoU >= {INT8_IOU}, "
+        f"same classes, scores within {INT8_SCORE_TOL}) holds on "
+        f"{held}/{QUALITY5_EVAL} cutouts (limit {INT8_RULE_HELD}; failing "
+        f"parts {fails}) -> {why or 'ok'}; the control (every xs times "
+        f"{INT8_CONTROL_XS}): macro-F1 {ctl[0]:.4f} (drop "
+        f"{q5_bf16[0] - ctl[0]:+.4f}),"
+        f" rule held on {held_ctl}/{QUALITY5_EVAL} ({fails_ctl}) -> "
+        f"{why_ctl or 'ok'}; calibrated in f32: macro-F1 {f32cal[0]:.4f}, "
+        f"rule held on {held_f32cal}/{QUALITY5_EVAL} -> {why_f32cal or 'ok'}"
+        f"; f32 against bf16 by the rule: "
+        f"{QUALITY5_EVAL - sum(fails32.values())}/{QUALITY5_EVAL} "
+        f"({fails32})")
+    for name in (*CLASS_NAMES, "source_cumulative"):
+        log(f"  {name}: {table[name]}")
+    require(why is None, f"int8: the trained model in int8 against bf16: "
+            f"{why}")
+    require(why_ctl is not None, "int8: the control passed the limits")
+    require(q5.passes_gate(table, CLASS_NAMES),
+            "int8: the trained model in int8 is below the quality gate")
+
+    # staged tiles/s of yolo11l at 640 px, batch 32: bf16, int8, int8, bf16
+    kw = dict(img_size=MAIN_SIZE, score_thr=1e-3, iou_thr=0.5,
+              pre_nms=PRE_NMS)
+    engines = {"bf16": TileEngine(model, preprocessor=pre, **kw),
+               "int8": TileEngine(qmodel, preprocessor=pre, fuse=False, **kw)}
+    tiles = make_main_tiles(MAIN_BATCH * MAIN_BATCHES)
+    staged = [engines["bf16"].put_tiles(tiles[i * MAIN_BATCH:
+                                              (i + 1) * MAIN_BATCH])
+              for i in range(MAIN_BATCHES)]
+    tps = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        tps[name].append(staged_tps(torch, engines[name], staged))
+    log(f"int8: TileEngine staged tiles/s, yolo11l@{MAIN_SIZE} batch "
+        f"{MAIN_BATCH}, README chain, in turns bf16 int8 int8 bf16: bf16 "
+        f"{[round(v, 2) for v in tps['bf16']]}, int8 "
+        f"{[round(v, 2) for v in tps['int8']]}")
+    row = qconv_timing(torch, cuda_qconv, top, err)
+    return row, launches["qconv"]
 
 
 def script(name):
@@ -2444,6 +2921,9 @@ KERNELS = {
               "caesar_yolo_tpu/ops/pallas_shift.py:54"),
     "clahe": ("equalize_adapthist_batch", "caesar_yolo_tpu_torch/csrc/clahe.cu",
               "caesar_yolo_tpu/ops/pallas_clahe.py:137"),
+    "qconv": ("qconv (int8 conv; no TPU kernel: XLA's s8 conv)",
+              "caesar_yolo_tpu_torch/csrc/qconv.cu",
+              "caesar_yolo_tpu/models/layers.py:139"),
     # the stream routes on one whole-mosaic plane (global context)
     "preproc_plane": (f"zscale_minmax stream route [1,{MOSAIC_SIZE},"
                       f"{MOSAIC_SIZE}]",
@@ -2491,7 +2971,7 @@ def main() -> int:
 
         from caesar_yolo_tpu_torch import cuda_build
         from caesar_yolo_tpu_torch.detect import cuda_nms
-        from caesar_yolo_tpu_torch.models import cuda_attn
+        from caesar_yolo_tpu_torch.models import cuda_attn, cuda_qconv
         from caesar_yolo_tpu_torch.ops import (cuda_clahe, cuda_histeq,
                                                cuda_preproc, cuda_shift,
                                                cuda_stats, cuda_upsample)
@@ -2511,7 +2991,8 @@ def main() -> int:
                     "upsample": cuda_upsample.upsample2x_forward,
                     "upsample_bwd": cuda_upsample.upsample2x_backward,
                     "shift": cuda_shift.fractional_row_shift_batch,
-                    "clahe": cuda_clahe.equalize_adapthist_batch}
+                    "clahe": cuda_clahe.equalize_adapthist_batch,
+                    "qconv": cuda_qconv.qconv}
 
         errs, inputs = phase_parity(torch)
         phase_golden(torch)
@@ -2530,9 +3011,15 @@ def main() -> int:
             phase_upsample_ab(torch, engine, batches, tmp)
             phase_shear_ab(torch, card)
             plane_rows, planes = phase_whole_plane(torch, tmp)
+            q5_model, q5_bf16 = phase_synth5(torch)
+            phase_golden_bf16(torch)
+            qconv_row, qconv_launches = phase_int8(torch, counters, tmp,
+                                                   q5_model, q5_bf16)
         rows = phase_timing(torch, mods, inputs, engine, batches)
         rows.update(plane_rows)
         errs.update({k: r["max_abs_err"] for k, r in plane_rows.items()})
+        rows["qconv"] = qconv_row
+        errs["qconv"] = qconv_row["max_abs_err"]
     except Exception:  # report every failure before exiting non-zero
         traceback.print_exc()
         log("FAIL")
@@ -2541,8 +3028,9 @@ def main() -> int:
     # each kernel's launches on the path that runs it: K3 on the README
     # main path, K1, K2, K5 and K6 on the mosaic CLI path's tiled run, K4
     # and the training kernels on the training CLI's first run, K7 on the
-    # eval phase's CLAHE run
+    # eval phase's CLAHE run, K9 on cli.run --int8
     launches = {k: (launches[k] if k == "preproc"
+                    else qconv_launches if k == "qconv"
                     else train_launches[k] if k in TRAIN_ONLY + ("upsample",)
                     else eval_launches["evaluate_dataset+CLAHE"][k]
                     if k in CLAHE

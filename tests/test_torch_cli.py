@@ -114,7 +114,8 @@ def test_unported_flags_raise(tmp_path, monkeypatch, flag):
     (here the mosaic, whole-image through the BatchedDetector, writing
     out_mosaic.json and .reg into the working directory), and so are .pt
     weights (the fixture's as an ultralytics checkpoint, converted on the
-    fly: the npz's catalog)."""
+    fly: the npz's catalog) and --int8 (calibrated on the mosaic, the
+    sources the float run finds found again, same classes)."""
     path = _mosaic(tmp_path)
     weights = WEIGHTS
     argv = [f"--image={path}", "--devices=cpu", "--imgsize=96"]
@@ -138,6 +139,18 @@ def test_unported_flags_raise(tmp_path, monkeypatch, flag):
                          f"--detect_outfile={out}.reg"]) == 0
             cats.append(json.loads(out.read_text()))
         assert cats[0] == cats[1]
+        return
+    if flag == "--int8":
+        cats = []
+        for extra in ([], [flag]):
+            out = tmp_path / f"int8{len(extra)}.json"
+            assert main([*argv, *PREPROC_FLAGS, *extra, "--scoreThr=0.5",
+                         f"--weights={weights}", f"--detect_outfile_json={out}",
+                         f"--detect_outfile={out}.reg"]) == 0
+            cats.append(json.loads(out.read_text())["objs"])
+        assert len(cats[0]) >= 3 and len(cats[1]) >= len(cats[0]) - 1
+        assert {o["class_id"] for o in cats[1]} == {
+            o["class_id"] for o in cats[0]}
         return
     argv.append(flag)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -11,7 +11,7 @@ import torch
 
 import chip_smoke as cs
 from caesar_yolo_tpu_torch.detect import cuda_nms
-from caesar_yolo_tpu_torch.models import cuda_attn
+from caesar_yolo_tpu_torch.models import cuda_attn, cuda_qconv
 from caesar_yolo_tpu_torch.ops import (
     clahe,
     cuda_clahe,
@@ -784,3 +784,66 @@ def test_planes_past_int32_counts_are_refused(dev, kernel):
     with pytest.raises(ValueError, match="int32"):
         fn(wide, *args)
     assert fn.launches == before
+
+
+# -- K9, the int8 conv --------------------------------------------------------
+
+
+@pytest.mark.parametrize("act", [True, False], ids=["silu", "linear"])
+@pytest.mark.parametrize("shape", cs.QCONV_SHAPES)
+def test_qconv_kernel_bit_equal(dev, shape, act):
+    """K9 against qconv_plain over its parity shapes and layouts: bit-equal,
+    channels_last output in the input's dtype, one launch counted."""
+    x, wq, ws, xs, bias = cs.qconv_case(torch, shape, dev, sum(shape[:7]))
+    k, stride = shape[5], shape[6]
+    n0 = cuda_qconv.qconv.launches
+    got = cuda_qconv.qconv(x, wq, ws, xs, bias, stride, k // 2, act)
+    torch.cuda.synchronize()
+    assert cuda_qconv.qconv.launches == n0 + 1
+    assert got.dtype == x.dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    ref = cuda_qconv.qconv_plain(x, wq, ws, xs, bias, stride, k // 2, act)
+    assert torch.equal(got, ref)
+
+
+def test_qconv_kernel_refuses_what_it_does_not_take(dev):
+    shape = (1, 8, 8, 6, 6, 3, 1, "float32", "channels_last")
+    x, wq, ws, xs, bias = cs.qconv_case(torch, shape, dev, 0)
+    n0 = cuda_qconv.qconv.launches
+    for kw in (dict(wq=wq.contiguous()), dict(stride=3), dict(pad=0),
+               dict(x=x.half()), dict(xs=xs.cpu())):
+        args = dict(x=x, wq=wq, ws=ws, xs=xs, b=bias, stride=1, pad=1,
+                    act=True)
+        args.update(kw)
+        with pytest.raises(ValueError):
+            cuda_qconv.qconv(**args)
+    assert cuda_qconv.qconv.launches == n0
+
+
+def test_qconv_model_forward_on_the_kernel(dev, monkeypatch):
+    """A quantized yolov8n on the card: every int8 conv of a forward
+    launches K9 once, and the raw outputs equal the forward with the
+    plain version in its place."""
+    from caesar_yolo_tpu_torch.detect.predictor import prepare_model
+    from caesar_yolo_tpu_torch.models import quant
+    from caesar_yolo_tpu_torch.models.layers import Conv
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+
+    model = init_weights(build_model("yolov8n"), seed=0)
+    x = torch.rand((4, 3, 128, 128), generator=torch.Generator()
+                   .manual_seed(0)).to(dev, torch.bfloat16).contiguous(
+                       memory_format=torch.channels_last)
+    qm = prepare_model(quant.quantize_model(model, [x]), fuse=False,
+                       dtype=torch.bfloat16, device=dev)
+    n_int8 = sum(isinstance(m, Conv) and m.wq is not None
+                 for m in qm.modules())
+    n0 = cuda_qconv.qconv.launches
+    with torch.inference_mode():
+        got = qm(x)
+        torch.cuda.synchronize()
+        assert cuda_qconv.qconv.launches == n0 + n_int8 > 30
+        monkeypatch.setattr(cuda_qconv, "qconv", cuda_qconv.qconv_plain)
+        ref = qm(x)
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            assert torch.equal(a, b)

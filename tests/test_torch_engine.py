@@ -217,7 +217,8 @@ need = {"parallel.sfinder", "parallel.stitch", "cli.run", "cli.preproc_args",
         "train.loss", "train.augment", "train.dataset", "train.trainer",
         "cli.train", "ops.clahe", "ops.cuda_clahe", "detect.batch",
         "evaluation.metrics", "evaluation.evaluate", "cli.evaluate",
-        "models.convert", "cli.convert"}
+        "models.convert", "cli.convert", "utils.synth5", "models.quant",
+        "models.cuda_qconv"}
 assert {pkg.__name__ + "." + n for n in need} <= set(names), names
 print(len(names))
 """
@@ -243,9 +244,10 @@ def test_kernel_build_command(monkeypatch, tmp_path):
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert cmd[-1].endswith(os.path.join("csrc", f"{name}.cu"))
         assert ("-fmad=false" in cmd) == (
-            name in ("nms", "preproc", "stats", "histeq", "shift", "clahe"))
+            name in ("nms", "preproc", "stats", "histeq", "shift", "clahe",
+                     "qconv"))
     assert {"stats", "histeq", "attn_bwd", "upsample", "shift",
-            "clahe"} <= set(cuda_build.SOURCES)
+            "clahe", "qconv"} <= set(cuda_build.SOURCES)
     path = cuda_build.library_path("nms")
     monkeypatch.setitem(cuda_build.SOURCES, "nms", [])
     assert cuda_build.library_path("nms") != path

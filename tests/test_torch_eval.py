@@ -271,15 +271,24 @@ def test_cli_evaluate_matches_jax(tmp_path, capsys, f32_engines, preproc):
 
 
 def test_cli_evaluate_refuses_unported_flags(tmp_path):
-    """--int8 and --save_plot raise, naming their feature; .pt weights are
-    ported and not refused."""
-    for flag, feature in (("--int8", "int8 PTQ"),
-                          ("--save_plot=p.png", "the plots")):
-        with pytest.raises(NotImplementedError, match=feature):
-            cli_evaluate.main([f"--weights={WEIGHTS}", "--filelist=l.txt",
-                               "--devices=cpu", flag])
-    args = cli_evaluate.parse_args(["--weights=w.pt", "--filelist=l.txt"])
-    assert cli_evaluate.unported_flags(args) == []
+    """--save_plot raises, naming its feature; .pt weights and --int8 are
+    ported and not refused: --int8 evaluates (calibrated on the first
+    filelist image) and finds the float run's sources."""
+    with pytest.raises(NotImplementedError, match="the plots"):
+        cli_evaluate.main([f"--weights={WEIGHTS}", "--filelist=l.txt",
+                           "--devices=cpu", "--save_plot=p.png"])
+    for w in ("w.pt", WEIGHTS):
+        args = cli_evaluate.parse_args([f"--weights={w}", "--filelist=l.txt",
+                                        "--int8"])
+        assert cli_evaluate.unported_flags(args) == []
+    paths, filelist = _dataset(tmp_path / "d", n=4, sizes=(96,))
+    common = [f"--weights={WEIGHTS}", f"--filelist={filelist}",
+              "--imgsize=96", "--devices=cpu", "--batch_size=3"]
+    reports = [cli_evaluate.run([*common, *extra])[1]
+               for extra in ([], ["--int8"])]
+    assert reports[0].completeness["compact"].n_matched >= 4
+    assert reports[1].completeness["compact"].n_matched >= \
+        reports[0].completeness["compact"].n_matched - 1
 
 
 def _run_in(path, fn, argv):

@@ -2,6 +2,8 @@
 version) against the JAX package, on the CPU with the same seeded
 inputs."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -204,7 +206,25 @@ def test_unported_stages_raise(tmp_path):
     assert len(pipe.stages) == 7
     argv = [f"--image={tmp_path / 'x.fits'}", "--weights=w.npz",
             "--devices=cpu"]
-    for flag in ("--int8", "--draw_plots", "--save_plots"):
+    for flag in ("--draw_plots", "--save_plots"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main([*argv, flag])
     assert main([*argv, f"--datalist={tmp_path / 'l.txt'}"]) == 1
+    # --int8 is ported: it calibrates through the preprocessing chain
+    from caesar_yolo_tpu_torch.utils.fits import write_fits
+    rng = np.random.default_rng(4)
+    img = rng.normal(0, 0.1, (96, 96)).astype(np.float32)
+    yy, xx = np.mgrid[0:96, 0:96]
+    for cx, cy in ((30, 40), (70, 62)):
+        img += 5.0 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 40.0)
+    write_fits(img.astype(np.float32), str(tmp_path / "x.fits"))
+    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "yolov8n_synth96.npz")
+    assert main([f"--image={tmp_path / 'x.fits'}", f"--weights={weights}",
+                 "--devices=cpu", "--imgsize=96", "--int8",
+                 "--preprocessing", "--subtract_bkg", "--chan3_preproc",
+                 "--sigma_clip_baseline=0", "--sigma_clip_low=1",
+                 "--sigma_clip_up=20", "--normalize_minmax",
+                 f"--detect_outfile_json={tmp_path / 'c.json'}",
+                 f"--detect_outfile={tmp_path / 'c.reg'}"]) == 0
+    assert (tmp_path / "c.json").exists()
