@@ -25,10 +25,11 @@ BUILD_DIR = os.path.normpath(
     os.path.join(os.path.dirname(CSRC), os.pardir, "build", "kernels"))
 
 # Per-source flags.  NMS, the zscale chain, the clip statistics, the
-# histogram equalisation, CLAHE, the row shift and the int8 conv must be
-# bit-identical to their plain versions (clip bounds med +- sigma*std, bin
-# positions (x - vmin) / span * 256, the CLAHE blend, the shear lerp, the
-# int8 dequantize), so FMA contraction is off there.  The upsample only
+# histogram equalisation, CLAHE, the row shift, the int8 conv and the conv
+# epilogue must be bit-identical to their plain versions (clip bounds med
+# +- sigma*std, bin positions (x - vmin) / span * 256, the CLAHE blend, the
+# shear lerp, the int8 dequantize, the bias and SiLU), so FMA contraction
+# is off there.  The upsample only
 # moves data and sums in a fixed order.
 SOURCES = {
     "nms": ["-fmad=false"],
@@ -41,6 +42,7 @@ SOURCES = {
     "shift": ["-fmad=false"],
     "clahe": ["-fmad=false"],
     "qconv": ["-fmad=false"],
+    "epilogue": ["-fmad=false"],
 }
 # The shared headers each source includes: their text is hashed into the
 # library's name with the source's, so editing one rebuilds its includers.
@@ -50,7 +52,8 @@ HEADERS = {
     "clahe": ["async_copy.cuh", "divide.cuh"],
     "histeq": ["async_copy.cuh"],
     "preproc": ["async_copy.cuh", "divide.cuh"],
-    "qconv": ["divide.cuh"],
+    "qconv": ["divide.cuh", "epilogue.cuh"],
+    "epilogue": ["epilogue.cuh"],
     "shift": ["async_copy.cuh"],
 }
 

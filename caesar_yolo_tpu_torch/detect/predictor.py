@@ -20,7 +20,8 @@ from caesar_yolo_tpu_torch.detect.letterbox import (
     unletterbox_boxes,
 )
 from caesar_yolo_tpu_torch.detect.nms import DEFAULT_PRE_NMS, nms_batch
-from caesar_yolo_tpu_torch.models.layers import cast_weights, fuse_tree
+from caesar_yolo_tpu_torch.models.layers import (cast_weights, fuse_tree,
+                                                 pack_int8)
 from caesar_yolo_tpu_torch.models.yolo import YOLO, decode_dfl
 from caesar_yolo_tpu_torch.utils.device import resolve_device
 
@@ -31,14 +32,14 @@ def prepare_model(model: YOLO, *, fuse: bool, dtype: torch.dtype,
     reference's fuse_model_params / _fuse_head), conv weights cast to
     `dtype` (biases stay f32; an int8 model's quantized Convs keep their
     int8 weights and f32 scales), moved to `device` (channels_last on
-    CUDA, which lays int8 weights out as K9 reads them).  The copy's
+    CUDA, and the int8 weights packed as K9 reads them).  The copy's
     `compute_dtype` is `dtype`."""
     model = copy.deepcopy(model).float().eval()
     if fuse:
         fuse_tree(model)
     model = cast_weights(model.to(device=device), dtype)
     if device.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
+        model = pack_int8(model.to(memory_format=torch.channels_last))
     model.compute_dtype = dtype
     return model
 

@@ -11,12 +11,20 @@ BatchNorm eps 1e-3 folded in f32 (`Conv.fuse`), SPPF max-pooling padded
 with -inf, and C2PSA attention with f32 scores and probabilities cast to
 the compute dtype before the PV product (models/cuda_attn.py).
 
+Inference follows the reference's arithmetic (`conv_bias_act`): the conv
+of the compute-dtype operands with an f32 output, the f32 bias or BN's
+`y * scale + shift` in f32, one rounding to the compute dtype, then the
+reference's `silu`, which in bf16 rounds each of its four ops
+(models/cuda_epilogue.py; on the card the bf16 epilogue is kernel K10).
+
 Inside `train_mode(model)` the convs follow the reference's train mode
 (layers.py:154-185, 211-216): the f32 master weight is cast to the
 input's dtype on each call, BatchNorm normalises with the current
 batch's f32 mean and biased variance over N, H, W (optionally recording
 them for precise-BN), and in bf16 the conv output is bf16 while BN's
-`y * scale + shift` runs in f32 and is cast back.
+`y * scale + shift` runs in f32 and is cast back.  Training keeps
+F.silu: the reference's four-op form would keep four more tensors for
+autograd in bf16, and training is held by distance ratios.
 
 int8 PTQ (models/quant.py): inside `quant_calibrate(model)` every Conv
 records the running max|x| of its inputs; `Conv.to_int8` turns a fused
@@ -32,7 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from caesar_yolo_tpu_torch.models import cuda_attn, cuda_qconv
+from caesar_yolo_tpu_torch.models import cuda_attn, cuda_epilogue, cuda_qconv
+from caesar_yolo_tpu_torch.models.cuda_epilogue import silu
 from caesar_yolo_tpu_torch.ops import cuda_upsample
 
 BN_EPS = 1e-3
@@ -42,13 +51,50 @@ def make_divisible(x: float, divisor: int = 8) -> int:
     return max(divisor, int(x + divisor / 2) // divisor * divisor)
 
 
-def add_bias(y: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
-    """y + b in place, the add in f32 (b is f32) and rounded once to y's
-    dtype: the reference adds its f32 bias to its f32 conv output before
-    its one cast (layers.py:181-184, 216).  In bf16 the port's conv output
-    is rounded before the add, so it rounds twice where the reference
-    rounds once."""
-    return y if b is None else y.add_(b[:, None, None])
+def conv_f32(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
+             groups: int = 1) -> torch.Tensor:
+    """The conv of x's and w's values with an f32 output, as the
+    reference's inference conv (preferred_element_type f32, layers.py:95-
+    105).  On the card a bf16 1x1 conv is cuBLAS's bf16 product with an f32
+    output (products exact, f32 sums) on the channels_last input as it
+    lies; any other is cuDNN's conv of f32 copies of the operands.  bf16
+    values are exact in TF32 (8 significant bits against 11), so cuDNN may
+    take TF32 there whatever `torch.backends.cudnn.allow_tf32` says: the
+    products are exact and summed in f32 either way."""
+    if x.dtype != torch.bfloat16 or not x.is_cuda:
+        return F.conv2d(x.float(), w.float(), None, stride, pad, 1, groups)
+    if w.shape[2:] == (1, 1) and stride == 1 and groups == 1:
+        b, c, h, ww = x.shape
+        a = x.permute(0, 2, 3, 1).reshape(-1, c)
+        y = torch.mm(a, w.reshape(w.shape[0], c).t(),
+                     out_dtype=torch.float32)
+        return y.view(b, h, ww, -1).permute(0, 3, 1, 2)
+    xf, wf = x.float(), w.float()
+    if torch.backends.cudnn.allow_tf32:
+        return F.conv2d(xf, wf, None, stride, pad, 1, groups)
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    benchmark=torch.backends.cudnn.benchmark,
+                                    deterministic=torch.backends.cudnn
+                                    .deterministic, allow_tf32=True):
+        return F.conv2d(xf, wf, None, stride, pad, 1, groups)
+
+
+def conv_bias_act(x: torch.Tensor, w: torch.Tensor,
+                  scale: torch.Tensor | None, shift: torch.Tensor,
+                  stride: int, pad: int, groups: int, act: bool):
+    """The reference's inference conv block (layers.py:159-185, 213-216):
+    the conv in f32, `y * scale + shift` in f32 (scale: BN's, unfused;
+    None for a fused conv's or Conv2dRaw's f32 bias), one rounding to x's
+    dtype, then the reference's `silu` if `act`.  In bf16 the epilogue is
+    kernel K10 on the card (models/cuda_epilogue.py)."""
+    if x.dtype == torch.bfloat16:
+        return cuda_epilogue.conv_epilogue(
+            conv_f32(x, w, stride, pad, groups), scale, shift, act)
+    y = F.conv2d(x, w, None, stride, pad, 1, groups)
+    if scale is not None:
+        y = y.float() * scale[:, None, None]
+    y = y.add_(shift[:, None, None]).to(x.dtype)
+    return silu(y) if act else y
 
 
 def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -58,6 +104,15 @@ def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     for m in module.modules():
         if isinstance(m, (Conv, Conv2dRaw)) and m.w is not None:
             m.w.data = m.w.data.to(dtype)
+    return module
+
+
+def pack_int8(module: nn.Module) -> nn.Module:
+    """Lay each int8 Conv's weights out once as K9 reads them
+    (cuda_qconv.pack_weights, on the weights' device), in place."""
+    for m in module.modules():
+        if isinstance(m, Conv) and m.wq is not None:
+            m.wp = cuda_qconv.pack_weights(m.wq)
     return module
 
 
@@ -126,8 +181,9 @@ class BatchNorm(nn.Module):
 class Conv(nn.Module):
     """Conv2d + BatchNorm + SiLU (ultralytics Conv block).
 
-    Unfused, the conv output stays f32 through the BN epilogue and is cast
-    to the input dtype afterwards, as in the reference; `fuse()` folds BN
+    In inference the conv output stays f32 through BN's epilogue (unfused)
+    or the f32 bias (fused) and is cast to the input dtype once
+    afterwards, as in the reference (`conv_bias_act`); `fuse()` folds BN
     into `w` and an f32 bias `b` (in f32, before any cast of the weights).
     `to_int8` makes a fused Conv the reference's int8 layer: `w` gives way
     to `wq` (int8, OIHW), `ws` (f32 [cout]) and `xs` (f32, one value),
@@ -145,6 +201,7 @@ class Conv(nn.Module):
         self.register_buffer("wq", None)
         self.register_buffer("ws", None)
         self.register_buffer("xs", None)
+        self.wp = None                 # K9's packed wq (pack_int8)
         self.train_mode = False
         self.bn_collect = None
         self.calib = None
@@ -154,19 +211,14 @@ class Conv(nn.Module):
             return self._train_forward(x)
         if self.wq is not None:
             return cuda_qconv.qconv(x, self.wq, self.ws, self.xs, self.b,
-                                    self.s, self.pad, self.act)
+                                    self.s, self.pad, self.act, self.wp)
         if self.calib is not None:
             amax = float(x.float().abs().amax())
             self.calib[self] = max(self.calib.get(self, 0.0), amax)
-        if self.bn is not None:
-            y = F.conv2d(x, self.w, None, self.s, self.pad, 1, self.groups)
-            scale, shift = self.bn.scale_shift()
-            y = (y.float() * scale[:, None, None]
-                 + shift[:, None, None]).to(x.dtype)
-        else:
-            y = add_bias(F.conv2d(x, self.w, None, self.s, self.pad, 1,
-                                  self.groups), self.b)
-        return F.silu(y) if self.act else y
+        scale, shift = (self.bn.scale_shift() if self.bn is not None
+                        else (None, self.b))
+        return conv_bias_act(x, self.w, scale, shift, self.s, self.pad,
+                             self.groups, self.act)
 
     def _train_forward(self, x):
         y = F.conv2d(x, self.w.to(x.dtype), None, self.s, self.pad, 1,
@@ -203,6 +255,7 @@ class Conv(nn.Module):
         if self.bn is not None or self.b is None:
             raise ValueError("to_int8 takes a fused Conv (fuse() first)")
         self.w = None
+        self.wp = None
         self.wq = wq.to(torch.int8)
         self.ws = ws.float()
         self.xs = xs.float().reshape(())
@@ -226,7 +279,8 @@ class Conv2dRaw(nn.Module):
             # (the reference's train mode; inference keeps it f32)
             y = F.conv2d(x, self.w.to(x.dtype), None, 1, self.pad)
             return (y + self.b.to(y.dtype)[:, None, None]).to(x.dtype)
-        return add_bias(F.conv2d(x, self.w, None, 1, self.pad), self.b)
+        return conv_bias_act(x, self.w, None, self.b, 1, self.pad, 1,
+                             False)
 
 
 class Bottleneck(nn.Module):

@@ -47,7 +47,8 @@ PORT_KERNELS = ("attn_fwd_mma_kernel",
                 "up2_fwd_kernel", "up2_bwd_kernel", "row_shift_kernel",
                 "col_shift_kernel", "histeq_cluster_kernel",
                 "zscale_cluster_kernel", "clahe_cluster_kernel",
-                "range_kernel", "tables_kernel", "blend_kernel")
+                "range_kernel", "tables_kernel", "blend_kernel",
+                "epilogue_kernel", "quantize_kernel", "qgemm_kernel")
 LIBRARY_MARKS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "sm90_",
                  "implicit", "winograd", "fprop", "nhwc")
 

@@ -11,7 +11,7 @@ import torch
 
 import chip_smoke as cs
 from caesar_yolo_tpu_torch.detect import cuda_nms
-from caesar_yolo_tpu_torch.models import cuda_attn, cuda_qconv
+from caesar_yolo_tpu_torch.models import cuda_attn, cuda_epilogue, cuda_qconv
 from caesar_yolo_tpu_torch.ops import (
     clahe,
     cuda_clahe,
@@ -806,12 +806,28 @@ def test_qconv_kernel_bit_equal(dev, shape, act):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("shape", cs.QCONV_SHAPES)
+def test_qconv_quantize_pass_equals_plain(dev, shape):
+    """K9's quantize pass: the padded int8 copy [B, H, W, Cp] equals
+    quantize_padded_plain's (quantize_input's values, channels from cin on
+    0) in every layout the model hands over."""
+    x, wq, ws, xs, bias = cs.qconv_case(torch, shape, dev, sum(shape[:7]))
+    got = cuda_qconv.quantize_padded(x, xs)
+    torch.cuda.synchronize()
+    ref = cuda_qconv.quantize_padded_plain(x, xs)
+    assert got.shape == ref.shape and got.shape[-1] % 16 == 0
+    assert torch.equal(got, ref)
+    assert torch.equal(cuda_qconv.pack_weights(wq).cpu(),
+                       cuda_qconv.pack_weights(wq.cpu()))
+
+
 def test_qconv_kernel_refuses_what_it_does_not_take(dev):
     shape = (1, 8, 8, 6, 6, 3, 1, "float32", "channels_last")
     x, wq, ws, xs, bias = cs.qconv_case(torch, shape, dev, 0)
     n0 = cuda_qconv.qconv.launches
     for kw in (dict(wq=wq.contiguous()), dict(stride=3), dict(pad=0),
-               dict(x=x.half()), dict(xs=xs.cpu())):
+               dict(x=x.half()), dict(xs=xs.cpu()),
+               dict(wp=cuda_qconv.pack_weights(wq)[:, :, :, :8])):
         args = dict(x=x, wq=wq, ws=ws, xs=xs, b=bias, stride=1, pad=1,
                     act=True)
         args.update(kw)
@@ -844,6 +860,69 @@ def test_qconv_model_forward_on_the_kernel(dev, monkeypatch):
         assert cuda_qconv.qconv.launches == n0 + n_int8 > 30
         monkeypatch.setattr(cuda_qconv, "qconv", cuda_qconv.qconv_plain)
         ref = qm(x)
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            assert torch.equal(a, b)
+
+
+# -- K10, the bf16 conv epilogue ----------------------------------------------
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["bias", "bn_scale"])
+@pytest.mark.parametrize("act", [True, False], ids=["silu", "linear"])
+@pytest.mark.parametrize("c", [3, 16, 80, 131, 256])
+def test_conv_epilogue_kernel_bit_equal(dev, c, act, scaled):
+    """K10 against epilogue_plain at odd H and W: bit-equal, channels_last
+    bf16 out, one launch counted; an NCHW input is read as channels_last."""
+    g = torch.Generator().manual_seed(c + 2 * act + scaled)
+    y = (torch.randn((3, c, 7, 9), generator=g)
+         * torch.rand((1, c, 1, 1), generator=g) * 40).to(dev)
+    shift = torch.randn(c, generator=g).to(dev)
+    scale = (torch.rand(c, generator=g) * 3).to(dev) if scaled else None
+    ref = cuda_epilogue.epilogue_plain(y, scale, shift, act)
+    for inp in (y.contiguous(memory_format=torch.channels_last), y):
+        n0 = cuda_epilogue.conv_epilogue.launches
+        got = cuda_epilogue.conv_epilogue(inp, scale, shift, act)
+        torch.cuda.synchronize()
+        assert cuda_epilogue.conv_epilogue.launches == n0 + 1
+        assert got.dtype == torch.bfloat16
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, ref)
+
+
+def test_conv_epilogue_refuses_what_it_does_not_take(dev):
+    y = torch.zeros((1, 8, 4, 4), device=dev)
+    shift = torch.zeros(8, device=dev)
+    n0 = cuda_epilogue.conv_epilogue.launches
+    for args in ((y.bfloat16(), None, shift), (y, None, shift[:4]),
+                 (y, shift.double(), shift), (y, None, shift.cpu())):
+        with pytest.raises(ValueError):
+            cuda_epilogue.conv_epilogue(*args, True)
+    assert cuda_epilogue.conv_epilogue.launches == n0
+
+
+def test_bf16_model_forward_on_the_epilogue_kernel(dev, monkeypatch):
+    """A bf16 yolov8n forward on the card: every Conv and Conv2dRaw
+    launches K10 once, and the raw outputs equal the forward with the
+    plain epilogue in its place."""
+    from caesar_yolo_tpu_torch.detect.predictor import prepare_model
+    from caesar_yolo_tpu_torch.models.layers import Conv, Conv2dRaw
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+
+    model = prepare_model(init_weights(build_model("yolov8n"), seed=0),
+                          fuse=True, dtype=torch.bfloat16, device=dev)
+    n_conv = sum(isinstance(m, (Conv, Conv2dRaw)) for m in model.modules())
+    x = torch.rand((2, 3, 128, 128), generator=torch.Generator()
+                   .manual_seed(0)).to(dev, torch.bfloat16).contiguous(
+                       memory_format=torch.channels_last)
+    n0 = cuda_epilogue.conv_epilogue.launches
+    with torch.inference_mode():
+        got = model(x)
+        torch.cuda.synchronize()
+        assert cuda_epilogue.conv_epilogue.launches == n0 + n_conv > 50
+        monkeypatch.setattr(cuda_epilogue, "conv_epilogue",
+                            cuda_epilogue.epilogue_plain)
+        ref = model(x)
     for g, r in zip(got, ref):
         for a, b in zip(g, r):
             assert torch.equal(a, b)

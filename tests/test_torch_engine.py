@@ -234,8 +234,9 @@ print(len(names))
 def test_kernel_build_command(monkeypatch, tmp_path):
     """Each CUDA source builds for sm_90a into its own library whose name
     follows the source and flags; NMS, preprocessing, the clip statistics,
-    histogram equalisation, CLAHE and the row shift keep FMA contraction
-    off (their outputs must equal the plain versions)."""
+    histogram equalisation, CLAHE, the row shift, the int8 conv and the
+    conv epilogue keep FMA contraction off (their outputs must equal the
+    plain versions)."""
     from caesar_yolo_tpu_torch import cuda_build
 
     monkeypatch.setattr(cuda_build.shutil, "which", lambda _: "/bin/true")
@@ -245,9 +246,9 @@ def test_kernel_build_command(monkeypatch, tmp_path):
         assert cmd[-1].endswith(os.path.join("csrc", f"{name}.cu"))
         assert ("-fmad=false" in cmd) == (
             name in ("nms", "preproc", "stats", "histeq", "shift", "clahe",
-                     "qconv"))
+                     "qconv", "epilogue"))
     assert {"stats", "histeq", "attn_bwd", "upsample", "shift",
-            "clahe", "qconv"} <= set(cuda_build.SOURCES)
+            "clahe", "qconv", "epilogue"} <= set(cuda_build.SOURCES)
     path = cuda_build.library_path("nms")
     monkeypatch.setitem(cuda_build.SOURCES, "nms", [])
     assert cuda_build.library_path("nms") != path
