@@ -17,15 +17,16 @@ Package layout (bottom-up), named after the reference's modules:
              from the reference's format
   detect/    letterbox, fixed-shape NMS (kernel K1), predictor, merge,
              analyzer
-  parallel/  the batched tile engine and the mosaic source finder on one
-             GPU, edge flags and stitch
+  parallel/  the batched tile engine and the mosaic source finder, edge
+             flags and stitch, and the process-group helpers of multi-GPU
+             runs (one process per GPU, torch.distributed)
   outputs/   JSON catalog and DS9 region writers
   train/     detection loss and assigner, augmentation, dataset, trainer
   cli/       the detection and training command lines (`python -m
              caesar_yolo_tpu_torch.cli.run`, `... .cli.train`)
 
-Entry points run on CUDA unless the caller passes device="cpu" (the CLI:
---devices=cpu).
+Entry points run on CUDA (under a process group, cuda:{LOCAL_RANK})
+unless the caller passes device="cpu" (the CLI: --devices=cpu).
 """
 
 import logging

@@ -8,7 +8,18 @@ defaults and single-dash spellings.
         --weights=w.npz --preprocessing --subtract_bkg --chan3_preproc \
         --normalize_minmax [--split_img_in_tiles --tile_xsize=512 ...]
 
-Runs on CUDA; `--devices=cpu` selects the CPU.  `--weights` takes the
+Runs on CUDA; `--devices` names another device (`cpu` for the CPU).  On
+several GPUs, one process each:
+
+    torchrun --nproc_per_node=4 -m caesar_yolo_tpu_torch.cli.run \
+        --image=mosaic.fits --weights=w.npz --split_img_in_tiles ...
+
+Each rank runs on cuda:{LOCAL_RANK} unless --devices names its device
+(ranks on one GPU, or on the CPU, talk over gloo).  Tiled runs, also of a
+--datalist, stripe the tiles over the ranks and gather their results on
+every rank (parallel/sfinder.py); serial and batched runs do the whole
+work on every rank, as the JAX package's do.  Only rank 0 writes the
+catalogs and regions.  `--weights` takes the
 reference's npz format or an ultralytics `.pt` checkpoint, converted on
 the fly (models/convert.py).  `--image` and `--datalist` take FITS, PNG
 and JPEG images (JPEG needs Pillow; utils/fits.py:read_image); tiled runs
@@ -123,8 +134,8 @@ def parse_args(argv=None):
 
     # RUN
     parser.add_argument("--devices", type=str, default="",
-                        help="torch device (default cuda; cpu runs on the "
-                        "CPU)")
+                        help="torch device (default cuda, under torchrun "
+                        "cuda:LOCAL_RANK; cpu runs on the CPU)")
     parser.add_argument("--multigpu", action="store_true",
                         help="(compat no-op)")
 
@@ -330,8 +341,10 @@ def run_datalist_batched(model, cfg, images, preproc, device=None,
         write_json,
     )
     from caesar_yolo_tpu_torch.outputs.ds9 import write_ds9_regions
+    from caesar_yolo_tpu_torch.parallel import mesh
 
     t0 = time.time()
+    master = mesh.process_index() == 0     # rank 0 writes
     detector = BatchedDetector(
         model, preprocessor=preproc, img_size=cfg.img_size,
         score_thr=cfg.score_thr, iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms,
@@ -358,10 +371,10 @@ def run_datalist_batched(model, cfg, images, preproc, device=None,
         objs = make_objects(boxes, scores, cls, image_shape=shapes[path],
                             class_names=cfg.class_names)
         n_total += len(objs)
-        if cfg.save_catalog:
+        if cfg.save_catalog and master:
             write_json(make_json_results(image_id, objs),
                        f"out_{image_id}.json")
-        if cfg.save_region:
+        if cfg.save_region and master:
             write_ds9_regions(objs, f"out_{image_id}.reg")
     logger.info("Datalist done: %d images, %d objects (%.2fs)",
                 len(images), n_total, time.time() - t0)
@@ -379,8 +392,10 @@ def run(argv=None):
     if validate_args(args) < 0:
         return 1, None
 
+    from caesar_yolo_tpu_torch.parallel import mesh
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
 
+    mesh.initialize_distributed(device=args.devices or None)
     model = load_model_from_args(args)
     cfg = config_from_args(args)
     preproc = build_preprocessor_from_args(args)

@@ -2,12 +2,22 @@
 
 Counterpart of caesar_yolo_tpu/cli/train.py with its flags and defaults
 (the reference's run_train macro: the published SGD recipe and the
-augmentation config degrees=180, flips 0.5, scale 0.89), on one GPU:
+augmentation config degrees=180, flips 0.5, scale 0.89), on one GPU or
+data-parallel on several, one process each:
 
     python -m caesar_yolo_tpu_torch.cli.train --data=dataset.yaml \\
         --model=yolo11l --epochs=300 --batch=16 --imgsz=640
+    torchrun --nproc_per_node=4 -m caesar_yolo_tpu_torch.cli.train ...
 
-Runs on CUDA; `--devices=cpu` selects the CPU.  Batches ship at native
+Runs on CUDA (under torchrun, cuda:{LOCAL_RANK}); `--devices` names the
+device instead (`cpu` for the CPU, where the ranks talk over gloo).  Under
+a launcher --batch is the global batch, rounded up to a multiple of the
+processes; every rank reads every global batch and takes its rows
+[r*B/n, (r+1)*B/n), with the same rows of the batch's augmentation draws,
+so the run is the one-process run's over the same global batch (the JAX
+CLI feeds each process the whole batch instead, its cli/train.py:
+176-179).  Precise-BN runs on every rank over global statistics;
+validation runs on rank 0, which writes every file.  Batches ship at native
 resolution and are letterboxed on the device; augmentation draws and the
 sample order are keyed by (seed, epoch), so `--resume` replays what an
 uninterrupted run drew.  With a validation source (--val_data: a
@@ -78,7 +88,8 @@ def parse_args(argv=None):
                    help="best-checkpoint criterion: source F1 or "
                         "0.1*mAP50 + 0.9*mAP50-95")
     p.add_argument("--devices", type=str, default="",
-                   help="torch device (default cuda; cpu runs on the CPU)")
+                   help="torch device (default cuda, under torchrun "
+                        "cuda:LOCAL_RANK; cpu runs on the CPU)")
     return p.parse_args(argv)
 
 
@@ -163,11 +174,20 @@ def run(argv=None):
         augment_batch,
         draw_augment_params,
     )
+    from caesar_yolo_tpu_torch.parallel import mesh
     from caesar_yolo_tpu_torch.train.dataset import DetectionDataset
     from caesar_yolo_tpu_torch.train.trainer import TrainConfig, Trainer
     from caesar_yolo_tpu_torch.utils.device import resolve_device
 
+    mesh.initialize_distributed(device=args.devices or None)
     device = resolve_device(args.devices or None)
+    nproc, rank = mesh.process_count(), mesh.process_index()
+    master = rank == 0
+    batch = mesh.pad_to_multiple(max(args.batch, nproc), nproc)
+    if batch != args.batch:
+        logger.info("Global batch %d rounded up to %d for %d processes",
+                    args.batch, batch, nproc)
+    rows = slice(rank * batch // nproc, (rank + 1) * batch // nproc)
     model = build_model(args.model, num_classes=args.num_classes)
     if args.weights:
         load_jax_params(model, load_params(args.weights)[0])
@@ -176,16 +196,16 @@ def run(argv=None):
         init_weights(model, seed=args.seed)
 
     dataset = DetectionDataset(args.data, img_size=args.imgsz,
-                               batch_size=args.batch, max_gt=args.max_gt,
+                               batch_size=batch, max_gt=args.max_gt,
                                seed=args.seed, device_letterbox=True)
     steps = max(len(dataset), 1)
-    cfg = TrainConfig(epochs=args.epochs, batch_size=args.batch,
+    cfg = TrainConfig(epochs=args.epochs, batch_size=batch,
                       img_size=args.imgsz, lr0=args.lr0, lrf=args.lrf,
                       max_gt=args.max_gt, remat=args.remat,
                       compute_dtype="float32" if args.fp32 else "bfloat16")
     trainer = Trainer(model, cfg, steps_per_epoch=steps, device=device)
-    logger.info("Training %s on %s, %d batches/epoch", args.model, device,
-                len(dataset))
+    logger.info("Training %s on %s (rank %d of %d), %d batches/epoch",
+                args.model, device, rank, nproc, len(dataset))
 
     start_epoch = 0
     if args.resume:
@@ -205,26 +225,32 @@ def run(argv=None):
         return t
 
     def augmented(epoch):
+        """This rank's rows of each global batch, augmented by the rows'
+        draws from the global batch's."""
         dataset.set_epoch(epoch)
         gen = epoch_generator(args.seed, epoch)
         for imgs, labels, boxes, masks in dataset:
+            n = imgs.shape[0]
+            imgs, labels, boxes, masks = (a[rows] for a in
+                                          (imgs, labels, boxes, masks))
             imgs = prep_pixels(imgs)
             if args.no_augment:
                 yield imgs, labels, boxes, masks
                 continue
             draws = draw_augment_params(
-                gen, imgs.shape[0], degrees=args.degrees, scale=args.scale,
+                gen, n, degrees=args.degrees, scale=args.scale,
                 flipud=args.flipud, fliplr=args.fliplr)
             aimgs, aboxes, amasks = augment_batch(
                 imgs, torch.from_numpy(boxes), torch.from_numpy(masks),
-                *draws)
+                *(d[rows] for d in draws))
             yield aimgs, labels, aboxes, amasks
 
-    # validation: C/R/F1 and mAP of the EMA weights on the val images; the
-    # best epoch is checkpointed as "best" (the reference's best.pt)
+    # validation: C/R/F1 and mAP of the EMA weights on the val images, on
+    # rank 0; the best epoch is checkpointed as "best" (the reference's
+    # best.pt)
     val_paths = list_val_images(args)
     val_detector = None
-    if val_paths:
+    if val_paths and master:
         from caesar_yolo_tpu_torch.detect.batch import BatchedDetector
         val_detector = BatchedDetector(
             model, img_size=args.imgsz, score_thr=args.val_score_thr,
@@ -233,13 +259,25 @@ def run(argv=None):
                     len(val_paths), max(args.val_every, 1))
 
     def run_validation(epoch, calibrate=True):
-        from caesar_yolo_tpu_torch.evaluation import evaluate_dataset
-        from caesar_yolo_tpu_torch.outputs.catalog import CLASS_NAMES
         if calibrate:
             # precise-BN on 8 batches of the dataset, not of the augmented
-            # stream
-            trainer.calibrate_bn(prep_pixels(imgs) for imgs, *_ in
+            # stream (every rank: its statistics are the global batch's)
+            trainer.calibrate_bn(prep_pixels(imgs[rows]) for imgs, *_ in
                                  itertools.islice(iter(dataset), 8))
+        metric = evaluate(epoch) if master else 0.0
+        if nproc > 1:
+            metric = float(mesh.broadcast_(torch.tensor(
+                [metric], dtype=torch.float64, device=device))[0])
+        if metric > trainer.best_metric:
+            trainer.best_metric = metric  # kept in every checkpoint
+            trainer.save_checkpoint(args.checkpoint_dir, step=epoch,
+                                    name="best")
+        return metric
+
+    def evaluate(epoch):
+        """The EMA weights' validation metric (rank 0)."""
+        from caesar_yolo_tpu_torch.evaluation import evaluate_dataset
+        from caesar_yolo_tpu_torch.outputs.catalog import CLASS_NAMES
         val_detector.engine.update_params(trainer.ema_model())
         report = evaluate_dataset(
             None, val_paths, detector=val_detector,
@@ -255,34 +293,30 @@ def run(argv=None):
             fitness = 0.1 * report.map.map50 + 0.9 * report.map.map50_95
         logger.info("epoch %d val F1(source)=%.4f fitness=%.4f\n%s",
                     epoch, f1, fitness, report.summary())
-        metric = fitness if args.gate_metric == "fitness" else f1
-        if metric > trainer.best_metric:
-            trainer.best_metric = metric  # kept in every checkpoint
-            trainer.save_checkpoint(args.checkpoint_dir, step=epoch,
-                                    name="best")
-        return metric
+        return fitness if args.gate_metric == "fitness" else f1
 
     for epoch in range(start_epoch, args.epochs):
         trainer.fit(augmented(epoch), epochs=1, checkpoint_dir=None)
         if args.checkpoint_dir and args.checkpoint_every \
                 and (epoch + 1) % args.checkpoint_every == 0:
             trainer.save_checkpoint(args.checkpoint_dir, step=epoch + 1)
-        if (val_detector is not None and args.val_every
+        if (val_paths and args.val_every
                 and (epoch + 1) % args.val_every == 0
                 and epoch + 1 < args.epochs):
             run_validation(epoch + 1)
     # precise-BN over a full augmented epoch; the final validation uses
     # those statistics (an 8-batch pass would overwrite them), then 'last'
     trainer.calibrate_bn(imgs for imgs, *_ in augmented(args.epochs))
-    if val_detector is not None:
+    if val_paths:
         run_validation(args.epochs, calibrate=False)
     trainer.save_checkpoint(args.checkpoint_dir, step=args.epochs,
                             name="last")
-    out = save_params(trainer.ema_model(),
-                      os.path.join(args.checkpoint_dir, "last.npz"),
-                      meta={"model": args.model,
-                            "num_classes": args.num_classes})
-    logger.info("Exported the EMA weights to %s", out)
+    if master:
+        out = save_params(trainer.ema_model(),
+                          os.path.join(args.checkpoint_dir, "last.npz"),
+                          meta={"model": args.model,
+                                "num_classes": args.num_classes})
+        logger.info("Exported the EMA weights to %s", out)
     return 0, trainer
 
 

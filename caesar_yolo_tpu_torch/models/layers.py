@@ -24,7 +24,11 @@ batch's f32 mean and biased variance over N, H, W (optionally recording
 them for precise-BN), and in bf16 the conv output is bf16 while BN's
 `y * scale + shift` runs in f32 and is cast back.  Training keeps
 F.silu: the reference's four-op form would keep four more tensors for
-autograd in bf16, and training is held by distance ratios.
+autograd in bf16, and training is held by distance ratios.  Under a
+process group (parallel/mesh.py) BatchNorm normalises with the global
+batch's statistics, as the reference's mean and variance over its sharded
+global array (layers.py:173-174): `global_moments`, one allgather a layer
+in each direction.
 
 int8 PTQ (models/quant.py): inside `quant_calibrate(model)` every Conv
 records the running max|x| of its inputs; `Conv.to_int8` turns a fused
@@ -43,6 +47,7 @@ from torch import nn
 from caesar_yolo_tpu_torch.models import cuda_attn, cuda_epilogue, cuda_qconv
 from caesar_yolo_tpu_torch.models.cuda_epilogue import silu
 from caesar_yolo_tpu_torch.ops import cuda_upsample
+from caesar_yolo_tpu_torch.parallel import mesh
 
 BN_EPS = 1e-3
 
@@ -162,6 +167,34 @@ class quant_calibrate:
         return False
 
 
+class _AllGather(torch.autograd.Function):
+    """Every rank's tensor stacked [ranks, ...]; the backward sums the
+    ranks' gradients of the stack and returns this rank's row."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return torch.stack(mesh.all_gather(t))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return mesh.all_reduce_sum(grad.contiguous())[mesh.process_index()]
+
+
+def global_moments(mean: torch.Tensor, var: torch.Tensor, count: int):
+    """The global batch's per-channel (mean, biased variance) in f32 from
+    this rank's over `count` values a channel: every rank's (count, mean,
+    M2 = var * count) gathered and combined by Chan et al.'s pairwise
+    formula, summed over the ranks at once, in f64 and rounded once.
+    Differentiable: the gradient reaches every rank's own statistics."""
+    stats = torch.stack([torch.full_like(mean, count), mean,
+                         var * count]).double()
+    n, mu, m2 = _AllGather.apply(stats).unbind(1)
+    total = n.sum(0)
+    gmean = (n * mu).sum(0) / total
+    gm2 = (m2 + n * (mu - gmean) ** 2).sum(0)
+    return gmean.float(), (gm2 / total).float()
+
+
 class BatchNorm(nn.Module):
     """Inference BatchNorm statistics, named as the reference's `bn` dict."""
 
@@ -226,6 +259,9 @@ class Conv(nn.Module):
         if self.bn is not None:
             yf = y.float()
             var, mean = torch.var_mean(yf, dim=(0, 2, 3), correction=0)
+            if mesh.distributed():
+                mean, var = global_moments(mean, var,
+                                           yf.numel() // yf.shape[1])
             if self.bn_collect is not None:
                 self.bn_collect[self.bn] = (mean.detach(), var.detach())
             scale = self.bn.gamma / torch.sqrt(var + BN_EPS)

@@ -1,5 +1,5 @@
-"""Mosaic-scale source finding on one GPU: tiling, batched inference, edge
-handling, stitching, catalog output.
+"""Mosaic-scale source finding: tiling, batched inference, edge handling,
+stitching, catalog output, on one GPU or striped over a process group.
 
 Counterpart of caesar_yolo_tpu/parallel/sfinder.py (reference
 inference.py:280-1287).  Tiles are grouped by shape and padded to
@@ -28,8 +28,17 @@ serial path (`run`) also takes PNG and JPEG images (utils/fits.py:
 read_image), with the crop window honoured; tiled runs take FITS only, as
 the reference's do.
 
-Not ported yet (ROADMAP.md, Queue 1): plots and multi-GPU runs (the
-spool's rank suffix and stripe wait for the latter).
+Under a process group (parallel/mesh.py: one process per GPU, launched by
+torchrun) a tiled run is the JAX SFinder's multi-process run: each rank
+takes the tiles with tid % nproc == rank on whichever device-tiling path
+its own tiles pick (on the full path every rank ships, and in the global
+context preprocesses, the whole mosaic), spools them to its own file
+(`.p{rank}` suffix; the stripe is part of the grid signature), and the
+results come back to every rank by a chunked allgather of fixed-size byte
+rounds (`gather_payload_bytes`), so every rank stitches the same catalog;
+only rank 0 writes it.
+
+Not ported yet (ROADMAP.md, Queue 1): plots.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from caesar_yolo_tpu_torch.outputs.catalog import (
     write_json,
 )
 from caesar_yolo_tpu_torch.outputs.ds9 import write_ds9_regions
+from caesar_yolo_tpu_torch.parallel import mesh
 from caesar_yolo_tpu_torch.parallel.engine import TileEngine
 from caesar_yolo_tpu_torch.parallel.stitch import (
     flag_edge_sources,
@@ -79,8 +89,8 @@ from caesar_yolo_tpu_torch.utils.tiling import (
 @dataclass(frozen=True)
 class SFinderConfig:
     """Frozen run configuration: the reference's SFinderConfig without
-    the fields of features not ported yet (plots, the multi-host gather),
-    which the CLI refuses."""
+    the fields of features not ported yet (plots), which the CLI
+    refuses."""
     image_path: str = ""
     image_xmin: int = 0
     image_xmax: int = 0
@@ -120,6 +130,9 @@ class SFinderConfig:
     # pixels, the reference's parity) or "global" (the whole mosaic's,
     # on the full device-resident path only; others fall back to "tile")
     preproc_context: str = "tile"
+    # under a process group: the chunk size of the results' allgather; a
+    # larger payload takes more rounds, never an error
+    gather_payload_bytes: int = 8 * 1024 * 1024
 
 
 @dataclass
@@ -127,7 +140,7 @@ class SFinderReport:
     """Run observability: timings and per-tile failures."""
     runtime_s: float = 0.0
     n_tiles: int = 0
-    n_local_tiles: int = 0
+    n_local_tiles: int = 0  # tiles this rank detected (its stripe)
     n_sources: int = 0
     max_inflight_batches: int = 0  # peak read futures + undrained batches
     read_s: float = 0.0     # wall spent reading tiles, bands or the mosaic
@@ -136,13 +149,16 @@ class SFinderReport:
     tiling_mode: str = ""   # "full", "band" or "stream" (the paths taken)
     h2d_bytes: int = 0      # pixel bytes shipped to the device
     n_resumed: int = 0      # tile results taken from the spool
+    gather_rounds: int = 0  # rounds of the results' allgather (a group)
+    gather_bytes: int = 0   # this rank's gathered payload
     phase_times: dict = field(default_factory=dict)
     tile_errors: list = field(default_factory=list)
 
 
 class SFinder:
-    """Mosaic source finder on one device (CUDA unless `device` says
-    otherwise).  `model` is the port's YOLO with its weights loaded;
+    """Mosaic source finder on one device (this process's GPU unless
+    `device` says otherwise; under a process group, one rank of a striped
+    tiled run).  `model` is the port's YOLO with its weights loaded;
     `engine_kwargs` go to the TileEngine and the Predictor (e.g.
     compute_dtype)."""
 
@@ -270,8 +286,11 @@ class SFinder:
                 self.model, img_size=cfg.img_size, score_thr=cfg.score_thr,
                 iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms, device=self.device,
                 **self.engine_kwargs)
+        # every rank of a group runs the whole image; rank 0 writes
+        master = mesh.process_index() == 0
         outputs = AnalyzerOutputs(
-            write_json=cfg.save_catalog, write_ds9=cfg.save_region,
+            write_json=cfg.save_catalog and master,
+            write_ds9=cfg.save_region and master,
             outfile_json=cfg.outfile_json or f"out_{self.image_id}.json",
             outfile_ds9=cfg.outfile_ds9 or f"out_{self.image_id}.reg")
         analyzer = Analyzer(
@@ -329,11 +348,12 @@ class SFinder:
         if grid is None:
             return -1
         tiles = make_tile_windows(grid)
-        if len(tiles) > cfg.max_ntasks_per_worker:
-            # the reference's guard (inference.py:1150-1160), one device
+        per_worker = -(-len(tiles) // mesh.process_count())
+        if per_worker > cfg.max_ntasks_per_worker:
+            # the reference's guard (inference.py:1150-1160), a GPU a rank
             logger.error(
-                "Too many tasks per worker (%d > %d): increase tile size or "
-                "max_ntasks_per_worker!", len(tiles),
+                "Too many tasks per worker (%d > %d): increase tile size, "
+                "processes, or max_ntasks_per_worker!", per_worker,
                 cfg.max_ntasks_per_worker)
             return -1
         self.report.n_tiles = len(tiles)
@@ -381,17 +401,25 @@ class SFinder:
 
     def _spool_file(self) -> str:
         """The spool's path: spool_path, else .<image>.tilespool.jsonl in
-        the working directory (one process: no rank suffix)."""
-        return (self.config.spool_path
+        the working directory, with a .p{rank} suffix under several
+        processes (an explicit spool_path too: ranks sharing one file would
+        interleave their appends)."""
+        base = (self.config.spool_path
                 or f".{self.image_id}.tilespool.jsonl")
+        if mesh.process_count() > 1:
+            root, ext = os.path.splitext(base)
+            base = f"{root}.p{mesh.process_index()}{ext}"
+        return base
 
     def _grid_signature(self) -> dict:
         """Everything that changes what a spooled tile result means (the
-        reference's signature, sfinder.py:415-436, whose stripe of one
-        process is [0, 1]): a resume under another grid, image or detection
-        setting would stitch stale windows into the new run."""
+        reference's signature, sfinder.py:415-436): a resume under another
+        grid, image or detection setting would stitch stale windows into
+        the new run, and one under another stripe [rank, nproc] would keep
+        tiles that another rank now recomputes."""
         cfg = self.config
-        return {"image": cfg.image_path, "stripe": [0, 1],
+        return {"image": cfg.image_path,
+                "stripe": [mesh.process_index(), mesh.process_count()],
                 "tile_xsize": cfg.tile_xsize, "tile_ysize": cfg.tile_ysize,
                 "tile_xstep": cfg.tile_xstep, "tile_ystep": cfg.tile_ystep,
                 "crop": [cfg.image_xmin, cfg.image_xmax,
@@ -499,9 +527,12 @@ class SFinder:
         sig = self._grid_signature()
         done = self._load_spool(sig) if cfg.resume else {}
         self.report.n_resumed = len(done)
+        # the stripe: this rank takes tid % nproc == rank (the reference's
+        # round-robin, inference.py:1008-1029)
+        nproc, rank = mesh.process_count(), mesh.process_index()
         groups: dict[tuple, list[TileWindow]] = {}
         for t in tiles:
-            if t.tid in done:
+            if t.tid in done or t.tid % nproc != rank:
                 continue
             self.report.n_local_tiles += 1
             groups.setdefault((t.height, t.width), []).append(t)
@@ -588,6 +619,8 @@ class SFinder:
         # component traversal) is a pure function of the tile-result set,
         # however many of them came from the spool
         results.sort(key=lambda tr: tr["tileId"])
+        if mesh.distributed():
+            results = self._gather(results)
         nb = neighbor_table(tiles)
         for tr in results:
             tr["neighborTileIds"] = nb[tr["tileId"]]
@@ -596,6 +629,18 @@ class SFinder:
         except OSError:
             pass
         return results
+
+    def _gather(self, local_results: list[dict]) -> list[dict]:
+        """Every rank's tile results, sorted by tile id, on every rank
+        (the JAX SFinder's _gather_multihost): each rank's JSON through
+        mesh.allgather_bytes, so every rank stitches the same catalog."""
+        blob = json.dumps(local_results).encode()
+        rows, self.report.gather_rounds = mesh.allgather_bytes(
+            blob, self.config.gather_payload_bytes)
+        self.report.gather_bytes = len(blob)
+        merged = [tr for row in rows if row for tr in json.loads(row)]
+        merged.sort(key=lambda tr: tr["tileId"])
+        return merged
 
     def _origins(self, tile_batch, row0: int) -> np.ndarray:
         """[batch_size, 2] window corners (row, column) in an array whose
@@ -788,7 +833,8 @@ class SFinder:
         if cfg.save_tile_region:
             write_ds9_regions(objs,
                               f"catalog_{self.image_id}_tid{t.tid}.reg")
-        return {"objs": objs, "tileId": t.tid, "workerId": 0,
+        return {"objs": objs, "tileId": t.tid,
+                "workerId": mesh.process_index(),
                 "neighborTileIds": [],
                 "xmin": t.xmin, "xmax": t.xmax,
                 "ymin": t.ymin, "ymax": t.ymax}
@@ -796,8 +842,11 @@ class SFinder:
     # -- output --------------------------------------------------------------
 
     def save(self):
-        """Write the mosaic catalog and DS9 regions (reference
-        inference.py:641-648, 1167-1287)."""
+        """Write the mosaic catalog and DS9 regions, from rank 0 only
+        (reference inference.py:641-648, 1167-1287): every rank holds the
+        whole stitched catalog, and ranks writing one path would race."""
+        if mesh.process_index() != 0:
+            return
         cfg = self.config
         if cfg.save_catalog:
             out = cfg.outfile_json or f"catalog_{self.image_id}.json"

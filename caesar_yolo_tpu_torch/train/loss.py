@@ -5,7 +5,11 @@ Counterpart of caesar_yolo_tpu/train/loss.py: task-aligned assignment
 classification against soft target scores, CIoU box loss and
 distribution-focal box regression, with gt boxes padded to a fixed count
 and masked.  All loss math runs in f32, and the assigner's inputs and
-outputs are detached where the reference stops gradients.
+outputs are detached where the reference stops gradients.  Under a process
+group each rank passes its shard of the global batch: the target-score sum
+and the batch size are the global batch's (summed over the ranks, without
+gradient), so the ranks' losses add up to the global batch's, as the
+reference's loss over its sharded global array (loss.py:212-227).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch.nn.functional as F
 
 from caesar_yolo_tpu_torch.models.yolo import REG_MAX, _device_anchor_points
 from caesar_yolo_tpu_torch.models.yolo import flatten_raw as _yolo_flatten_raw
+from caesar_yolo_tpu_torch.parallel import mesh
 
 
 def ciou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7):
@@ -157,7 +162,8 @@ def sigmoid_bce(logits, targets):
 def detection_loss(raw, gt_labels, gt_bboxes, mask_gt, *, img_size: int,
                    box_gain: float = 7.5, cls_gain: float = 0.5,
                    dfl_gain: float = 1.5, topk: int = 10):
-    """Total detection loss for a batch.
+    """Total detection loss for a batch (under a process group, this
+    rank's share of the global batch's).
 
     raw: the model's output; gt_labels [B, M] int; gt_bboxes [B, M, 4]
     xyxy in input-image pixels; mask_gt [B, M] bool.  Returns
@@ -178,7 +184,12 @@ def detection_loss(raw, gt_labels, gt_bboxes, mask_gt, *, img_size: int,
         pred_bboxes.detach() * strides[None], anchors * strides,
         gt_labels.to(dev), gt_bboxes, mask_gt.to(dev), topk=topk)
 
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    target_scores_sum = target_scores.sum()
+    if mesh.distributed():
+        target_scores_sum, b = mesh.all_reduce_sum(torch.stack([
+            target_scores_sum.detach(),
+            torch.tensor(float(b), device=dev)]))
+    target_scores_sum = target_scores_sum.clamp(min=1.0)
     loss_cls = sigmoid_bce(pred_logits, target_scores).sum() \
         / target_scores_sum
 

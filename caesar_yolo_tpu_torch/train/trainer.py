@@ -1,8 +1,8 @@
-"""Training loop on one GPU: SGD (Nesterov) with the published schedules,
-parameter EMA, precise-BN and checkpoints.
+"""Training loop: SGD (Nesterov) with the published schedules, parameter
+EMA, precise-BN and checkpoints, on one GPU or data-parallel over a
+process group.
 
-Counterpart of caesar_yolo_tpu/train/trainer.py on one device (the mesh
-and data-parallel path waits for multi-GPU, ROADMAP.md Queue 1).  The update is the
+Counterpart of caesar_yolo_tpu/train/trainer.py.  The update is the
 reference's optax chain written out (trainer.py:94-102), per parameter:
 
     g = clip_by_global_norm(raw gradients, 10)
@@ -18,6 +18,17 @@ forward runs in `compute_dtype` (bf16 by default), the loss in f32.
 BatchNorm trains with batch statistics; its running statistics are
 written by `calibrate_bn` (precise-BN).  Checkpoints are `torch.save`
 files with a `.step` sidecar.
+
+Under a process group (parallel/mesh.py: one process per GPU) the step is
+the reference's data-parallel step over one global batch (trainer.py:
+121-209): each rank passes its shard; BatchNorm normalises with the global
+batch's statistics (layers.global_moments) and the loss with its target-
+score sum and size (train/loss.py), so the ranks' gradients sum to the
+global batch's.  They are summed as one flat buffer before the clip, which
+then sees the global norm as optax's does after XLA's psum.  Rank 0's
+weights are broadcast at construction; from there every rank applies the
+same update to the same state, so the optimizer and EMA state stay equal
+without further collectives.  Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 from caesar_yolo_tpu_torch import logger
 from caesar_yolo_tpu_torch.models.layers import BatchNorm, train_mode
 from caesar_yolo_tpu_torch.models.yolo import YOLO
+from caesar_yolo_tpu_torch.parallel import mesh
 from caesar_yolo_tpu_torch.train.loss import detection_loss
 from caesar_yolo_tpu_torch.utils.device import resolve_device
 
@@ -100,11 +112,12 @@ def _is_decayed(name: str) -> bool:
 
 
 class Trainer:
-    """Detection trainer on one device.
+    """Detection trainer on one device, or one rank of a data-parallel
+    group.
 
-    `model` holds the f32 master weights; it is moved to `device` (CUDA by
-    default, raising without it; "cpu" for the CPU), in channels_last
-    memory on CUDA."""
+    `model` holds the f32 master weights; it is moved to `device` (this
+    process's GPU by default, raising without one; "cpu" for the CPU), in
+    channels_last memory on CUDA."""
 
     def __init__(self, model: YOLO, cfg: TrainConfig, *,
                  steps_per_epoch: int = 100, device=None):
@@ -113,6 +126,10 @@ class Trainer:
         self.model = model.float().to(self.device)
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
+        if mesh.distributed():
+            with torch.no_grad():   # every rank starts from rank 0's state
+                for t in self.model.state_dict().values():
+                    mesh.broadcast_(t)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.lr_fn, self.mom_fn = make_optimizer(cfg, steps_per_epoch)
         self.params = dict(self.model.named_parameters())
@@ -140,8 +157,10 @@ class Trainer:
     def train_step(self, images, gt_labels, gt_bboxes, mask_gt):
         """One optimizer step.  images [B, S, S, C] float32 in [0, 1];
         gt_labels [B, M] int; gt_bboxes [B, M, 4] xyxy px; mask_gt [B, M]
-        bool (numpy or tensors).  Returns (loss, parts) as device
-        scalars."""
+        bool (numpy or tensors).  Under a process group each rank passes
+        its local shard of the global batch (the reference's contract,
+        trainer.py:194-209).  Returns the global batch's (loss, parts) as
+        device scalars."""
         cfg = self.cfg
         x, gl, gb, mg = self._to_device(images, gt_labels, gt_bboxes,
                                         mask_gt)
@@ -156,6 +175,10 @@ class Trainer:
                 dfl_gain=cfg.dfl_gain)
             loss.backward()
         self._apply_update(params)
+        if mesh.distributed():      # the ranks' shares of the global loss
+            loss, *vals = mesh.all_reduce_sum(torch.stack(
+                [loss.detach()] + [parts[k].detach() for k in parts]))
+            parts = dict(zip(parts, vals))
         return loss.detach(), {k: v.detach() for k, v in parts.items()}
 
     @torch.no_grad()
@@ -167,6 +190,15 @@ class Trainer:
         cfg = self.cfg
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if mesh.distributed():
+            # one collective for every gradient, then back into each
+            # gradient's own layout (channels_last on CUDA)
+            with torch.profiler.record_function("grad_all_reduce"):
+                flat = mesh.all_reduce_sum(
+                    torch.cat([g.reshape(-1) for g in grads]))
+                torch._foreach_copy_(grads, [
+                    f.view_as(g) for f, g in zip(
+                        flat.split([g.numel() for g in grads]), grads)])
         g_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         factor = torch.where(g_norm < cfg.grad_clip_norm,
@@ -273,9 +305,17 @@ class Trainer:
                         name: str | None = None) -> str:
         """Write `<directory>/<name or step_N>` (torch.save of params, EMA,
         optimizer state, step and best metric) and its `.step` sidecar,
-        which resume resolution ranks candidates by."""
-        os.makedirs(directory, exist_ok=True)
+        which resume resolution ranks candidates by.  Under a process group
+        rank 0 writes and every rank waits for it; all return the path."""
         path = os.path.abspath(os.path.join(directory, name or f"step_{step}"))
+        if mesh.process_index() == 0:
+            self._write_checkpoint(path)
+        if mesh.distributed():
+            mesh.barrier()
+        return path
+
+    def _write_checkpoint(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
 
         def host(d):
             return {k: v.detach().cpu().contiguous() for k, v in d.items()}
@@ -291,7 +331,6 @@ class Trainer:
         with open(path + ".step", "w") as f:
             f.write(f"{self.step}\n")
         logger.info("Saved checkpoint %s", path)
-        return path
 
     @staticmethod
     def load_checkpoint(path: str) -> dict:

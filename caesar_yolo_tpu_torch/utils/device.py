@@ -6,9 +6,14 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    another.  Raises when CUDA is wanted (explicitly or by default) and
-    there is none -- an entry point never carries on on the CPU unasked."""
+    """The device an entry point runs on: the one asked for, else this
+    process's GPU under a process group (cuda:{LOCAL_RANK},
+    parallel/mesh.local_device), else CUDA.  Raises when CUDA is wanted
+    (explicitly or by default) and there is none -- an entry point never
+    carries on on the CPU unasked."""
+    from caesar_yolo_tpu_torch.parallel import mesh
+    if device is None and mesh.distributed():
+        return mesh.local_device()
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

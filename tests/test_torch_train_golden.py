@@ -66,7 +66,9 @@ def as_train_batch(golden):
 
 def summarise(init: dict, final: dict, losses) -> dict:
     """{loss, parts, update norms, final-conv weights} of a run, from flat
-    {param path: array} dicts of the initial and final weights."""
+    {param path: array} dicts of the initial and final weights (the final
+    convs the model has: a YOLO11 head's class branch ends in a Conv with
+    BN, without a bias)."""
     keys = sorted(k for k in init if not k.endswith(("/mean", "/var")))
     out = {"loss": np.asarray([l for l, _ in losses], np.float32),
            "parts": np.asarray([[p[k] for k in ("box", "cls", "dfl")]
@@ -76,7 +78,8 @@ def summarise(init: dict, final: dict, losses) -> dict:
                [np.linalg.norm(np.asarray(final[k]) - np.asarray(init[k]))
                 for k in keys], np.float32)}
     for k in FINAL_CONVS:
-        out["final/" + k] = np.asarray(final[k], np.float32)
+        if k in final:
+            out["final/" + k] = np.asarray(final[k], np.float32)
     return out
 
 
@@ -135,8 +138,12 @@ def golden_mismatch(golden, got) -> str | None:
                 f"{got['update_norms'][bad.argmax()]:.6g} vs "
                 f"{ref[bad.argmax()]:.6g}")
     norms = dict(zip(golden["norm_keys"], ref))
-    for k in FINAL_CONVS:
-        r, g = golden["final/" + k], got["final/" + k]
+    finals = sorted(k for k in golden if k.startswith("final/"))
+    if finals != sorted(k for k in got if k.startswith("final/")):
+        return "final convs differ"
+    for key in finals:
+        k = key[len("final/"):]
+        r, g = golden[key], got[key]
         scale = norms[k] / np.sqrt(r.size)          # rms of the update
         err = np.abs(g - r).max()
         if err > UPDATE_RTOL * 30 * scale + 4 * np.spacing(np.abs(r).max()):
