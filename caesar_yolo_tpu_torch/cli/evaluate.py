@@ -11,9 +11,9 @@ matching rules (reference macros/make_prediction.py:553-694) and the
 COCO-style mAP.  `--weights` takes the reference's npz or an ultralytics
 `.pt` checkpoint; the filelist FITS, PNG and JPEG images.  Runs on CUDA;
 `--devices=cpu` selects the CPU.  --int8 quantizes the dense convs (int8
-PTQ) after calibrating on the first filelist image.  --save_plot (the
-plots) raises NotImplementedError until the plots are ported (ROADMAP.md,
-Queue 1).
+PTQ) after calibrating on the first filelist image.  --save_plot writes
+the per-class C/R/F1 figure and the precision-recall curves beside it
+(matplotlib, imported only then).
 """
 
 from __future__ import annotations
@@ -48,7 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--save_detail", default="",
                    help="write per-image match detail JSON here")
     p.add_argument("--save_plot", default="",
-                   help="per-class C/R/F1 bar figure (not ported yet)")
+                   help="per-class C/R/F1 bar figure (and PR curves "
+                        "beside it)")
     p.add_argument("--devices", type=str, default="",
                    help="torch device (default cuda; cpu runs on the CPU)")
     from caesar_yolo_tpu_torch.cli.preproc_args import add_preprocessing_args
@@ -56,22 +57,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def unported_flags(args) -> list[str]:
-    """The given flags whose feature the port does not have yet, each with
-    that feature."""
-    out = []
-    if args.save_plot:
-        out.append("--save_plot (the plots)")
-    return out
-
-
 def run(argv=None):
     """Parse and evaluate -> (exit code, the MetricsReport)."""
     args = parse_args(argv)
-    bad = unported_flags(args)
-    if bad:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(bad)} (ROADMAP.md, Queue 1)")
     from caesar_yolo_tpu_torch.cli.preproc_args import (
         build_preprocessor_from_args,
     )
@@ -101,7 +89,8 @@ def run(argv=None):
         soft_merge_thr=args.merge_overlap_iou_thr_soft,
         hard_merge_thr=args.merge_overlap_iou_thr_hard,
         iou_thr=args.iouThr_match, max_images=args.maxnimgs,
-        detail_out=args.save_detail, device=device, **engine_kwargs)
+        detail_out=args.save_detail, plot_out=args.save_plot, device=device,
+        **engine_kwargs)
     print(report.summary())
     return 0, report
 

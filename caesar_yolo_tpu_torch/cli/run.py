@@ -34,9 +34,9 @@ spool (--resume, --spool_path), --profile_dir (a torch.profiler Chrome
 trace) and --save_tile_img.  --int8 quantizes the dense convs (int8 PTQ,
 models/quant.py) after calibrating on up to three crops of the input image
 (with --datalist, of its first image); on the card their convs run on
-kernel K9.  These flags are refused with NotImplementedError until their
-feature is ported (ROADMAP.md, Queue 1): --draw_plots and --save_plots
-(the plots).
+kernel K9.  --draw_plots draws the detections over the image of a serial
+run (with --save_plots into out_<image>.png, else shown; matplotlib,
+imported only then); with --datalist it takes the per-image path.
 --multigpu is a no-op, as in the reference package.
 """
 
@@ -152,12 +152,6 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def unported_flags(args) -> list[str]:
-    """The given flags whose feature the port does not have yet."""
-    return [f"--{name}" for name in ("draw_plots", "save_plots")
-            if getattr(args, name)]
-
-
 def validate_args(args) -> int:
     """Reference validation rules (scripts/run.py:158-190)."""
     if args.datalist:
@@ -265,6 +259,8 @@ def config_from_args(args):
         save_tile_catalog=args.save_tile_catalog,
         save_tile_region=args.save_tile_region,
         save_tile_img=args.save_tile_img,
+        draw_plot=args.draw_plots, save_plot=args.save_plots,
+        draw_class_label_in_caption=args.draw_class_label_in_caption,
         outfile_json=args.detect_outfile_json,
         outfile_ds9=args.detect_outfile)
 
@@ -309,8 +305,8 @@ def run_datalist_tiled(model, cfg, images, preproc, device=None,
 
 def run_datalist_serial(model, cfg, images, preproc, device=None,
                         engine_kwargs=None) -> int:
-    """Per-image SFinder runs (outfile overrides, crop windows) sharing ONE
-    Predictor."""
+    """Per-image SFinder runs (plots, outfile overrides, crop windows)
+    sharing ONE Predictor."""
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
 
     status, predictor = 0, None
@@ -385,10 +381,6 @@ def run(argv=None):
     """Parse, check and run -> (exit code, the SFinder after its run, or
     None for a datalist or when the arguments were rejected)."""
     args = parse_args(argv)
-    bad = unported_flags(args)
-    if bad:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(bad)} (ROADMAP.md, Queue 1)")
     if validate_args(args) < 0:
         return 1, None
 
@@ -413,7 +405,8 @@ def run(argv=None):
             images = images[:args.maxnimgs]
         if args.split_img_in_tiles:
             route = run_datalist_tiled
-        elif (args.detect_outfile or args.detect_outfile_json
+        elif (args.draw_plots or args.save_plots
+              or args.detect_outfile or args.detect_outfile_json
               or (args.xmin >= 0 and args.xmax > 0 and args.ymin >= 0
                   and args.ymax > 0)):
             route = run_datalist_serial

@@ -2,8 +2,10 @@
 
 Counterpart of caesar_yolo_tpu/detect/analyzer.py: gray -> 3 channels,
 preprocessing, the degenerate-channel guard, prediction, the graph-based
-overlap merge, and the JSON catalog and DS9 region outputs.  FITS image
-and plot outputs are not ported yet (ROADMAP.md, Queue 1: the plots).
+overlap merge, and the output fan-out: the JSON catalog, DS9 regions, the
+preprocessed image's first channel as FITS (`save_img`) and the detection
+plot (`draw`: saved with `save_plot`, else shown; outputs/plot.py,
+matplotlib imported only then).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from caesar_yolo_tpu_torch.outputs.catalog import (
     write_json,
 )
 from caesar_yolo_tpu_torch.outputs.ds9 import write_ds9_regions
+from caesar_yolo_tpu_torch.utils.fits import write_fits
 
 
 @dataclass
@@ -33,8 +36,12 @@ class AnalyzerOutputs:
     write_ds9: bool = True
     save_img: bool = False
     draw: bool = False
+    save_plot: bool = False
+    draw_class_label_in_caption: bool = True
     outfile_json: str = ""
     outfile_ds9: str = ""
+    outfile_img: str = ""
+    outfile_plot: str = ""
 
 
 @dataclass
@@ -65,10 +72,6 @@ class Analyzer:
         self.soft_merge_thr = soft_merge_thr
         self.hard_merge_thr = hard_merge_thr
         self.outputs = outputs or AnalyzerOutputs()
-        if self.outputs.save_img or self.outputs.draw:
-            raise NotImplementedError(
-                "FITS image and plot outputs are not ported yet "
-                "(ROADMAP.md, Queue 1: the plots)")
         self.class_names = class_names
         self.obj_name_tag = obj_name_tag
         self.detections = Detections()
@@ -114,9 +117,29 @@ class Analyzer:
                             ymin=ymin, name_tag=self.obj_name_tag,
                             class_names=self.class_names)
         self.results = make_json_results(image_id, objs)
+        self._write_outputs(image_id, objs)
+        return 0
+
+    def _write_outputs(self, image_id, objs):
         o = self.outputs
         if o.write_json:
             write_json(self.results, o.outfile_json or f"out_{image_id}.json")
         if o.write_ds9:
             write_ds9_regions(objs, o.outfile_ds9 or f"out_{image_id}.reg")
-        return 0
+        if not (o.save_img or o.draw) or self.image is None:
+            return
+        image = self.image.float().cpu().numpy()
+        if o.save_img:
+            write_fits(image[:, :, 0], o.outfile_img or f"out_{image_id}.fits")
+        if o.draw:
+            from caesar_yolo_tpu_torch.outputs.plot import draw_results
+            # plot in LOCAL image coords (objs carry the mosaic offset)
+            d = self.detections
+            local = [{**obj, "x1": d.boxes[i][0], "y1": d.boxes[i][1],
+                      "x2": d.boxes[i][2], "y2": d.boxes[i][3]}
+                     for i, obj in enumerate(objs)]
+            draw_results(image, local,
+                         o.outfile_plot or f"out_{image_id}.png",
+                         draw_class_label_in_caption=(
+                             o.draw_class_label_in_caption),
+                         show=not o.save_plot)

@@ -11,6 +11,9 @@ greedy scan of 32 rows a step by one warp an image, from shared memory
 runs `suppress_plain`, the reference's XLA fixpoint sweeps
 (caesar_yolo_tpu/detect/nms.py:_suppress_xla) in PyTorch.  Both give
 bit-identical masks.
+
+Under torch.export the wrapper calls the op caesar_yolo::nms_suppress
+(utils/portable.py), whose body is the same dispatch.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import functools
 import torch
 
 from caesar_yolo_tpu_torch import cuda_build
+from caesar_yolo_tpu_torch.utils import portable
 from caesar_yolo_tpu_torch.utils.boxes import iou_matrix
 
 MAX_K = 8192    # candidates an image the kernel takes (csrc/nms.cu kMaxK)
@@ -31,7 +35,7 @@ def suppress_plain(nms_boxes: torch.Tensor, valid: torch.Tensor,
     """nms_boxes [B, K, 4] f32, valid [B, K] bool -> alive [B, K] bool,
     by fixpoint sweeps over the materialised [K, K] IoU matrix."""
     k = nms_boxes.shape[1]
-    iou = torch.vmap(iou_matrix)(nms_boxes, nms_boxes)
+    iou = iou_matrix(nms_boxes, nms_boxes)
     js = torch.arange(k, device=nms_boxes.device)
     higher = js[:, None] < js[None, :]
     thr = torch.tensor(iou_thr, dtype=torch.float32)
@@ -55,6 +59,9 @@ def nms_suppress(boxes_t: torch.Tensor, valid: torch.Tensor,
     launches, counted as one in `nms_suppress.launches`, once a call) and
     use a [B, K, ceil(K/32)] int32 scratch mask; CPU tensors take
     `suppress_plain`."""
+    if portable.exporting():
+        return torch.ops.caesar_yolo.nms_suppress(boxes_t, valid,
+                                                  float(iou_thr))
     if not boxes_t.is_cuda:
         return suppress_plain(boxes_t.transpose(1, 2), valid, iou_thr)
     b, four, k = boxes_t.shape
@@ -91,3 +98,20 @@ def _entry():
 
 
 nms_suppress.launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::nms_suppress", mutates_args=())
+def _nms_suppress_op(boxes_t: torch.Tensor, valid: torch.Tensor,
+                     iou_thr: float) -> torch.Tensor:
+    # a copy where the plain sweeps end on their first pass and return
+    # `valid` itself: an op's output may not be its input
+    alive = nms_suppress(boxes_t, valid, iou_thr)
+    if alive is valid:
+        return alive.clone(memory_format=torch.contiguous_format)
+    return alive.contiguous()
+
+
+@_nms_suppress_op.register_fake
+def _(boxes_t, valid, iou_thr):
+    return boxes_t.new_empty((boxes_t.shape[0], boxes_t.shape[2]),
+                             dtype=torch.bool)

@@ -87,13 +87,15 @@ def evaluate_dataset(model, filelist, *, label_dir: str | None = None,
                      soft_merge_thr: float = 0.3, hard_merge_thr: float = 0.8,
                      iou_thr: float = 0.6, max_images: int = -1,
                      class_names=CLASS_NAMES, detector=None,
-                     detail_out: str = "", device=None,
+                     detail_out: str = "", plot_out: str = "", device=None,
                      **engine_kwargs) -> MetricsReport:
     """Run the detector over every image of the filelist and score it.
 
     filelist: path of a text filelist, or a ready list of image paths.
     `detector` (a BatchedDetector) replaces the one built from `model`,
-    `preprocessor`, `device` and the detection settings."""
+    `preprocessor`, `device` and the detection settings.  `plot_out`: the
+    per-class C/R/F1 figure there, and the precision-recall curves beside
+    it (<root>_pr<ext>), as the reference package writes them."""
     paths = (read_filelist(filelist) if isinstance(filelist, str)
              else list(filelist))
     if max_images > 0:
@@ -145,4 +147,16 @@ def evaluate_dataset(model, filelist, *, label_dir: str | None = None,
             json.dump(per_image_match_detail(kept, gt_list, pred_list,
                                              iou_thr), f, indent=2)
         logger.info("Wrote per-image match detail to %s", detail_out)
+    if plot_out:
+        from caesar_yolo_tpu_torch.evaluation.metrics import (
+            save_pr_figure,
+            save_report_figure,
+        )
+        save_report_figure(report, plot_out)
+        logger.info("Wrote metrics figure to %s", plot_out)
+        if map_report.pr_curves:
+            root, ext = os.path.splitext(plot_out)
+            pr_path = f"{root}_pr{ext or '.png'}"
+            save_pr_figure(map_report, pr_path)
+            logger.info("Wrote PR-curve figure to %s", pr_path)
     return report

@@ -2,10 +2,9 @@
 and COCO-style mAP.
 
 A numpy copy of caesar_yolo_tpu/evaluation/metrics.py (the port may not
-import the JAX package), without its figure writers, which need
-matplotlib, a package the port does not depend on (cli.evaluate refuses
---save_plot until the plots are ported; ROADMAP.md, Queue 1).  Like the reference package it
-re-implements the reference evaluation macro's exact counting rules
+import the JAX package), with its figure writers (`save_report_figure`,
+`save_pr_figure`: cli.evaluate --save_plot), which import matplotlib
+only when called.  Like the reference package it re-implements the reference evaluation macro's exact counting rules
 (reference macros/make_prediction.py:328-441 completeness, :446-547
 reliability; IoU >= 0.6 match criterion at :559,:633; F1 = 2CR/(C+R),
 README.md:184-188):
@@ -331,6 +330,61 @@ def per_image_match_detail(keys, gt_list, pred_list,
             } for j in range(len(pred["labels"]))],
         })
     return detail
+
+
+def save_report_figure(report: MetricsReport, path: str):
+    """Per-class C/R/F1 bar figure (the reference macro's plot artifacts,
+    make_prediction.py figures)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    keys = [k for k in sorted(set(report.completeness))
+            if report.completeness[k].n > 0 or report.reliability[k].n > 0]
+    c = [max(report.completeness[k].ratio, 0.0) for k in keys]
+    r = [max(report.reliability[k].ratio, 0.0) for k in keys]
+    f = [report.f1.get(k) for k in keys]
+    f = [v if v is not None and np.isfinite(v) else 0.0 for v in f]
+    x = np.arange(len(keys))
+    fig, ax = plt.subplots(figsize=(1.8 * max(len(keys), 3), 4))
+    ax.bar(x - 0.25, c, width=0.25, label="completeness")
+    ax.bar(x, r, width=0.25, label="reliability")
+    ax.bar(x + 0.25, f, width=0.25, label="F1")
+    ax.set_xticks(x)
+    ax.set_xticklabels(keys, rotation=20, ha="right")
+    ax.set_ylim(0, 1.05)
+    ax.legend()
+    ax.set_title("Detection quality per class")
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+
+
+def save_pr_figure(map_report: MAPReport, path: str):
+    """Per-class precision-recall curves at IoU=0.50 with AP in the
+    legend (the PR_curve.png artifact ultralytics' validator saves)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(6, 5))
+    for label in sorted(map_report.pr_curves):
+        recall, precision, _ = map_report.pr_curves[label]
+        # prepend the (0, p0) start so single-point curves draw a line
+        r = np.concatenate(([0.0], recall))
+        p = np.concatenate(([precision[0] if len(precision) else 1.0],
+                            precision))
+        ax.plot(r, p, linewidth=1.5,
+                label=f"{label} AP50={map_report.per_class_ap50[label]:.3f}")
+    ax.set_xlabel("recall")
+    ax.set_ylabel("precision")
+    ax.set_xlim(0, 1.0)
+    ax.set_ylim(0, 1.05)
+    ax.legend(loc="lower left", fontsize=8)
+    ax.set_title(f"Precision-Recall (IoU=0.50), mAP50={map_report.map50:.3f}")
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
 
 
 def read_yolo_labels(label_path: str, img_w: int, img_h: int,

@@ -20,6 +20,10 @@ pair of bf16 values) and, on the CPU, autograd through `attention_plain`
 -- the reference's custom VJP, which recomputes through `_attention_ref`
 (pallas_attn.py:106-128).  tests/test_torch_attn_tc.py emulates the
 kernels' bf16 arithmetic on the CPU against the rules below.
+
+Under torch.export `attention` calls the op caesar_yolo::attention
+(utils/portable.py), whose body is the same dispatch; export traces no
+gradient, so the backward has no op.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import ctypes
 import torch
 
 from caesar_yolo_tpu_torch import cuda_build
+from caesar_yolo_tpu_torch.utils import portable
 
 # The reference's gate for its fused kernel (pallas_attn.py:48): other
 # sequence lengths take its einsum branch, which the port follows in
@@ -113,6 +118,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors launch the kernel (and raise on shapes or dtypes it does
     not take); CPU tensors take `attention_plain`."""
+    if portable.exporting():
+        return torch.ops.caesar_yolo.attention(q, k, v, float(scale))
     if not q.is_cuda:
         return attention_plain(q, k, v, scale)
     b, h, n, kd = q.shape
@@ -141,6 +148,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 attention.launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::attention", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    return attention(q, k, v, scale).contiguous()
+
+
+@_attention_op.register_fake
+def _(q, k, v, scale):
+    return v.new_empty(v.shape)
 
 
 def attention_backward_plain(q, k, v, g, scale):

@@ -13,7 +13,9 @@ tests/test_torch_epilogue.py).
 optional), rounded once, then `silu` if `act`.  On a CUDA tensor it
 launches csrc/epilogue.cu (channels_last in and out, 16-byte stores),
 bit-equal to `epilogue_plain`, which the CPU runs.  K9's epilogue
-(csrc/qconv.cu) takes its SiLU from the same csrc/epilogue.cuh.
+(csrc/qconv.cu) takes its SiLU from the same csrc/epilogue.cuh.  Under
+torch.export `conv_epilogue` calls the op caesar_yolo::conv_epilogue
+(utils/portable.py), whose body is the same dispatch.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from caesar_yolo_tpu_torch import cuda_build
+from caesar_yolo_tpu_torch.utils import portable
 
 
 def silu(y: torch.Tensor) -> torch.Tensor:
@@ -65,6 +68,9 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor | None,
     """The epilogue (see the module's docstring): K10 on CUDA, the plain
     version on the CPU.  On CUDA the output is channels_last bf16; an f32
     input in another layout is made channels_last first."""
+    if portable.exporting():
+        return torch.ops.caesar_yolo.conv_epilogue(y, scale, shift,
+                                                   bool(act))
     if not y.is_cuda:
         return epilogue_plain(y, scale, shift, act)
     check_inputs(y, scale, shift)
@@ -87,6 +93,19 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor | None,
 
 
 conv_epilogue.launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::conv_epilogue", mutates_args=())
+def _conv_epilogue_op(y: torch.Tensor, scale: torch.Tensor | None,
+                      shift: torch.Tensor, act: bool) -> torch.Tensor:
+    return conv_epilogue(y, scale, shift, act).contiguous(
+        memory_format=portable.channels_last_on_cuda(y))
+
+
+@_conv_epilogue_op.register_fake
+def _(y, scale, shift, act):
+    return torch.empty(y.shape, dtype=torch.bfloat16, device=y.device,
+                       memory_format=portable.channels_last_on_cuda(y))
 
 
 @functools.cache

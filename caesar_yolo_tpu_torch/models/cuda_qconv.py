@@ -19,7 +19,9 @@ channel slices of it); wq int8 [cout, cin, k, k] whose memory is
 quantized model out on the card), which `pack_weights` pads once to
 [cout][k][k][Cp] (Cp = cin rounded up to 16; prepare_model keeps it as the
 Conv's `wp`); ws and b f32 [cout]; xs f32, one value, on x's device.  The
-output is channels_last, in x's dtype.
+output is channels_last, in x's dtype.  Under torch.export `qconv` calls
+the op caesar_yolo::qconv (utils/portable.py), whose body is the same
+dispatch.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from caesar_yolo_tpu_torch import cuda_build
 from caesar_yolo_tpu_torch.models.cuda_epilogue import silu
+from caesar_yolo_tpu_torch.utils import portable
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the largest |sum| of K products of int8 values in [-127, 127] must stay
@@ -124,6 +127,9 @@ def qconv(x, wq, ws, xs, b, stride: int, pad: int, act: bool, wp=None):
     """The int8 conv (see the module's docstring): K9 on CUDA, the plain
     version on the CPU.  `wp` is pack_weights(wq) where the caller keeps it
     (packed here otherwise)."""
+    if portable.exporting():
+        return torch.ops.caesar_yolo.qconv(x, wq, ws, xs, b, int(stride),
+                                           int(pad), bool(act), wp)
     if not x.is_cuda:
         return qconv_plain(x, wq, ws, xs, b, stride, pad, act)
     check_shapes(x, wq, ws, xs, b, stride, pad)
@@ -147,6 +153,24 @@ def qconv(x, wq, ws, xs, b, stride: int, pad: int, act: bool, wp=None):
 
 
 qconv.launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::qconv", mutates_args=())
+def _qconv_op(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+              xs: torch.Tensor, b: torch.Tensor, stride: int, pad: int,
+              act: bool, wp: torch.Tensor | None) -> torch.Tensor:
+    return qconv(x, wq, ws, xs, b, stride, pad, act, wp).contiguous(
+        memory_format=portable.channels_last_on_cuda(x))
+
+
+@_qconv_op.register_fake
+def _(x, wq, ws, xs, b, stride, pad, act, wp):
+    k = wq.shape[2]
+    ho = (x.shape[2] + 2 * pad - k) // stride + 1
+    wo = (x.shape[3] + 2 * pad - k) // stride + 1
+    return torch.empty((x.shape[0], wq.shape[0], ho, wo), dtype=x.dtype,
+                       device=x.device,
+                       memory_format=portable.channels_last_on_cuda(x))
 
 
 def quantize_padded(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ from caesar_yolo_tpu_torch.models.layers import (
     Upsample,
     make_divisible,
 )
+from caesar_yolo_tpu_torch.utils import portable
 
 REG_MAX = 16  # DFL bins per box side
 STRIDES = (8, 16, 32)
@@ -317,7 +318,11 @@ def decode_dfl_window(dist, anchors, strides):
 def decode_dfl(raw, img_size: int):
     """Raw head outputs -> (boxes_xyxy[B, A, 4], scores[B, A, NC]) f32."""
     dist, logits = flatten_raw(raw)
-    anchors, strides = _device_anchor_points(img_size, dist.device)
+    # under torch.export the anchors are made in the trace (as constants):
+    # a cache filled there would keep fake tensors for the live path
+    anchors, strides = (
+        anchor_points(img_size, device=dist.device) if portable.exporting()
+        else _device_anchor_points(img_size, dist.device))
     boxes = decode_dfl_window(dist, anchors[None], strides[None])
     return boxes, torch.sigmoid(logits.float())
 

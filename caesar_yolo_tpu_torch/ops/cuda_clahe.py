@@ -13,7 +13,9 @@ histograms, the tables, the blend).  On a CPU tensor it runs
 ops/clahe.equalize_adapthist_plain, the same arithmetic in PyTorch; both
 give the same bits.  `tile_histograms` and `blend` launch the stream
 route's histogram and blend kernels one at a time, each with a range the
-caller gives.
+caller gives.  Under torch.export `equalize_adapthist_batch` calls the
+op caesar_yolo::equalize_adapthist (utils/portable.py), whose body is the
+same dispatch.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from caesar_yolo_tpu_torch.ops.clahe import (
     tile_histograms_plain,
     tile_size,
 )
+from caesar_yolo_tpu_torch.utils import portable
 
 # The kernel's configuration (csrc/clahe.cu), chosen by measurement on an
 # H100 (scripts/torch_kernel_tune.py, PERF.md): clusters of up to CLUSTER
@@ -110,6 +113,9 @@ def equalize_adapthist_batch(planes: torch.Tensor, clip_limit: float = 0.03,
     `cluster_launches` or `stream_launches`); CPU tensors take
     ops/clahe.equalize_adapthist_plain."""
     planes = planes.float()
+    if portable.exporting():
+        return torch.ops.caesar_yolo.equalize_adapthist(
+            planes, float(clip_limit), int(grid))
     if not planes.is_cuda:
         return equalize_adapthist_plain(planes, clip_limit, grid)
     if planes.ndim != 3 or planes.shape[0] > 65535:
@@ -163,6 +169,17 @@ def _entry():
 equalize_adapthist_batch.launches = 0
 equalize_adapthist_batch.cluster_launches = 0
 equalize_adapthist_batch.stream_launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::equalize_adapthist", mutates_args=())
+def _equalize_adapthist_op(planes: torch.Tensor, clip_limit: float,
+                           grid: int) -> torch.Tensor:
+    return equalize_adapthist_batch(planes, clip_limit, grid).contiguous()
+
+
+@_equalize_adapthist_op.register_fake
+def _(planes, clip_limit, grid):
+    return planes.new_empty(planes.shape, dtype=torch.float32)
 
 
 # The stream route's histogram and blend kernels, one launch each, with

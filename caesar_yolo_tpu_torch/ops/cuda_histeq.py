@@ -11,7 +11,9 @@ a call, holds each plane in the shared memory of one thread-block
 cluster and reads it from device memory once; a plane too large for it
 takes the stream route, four launches that read it three times.  On a
 CPU tensor it runs `ops.histeq.equalize_hist`, the same arithmetic in
-PyTorch; both give the same bits.
+PyTorch; both give the same bits.  Under torch.export
+`equalize_hist_batch` calls the op caesar_yolo::equalize_hist
+(utils/portable.py), whose body is the same dispatch.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from caesar_yolo_tpu_torch import cuda_build
 from caesar_yolo_tpu_torch.ops.histeq import NBINS, equalize_hist
+from caesar_yolo_tpu_torch.utils import portable
 
 # The kernel's configuration (csrc/histeq.cu), chosen by measurement on an
 # H100 (scripts/torch_kernel_tune.py, PERF.md): clusters of up to CLUSTER
@@ -59,6 +62,8 @@ def equalize_hist_batch(planes: torch.Tensor) -> torch.Tensor:
     counted in `equalize_hist_batch.launches` and in the route's counter
     `cluster_launches` or `stream_launches`); CPU tensors take
     `equalize_hist`."""
+    if portable.exporting():
+        return torch.ops.caesar_yolo.equalize_hist(planes)
     if not planes.is_cuda:
         return equalize_hist(planes)
     if (planes.ndim != 3 or planes.dtype != torch.float32
@@ -113,3 +118,13 @@ def _entry():
 equalize_hist_batch.launches = 0
 equalize_hist_batch.cluster_launches = 0
 equalize_hist_batch.stream_launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::equalize_hist", mutates_args=())
+def _equalize_hist_op(planes: torch.Tensor) -> torch.Tensor:
+    return equalize_hist_batch(planes).contiguous()
+
+
+@_equalize_hist_op.register_fake
+def _(planes):
+    return planes.new_empty(planes.shape, dtype=torch.float32)

@@ -16,7 +16,9 @@ flight) and write it once; a plane whose parts are too large for a
 block's shared memory takes the stream route, three launches that read it
 twice.  On a CPU
 tensor it runs `zscale_minmax_plain`, the same chain in PyTorch; both
-give the same bits.
+give the same bits.  Under torch.export `zscale_minmax` calls the op
+caesar_yolo::zscale_minmax (utils/portable.py), whose body is the same
+dispatch.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from caesar_yolo_tpu_torch import cuda_build
 from caesar_yolo_tpu_torch.ops.stats import valid_mask
 from caesar_yolo_tpu_torch.ops.zscale import zscale_apply, zscale_limits
+from caesar_yolo_tpu_torch.utils import portable
 
 # The kernel's configuration (csrc/preproc.cu), chosen by measurement on an
 # H100 (scripts/torch_kernel_tune.py, PERF.md): clusters of up to CLUSTER
@@ -101,6 +104,9 @@ def zscale_minmax(planes: torch.Tensor, vlims: torch.Tensor,
     picks (one call counted in `zscale_minmax.launches` and in the route's
     counter `cluster_launches` or `stream_launches`); CPU tensors take
     `zscale_minmax_plain`."""
+    if portable.exporting():
+        return torch.ops.caesar_yolo.zscale_minmax(
+            planes, vlims, float(norm_min), float(norm_max))
     if not planes.is_cuda:
         return zscale_minmax_plain(planes, vlims, norm_min, norm_max)
     p = planes.shape[0]
@@ -155,6 +161,20 @@ def _entry():
 zscale_minmax.launches = 0
 zscale_minmax.cluster_launches = 0
 zscale_minmax.stream_launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::zscale_minmax", mutates_args=())
+def _zscale_minmax_op(planes: torch.Tensor, vlims: torch.Tensor,
+                      norm_min: float, norm_max: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    out, zlims = zscale_minmax(planes, vlims, norm_min, norm_max)
+    return out.contiguous(), zlims.contiguous()
+
+
+@_zscale_minmax_op.register_fake
+def _(planes, vlims, norm_min, norm_max):
+    return (planes.new_empty(planes.shape, dtype=torch.float32),
+            planes.new_empty((planes.shape[0], 2), dtype=torch.float32))
 
 
 def fused_zscale_minmax(tiles: torch.Tensor, contrast: float = 0.25,

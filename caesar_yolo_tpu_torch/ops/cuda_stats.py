@@ -14,7 +14,9 @@ the cluster's shared memory; a plane too large for it takes the stream
 route, which reads it from device memory on every pass.  On a CPU tensor
 it runs `ops.stats.clip_stats_plain`, the same arithmetic in PyTorch.
 The kernel derives the mask from the values, so an explicit mask is
-taken on the CPU only.
+taken on the CPU only.  Under torch.export `clip_stats` calls the op
+caesar_yolo::clip_stats (utils/portable.py), whose body is the same
+dispatch.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from caesar_yolo_tpu_torch import cuda_build
 from caesar_yolo_tpu_torch.ops.stats import clip_stats_plain
+from caesar_yolo_tpu_torch.utils import portable
 
 
 # The kernel's configuration (csrc/stats.cu), chosen by measurement on an
@@ -67,6 +70,9 @@ def clip_stats(values: torch.Tensor, sigma_low: float, sigma_up: float,
     `clip_stats.cluster_launches` or `clip_stats.stream_launches`); CPU
     tensors take `clip_stats_plain` (where `mask` may replace the values'
     own valid mask)."""
+    if portable.exporting():
+        return torch.ops.caesar_yolo.clip_stats(
+            values, float(sigma_low), float(sigma_up), int(maxiters), mask)
     if not values.is_cuda:
         return clip_stats_plain(values, mask, sigma_low, sigma_up, maxiters)
     if (mask is not None or values.ndim != 3
@@ -121,6 +127,21 @@ def _entry():
 clip_stats.launches = 0
 clip_stats.cluster_launches = 0
 clip_stats.stream_launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::clip_stats", mutates_args=())
+def _clip_stats_op(values: torch.Tensor, sigma_low: float, sigma_up: float,
+                   maxiters: int, mask: torch.Tensor | None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    stats, counts = clip_stats(values, sigma_low, sigma_up, maxiters, mask)
+    return stats.contiguous(), counts.contiguous()
+
+
+@_clip_stats_op.register_fake
+def _(values, sigma_low, sigma_up, maxiters, mask):
+    p = values.shape[0]
+    return (values.new_empty((p, 5), dtype=torch.float32),
+            values.new_empty((p, 2), dtype=torch.int32))
 
 
 # The kernel against its plain version: n_valid equal; where the final

@@ -12,7 +12,9 @@ backward reads any gradient whose channels are contiguous where it lies
 (in the YOLO neck, a channel slice of the concat's channels_last
 gradient), in vectors of the width `backward_plan` picks.  On a CPU
 tensor they run `upsample2x_plain` (the reference's broadcast form,
-layers.py:475-477) and `upsample2x_backward_plain`.
+layers.py:475-477) and `upsample2x_backward_plain`.  Under torch.export
+the forward calls the op caesar_yolo::upsample2x (utils/portable.py),
+whose body is the same dispatch; export traces no gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import functools
 import torch
 
 from caesar_yolo_tpu_torch import cuda_build
+from caesar_yolo_tpu_torch.utils import portable
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,6 +53,8 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 
 def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
     """The forward alone: the kernel on CUDA, the plain form on the CPU."""
+    if portable.exporting():
+        return torch.ops.caesar_yolo.upsample2x(x)
     if not x.is_cuda:
         return upsample2x_plain(x)
     b, c, h, w = x.shape
@@ -71,6 +76,19 @@ def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
 
 
 upsample2x_forward.launches = 0
+
+
+@torch.library.custom_op("caesar_yolo::upsample2x", mutates_args=())
+def _upsample2x_op(x: torch.Tensor) -> torch.Tensor:
+    return upsample2x_forward(x).contiguous(
+        memory_format=portable.channels_last_on_cuda(x))
+
+
+@_upsample2x_op.register_fake
+def _(x):
+    b, c, h, w = x.shape
+    return torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device,
+                       memory_format=portable.channels_last_on_cuda(x))
 
 
 def backward_plan(shape, strides, offset: int, itemsize: int) -> int:

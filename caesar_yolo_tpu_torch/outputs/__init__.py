@@ -1,1 +1,1 @@
-"""Output writers: JSON catalogs and DS9 regions."""
+"""Output writers: JSON catalogs, DS9 regions and detection plots."""

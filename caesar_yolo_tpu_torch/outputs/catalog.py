@@ -17,6 +17,16 @@ import numpy as np
 CLASS_NAMES = ("spurious", "compact", "extended", "extended-multisland",
                "flagged")
 
+# matplotlib RGB of each class in the detection plots (outputs/plot.py)
+CLASS_COLOR_MAP = {
+    "bkg": (0, 0, 0),
+    "spurious": (1, 0, 0),
+    "compact": (0, 0, 1),
+    "extended": (1, 1, 0),
+    "extended-multisland": (1, 0.647, 0),
+    "flagged": (0, 0, 0),
+}
+
 CLASS_COLOR_MAP_DS9 = {
     "bkg": "black",
     "spurious": "red",

@@ -10,8 +10,9 @@ Device-resident tiling (the reference's engine.py:204-305): a mosaic, or
 a full-width band of one, is shipped to the device once (`put_mosaic`),
 optionally preprocessed there as one plane (`preprocess_mosaic`, the
 global statistics context), and batches of windows are cut from it on
-the device by one gather (`process_mosaic_async`).  The device mesh is
-not ported yet (ROADMAP.md, Queue 1: multi-GPU).
+the device by one gather (`process_mosaic_async`).  On several GPUs each
+process runs its own engine (parallel/mesh.py, parallel/sfinder.py).
+The serving export (deploy.py) traces `make_tile_step`'s step.
 """
 
 from __future__ import annotations

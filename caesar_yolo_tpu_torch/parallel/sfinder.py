@@ -37,8 +37,6 @@ context preprocesses, the whole mosaic), spools them to its own file
 results come back to every rank by a chunked allgather of fixed-size byte
 rounds (`gather_payload_bytes`), so every rank stitches the same catalog;
 only rank 0 writes it.
-
-Not ported yet (ROADMAP.md, Queue 1): plots.
 """
 
 from __future__ import annotations
@@ -88,9 +86,9 @@ from caesar_yolo_tpu_torch.utils.tiling import (
 
 @dataclass(frozen=True)
 class SFinderConfig:
-    """Frozen run configuration: the reference's SFinderConfig without
-    the fields of features not ported yet (plots), which the CLI
-    refuses."""
+    """Frozen run configuration: the reference's SFinderConfig (the serial
+    run's FITS image and plot outputs: save_img, draw_plot, save_plot,
+    draw_class_label_in_caption)."""
     image_path: str = ""
     image_xmin: int = 0
     image_xmax: int = 0
@@ -114,6 +112,10 @@ class SFinderConfig:
     save_tile_catalog: bool = False
     save_tile_region: bool = False
     save_tile_img: bool = False   # timg_<image>_tid<k>.fits per tile
+    save_img: bool = False
+    draw_plot: bool = False
+    save_plot: bool = False
+    draw_class_label_in_caption: bool = True
     outfile_json: str = ""
     outfile_ds9: str = ""
     class_names: tuple = CLASS_NAMES
@@ -291,6 +293,9 @@ class SFinder:
         outputs = AnalyzerOutputs(
             write_json=cfg.save_catalog and master,
             write_ds9=cfg.save_region and master,
+            save_img=cfg.save_img and master, draw=cfg.draw_plot and master,
+            save_plot=cfg.save_plot,
+            draw_class_label_in_caption=cfg.draw_class_label_in_caption,
             outfile_json=cfg.outfile_json or f"out_{self.image_id}.json",
             outfile_ds9=cfg.outfile_ds9 or f"out_{self.image_id}.reg")
         analyzer = Analyzer(

@@ -51,6 +51,20 @@ Phases (any failure exits non-zero before the last line):
   epilogue  K10 (csrc/epilogue.cu, the bf16 conv epilogue) bit-equal to
             its plain version on every bf16 conv of one yolo11l forward
             (batch 32), each call on its own input
+  export    the serving artifacts (deploy.py, torch.export): yolo11l@640
+            bf16, batch 32, README chain, exported, saved and loaded in a
+            fresh process that imports deploy.py alone (no model code, no
+            JAX), equal to the live TileEngine bit for bit on the main
+            phase's batches, with K1, K2, K3, K4 and K10 launched inside
+            it; an --int8 artifact equal to the live int8 engine (K9); a
+            bkg + chan3 + min-max artifact on 512 px tiles equal to the live
+            engine (K5, K6); cli.serve on the first in a subprocess:
+            /healthz, raw and .npy /detect equal to each other and to the
+            artifact, latency; export and load seconds, artifact MB (by
+            part), staged tiles/s of the artifact against the live engine
+            and the ops each dispatches a batch, a call's host cost direct
+            and through its op, and one 32-window read by the native FITS
+            reader against the memory-map slices
   mosaic    the CLI (cli.run) on a seeded 2560x2560 FITS mosaic with a
             NaN-blanked border, yolo11l@640 bf16, tiled (100 tiles of 512
             px at step 0.5, four shapes, batches of 32; bkg + chan3 +
@@ -1910,6 +1924,392 @@ def epilogue_timing(torch, inputs, err):
     return row
 
 
+# the export phase: the fresh process that loads the README-chain artifact
+# (deploy.load_detector alone: none of the model code or JAX may be
+# imported), runs the main phase's batches, and reports the kernels
+# launched inside the artifact
+EXPORT_CHILD = """
+import json, sys
+import numpy as np
+import torch
+from caesar_yolo_tpu_torch.deploy import load_detector
+from caesar_yolo_tpu_torch.detect import cuda_nms
+from caesar_yolo_tpu_torch.models import cuda_attn, cuda_epilogue
+from caesar_yolo_tpu_torch.ops import cuda_preproc, cuda_upsample
+art, tiles, out = sys.argv[1:4]
+with open(art, "rb") as f:
+    det = load_detector(f.read())
+batches = np.load(tiles)
+outs = [[t.cpu().numpy() for t in det(b)] for b in batches]
+np.savez(out, *[o for b in outs for o in b])
+counters = {"nms": cuda_nms.nms_suppress, "attn": cuda_attn.attention,
+            "preproc": cuda_preproc.zscale_minmax,
+            "upsample": cuda_upsample.upsample2x_forward,
+            "epilogue": cuda_epilogue.conv_epilogue}
+blocked = ("caesar_yolo_tpu_torch.models.yolo",
+           "caesar_yolo_tpu_torch.models.layers",
+           "caesar_yolo_tpu_torch.ops.transforms",
+           "caesar_yolo_tpu_torch.detect.predictor",
+           "caesar_yolo_tpu_torch.parallel.engine", "jax", "caesar_yolo_tpu")
+print(json.dumps({"launches": {k: c.launches for k, c in counters.items()},
+                  "imported": [m for m in blocked if m in sys.modules]}))
+"""
+EXPORT_TIMEOUT_S = 600
+SERVE_REQUESTS = 5
+
+
+class artifact_engine:
+    """A loaded artifact in the place of a TileEngine for staged_tps."""
+
+    def __init__(self, det):
+        self.det = det
+
+    def process_async(self, tiles):
+        return self.det(tiles)
+
+
+def same_outputs(ref, got):
+    """True when two lists of the six outputs are equal bit for bit."""
+    return len(ref) == len(got) and all(
+        np.asarray(r).dtype == np.asarray(g).dtype
+        and np.array_equal(np.asarray(r), np.asarray(g))
+        for r, g in zip(ref, got))
+
+
+def export_artifact(torch, tmp, name, model, **kw):
+    """export_detector on CUDA -> (path, load seconds, the loaded
+    Detector), the export and load times and the size printed."""
+    from caesar_yolo_tpu_torch.deploy import export_detector, load_detector
+    t0 = time.perf_counter()
+    blob = export_detector(model, **kw)
+    t_export = time.perf_counter() - t0
+    path = os.path.join(tmp, f"{name}.cyx")
+    with open(path, "wb") as f:
+        f.write(blob)
+    t0 = time.perf_counter()
+    det = load_detector(blob)
+    t_load = time.perf_counter() - t0
+    log(on_card(f"export {name}: export {t_export:.3f} s, artifact "
+                f"{len(blob) / 1e6:.3f} MB ({artifact_parts(det, blob)}), "
+                f"load {t_load:.3f} s"))
+    return path, det
+
+
+def artifact_parts(det, blob):
+    """Where an artifact's bytes are: its archive's entries by kind, and
+    the tensors the loaded program holds."""
+    import io
+    import zipfile
+    kinds = Counter()
+    with zipfile.ZipFile(io.BytesIO(blob)) as z:
+        for info in z.infolist():
+            kinds[info.filename.split("/")[-2]] += info.file_size
+    held = sum(t.numel() * t.element_size() for t in
+               list(det.program.state_dict.values())
+               + [c for c in det.program.constants.values()
+                  if hasattr(c, "element_size")])
+    return (", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in kinds.most_common())
+            + f"; tensors held {held / 1e6:.3f} MB")
+
+
+def aten_ops(torch, fn):
+    """The ops fn() dispatches on the host, by name (a caesar_yolo op
+    counts once: the dispatches inside its body are not seen)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as mode:
+        fn()
+        torch.cuda.synchronize()
+    return mode.seen
+
+
+def launch_counts(counters, fn):
+    """fn() with every kernel counter at 0 -> (its result, the launches)."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def http_json(url, data=None, timeout=120):
+    import urllib.request
+    req = urllib.request.Request(url, data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.load(r)
+
+
+def phase_serve(torch, tmp, art, batch, ref):
+    """cli.serve on the artifact in a subprocess: /healthz, then one raw
+    and one .npy /detect of `batch`, which must agree with each other and
+    with the in-process artifact's valid rows `ref`; /detect latency,
+    median of SERVE_REQUESTS raw requests."""
+    import io
+    import urllib.error
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "caesar_yolo_tpu_torch.cli.serve",
+         f"--artifact={art}", f"--port={port}"], cwd=tmp,
+        env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise Failed("cli.serve exited: "
+                             + proc.stdout.read().decode()[-4000:])
+            require(time.perf_counter() - t0 < EXPORT_TIMEOUT_S,
+                    "cli.serve did not answer /healthz in time")
+            try:
+                health = http_json(f"{base}/healthz", timeout=5)
+                break
+            except (urllib.error.URLError, ConnectionError, OSError):
+                time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        require(health == {"status": "ok", "input_shape": list(batch.shape),
+                           "dtype": "float32"}, f"/healthz {health}")
+        raw = np.ascontiguousarray(batch, "<f4").tobytes()
+        buf = io.BytesIO()
+        np.save(buf, batch)
+        resp = http_json(f"{base}/detect", raw)
+        require(http_json(f"{base}/detect", buf.getvalue()) == resp,
+                "/detect: the .npy answer differs from the raw one")
+        boxes, scores, cls, valid, tile_ok, ndrop = ref
+        for i, d in enumerate(resp["detections"]):
+            v = valid[i]
+            require(d["boxes"] == boxes[i][v].astype(float).tolist()
+                    and d["scores"] == scores[i][v].astype(float).tolist()
+                    and d["class_ids"] == cls[i][v].astype(int).tolist(),
+                    f"/detect tile {i} differs from the artifact")
+        require(resp["tile_ok"] == tile_ok.tolist()
+                and resp["n_dropped"] == ndrop.tolist(),
+                "/detect tile_ok or n_dropped differs from the artifact")
+        lat = []
+        for _ in range(SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            http_json(f"{base}/detect", raw)
+            lat.append(time.perf_counter() - t0)
+    finally:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+    log(on_card(f"export serve: cli.serve up in {t_up:.3f} s (load and warm "
+                f"included); /detect of {batch.shape[0]} tiles "
+                f"({len(raw) / 1e6:.1f} MB raw f32), {int(valid.sum())} "
+                f"detections, raw and .npy equal to the artifact; latency "
+                f"median of {SERVE_REQUESTS} {float(np.median(lat)):.4f} s "
+                f"({[round(v, 4) for v in lat]})"))
+
+
+def op_overhead_us(torch):
+    """Host microseconds a call of K10 directly and through its op
+    caesar_yolo::conv_epilogue (on a small channels_last input), each the
+    median of five runs of 200 calls."""
+    from caesar_yolo_tpu_torch.models import cuda_epilogue
+    y = torch.randn((1, 64, 8, 8), device=DEVICE).contiguous(
+        memory_format=torch.channels_last)
+    shift = torch.zeros(64, device=DEVICE)
+    calls = {"direct": lambda: cuda_epilogue.conv_epilogue(y, None, shift,
+                                                           True),
+             "op": lambda: torch.ops.caesar_yolo.conv_epilogue(y, None, shift,
+                                                               True)}
+    out = {}
+    for name, fn in calls.items():
+        runs = []
+        for _ in range(5):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            runs.append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        out[name] = float(np.median(runs))
+    return out
+
+
+def native_read_ms(tmp):
+    """One read of 32 windows of MOSAIC_TILE px from a MOSAIC_SIZE FITS
+    mosaic: utils/fits_native.read_tiles_batch (the native reader) against
+    utils/fits.read_fits_crop (the memory-map slice the SFinder reads),
+    each the median of five, and the windows equal -> (native ms or None
+    when the library is not available, memory-map ms)."""
+    from caesar_yolo_tpu_torch.utils import fits_native
+    from caesar_yolo_tpu_torch.utils.fits import read_fits_crop
+    from caesar_yolo_tpu_torch.utils.synth import write_mosaic_fits
+    path = os.path.join(tmp, "native_read.fits")
+    write_mosaic_fits(path, nx=MOSAIC_SIZE, ny=MOSAIC_SIZE, n_sources=50,
+                      seed=21)
+    rng = np.random.default_rng(8)
+    x0 = rng.integers(0, MOSAIC_SIZE - MOSAIC_TILE, MAIN_BATCH)
+    y0 = rng.integers(0, MOSAIC_SIZE - MOSAIC_TILE, MAIN_BATCH)
+    wins = [[int(x), int(x) + MOSAIC_TILE, int(y), int(y) + MOSAIC_TILE]
+            for x, y in zip(x0, y0)]
+
+    def timed(fn):
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(runs))
+
+    mm, mm_ms = timed(lambda: [read_fits_crop(path, *w)[0] for w in wins])
+    if not fits_native.available():
+        return None, mm_ms
+    nat, nat_ms = timed(lambda: fits_native.read_tiles_batch(path, wins))
+    require(nat is not None and all(np.array_equal(a, b)
+                                    for a, b in zip(nat, mm)),
+            "native FITS reader: windows differ from read_fits_crop")
+    return nat_ms, mm_ms
+
+
+def phase_export(torch, counters, engine, batches, tmp):
+    """The serving artifacts on the card (deploy.py): yolo11l@640 bf16
+    with the README chain, loaded in a fresh process that imports no model
+    code, equal to the live engine bit for bit on the main phase's batches,
+    with K1-K4 and K10 launched inside it; an int8 artifact against the
+    live int8 engine (K9); a bkg + chan3 + min-max artifact on 512 px
+    tiles (K5, K6); cli.serve on the first; export, load and staged
+    tiles/s and the ops dispatched a batch; a call's host cost direct and
+    through an op; the native FITS reader's 32-window read.  Returns the
+    launches inside the artifacts."""
+    from caesar_yolo_tpu_torch.cli.preproc_args import (
+        build_preprocessor_from_args,
+    )
+    from caesar_yolo_tpu_torch.cli.run import parse_args
+    from caesar_yolo_tpu_torch.models import cuda_epilogue, quant
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+
+    counters = dict(counters, epilogue=cuda_epilogue.conv_epilogue)
+    model = init_weights(build_model("yolo11l"), seed=0)
+    pre = build_preprocessor(zscale_stretch=True, normalize_minmax=True)
+    kw = dict(img_size=MAIN_SIZE, score_thr=1e-3, iou_thr=0.5,
+              pre_nms=PRE_NMS)
+    shape = dict(tile_shape=batches[0].shape[1:], batch=MAIN_BATCH)
+    live = [engine.process(bt) for bt in batches]
+    inside = {}
+
+    # the README chain: a fresh process loads and runs it
+    art, det = export_artifact(torch, tmp, "readme", model, preprocessor=pre,
+                               **shape, **kw)
+    tiles_npy = os.path.join(tmp, "export_tiles.npy")
+    np.save(tiles_npy, np.stack(batches))
+    out_npz = os.path.join(tmp, "export_out.npz")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", EXPORT_CHILD, art, tiles_npy, out_npz],
+        capture_output=True, text=True, timeout=EXPORT_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=tmp)
+    t_child = time.perf_counter() - t0
+    require(child.returncode == 0, "export: the fresh process failed:\n"
+            + child.stderr[-4000:])
+    report = json.loads(child.stdout.strip().splitlines()[-1])
+    require(not report["imported"], f"export: the fresh process imported "
+            f"{report['imported']}")
+    with np.load(out_npz) as f:
+        got = [f[f"arr_{i}"] for i in range(6 * len(batches))]
+    for b, ref in enumerate(live):
+        require(same_outputs(ref, got[6 * b:6 * b + 6]),
+                f"export: the artifact's batch {b} differs from the live "
+                f"engine")
+    n = report["launches"]
+    nb = len(batches)
+    require(n["nms"] == n["preproc"] == nb and n["attn"] == n["upsample"]
+            == 2 * nb and n["epilogue"] > 100 * nb,
+            f"export: kernels launched inside the artifact {n}")
+    inside["readme"] = n
+    log(on_card(f"export readme: a fresh process (deploy.py only; no model "
+                f"code, no JAX) ran {nb} batches of {MAIN_BATCH} equal to "
+                f"the live engine bit for bit in {t_child:.3f} s (process "
+                f"start and load included); launches inside the artifact "
+                f"{n}"))
+    # staged tiles/s of the artifact and of the live engine, in turns
+    staged = [engine.put_tiles(bt) for bt in batches]
+    ab = [staged_tps(torch, e, staged) for e in (
+        engine, artifact_engine(det), artifact_engine(det), engine)]
+    log(on_card(f"export readme: staged tiles/s live {ab[0]:.2f}, artifact "
+                f"{ab[1]:.2f}, artifact {ab[2]:.2f}, live {ab[3]:.2f} (no "
+                f"gain claimed)"))
+    ops_live = aten_ops(torch, lambda: engine.process_async(staged[0]))
+    ops_art = aten_ops(torch, lambda: det(staged[0]))
+    more = (ops_art - ops_live).most_common(8)
+    fewer = (ops_live - ops_art).most_common(8)
+    log(f"export readme: ops dispatched a batch, live "
+        f"{sum(ops_live.values())}, artifact {sum(ops_art.values())}; the "
+        f"artifact's extra {more}; the live path's extra {fewer}")
+    ref0 = [t.cpu().numpy() for t in det(batches[0])]
+    phase_serve(torch, tmp, art, batches[0], ref0)
+    ov = op_overhead_us(torch)
+    log(on_card(f"export: host us a K10 call on [1,64,8,8], direct "
+                f"{ov['direct']:.2f}, through caesar_yolo::conv_epilogue "
+                f"{ov['op']:.2f} (medians of 5 x 200 calls)"))
+    del det
+
+    # int8: calibrated on the main tiles, against the live int8 engine
+    calib = quant.calibration_inputs_from_tiles(
+        batches[0][:4], preprocessor=pre, img_size=MAIN_SIZE)
+    qmodel = quant.quantize_model(model, calib)
+    qlive = TileEngine(qmodel, preprocessor=pre, fuse=False, **kw)
+    ref = qlive.process(batches[0])
+    _, qdet = export_artifact(torch, tmp, "int8", qmodel, preprocessor=pre,
+                              fuse=False, **shape, **kw)
+    got, n = launch_counts(counters, lambda: [t.cpu().numpy()
+                                              for t in qdet(batches[0])])
+    require(same_outputs(ref, got), "export: the int8 artifact differs "
+            "from the live int8 engine")
+    require(n["qconv"] > 100 and n["nms"] == n["preproc"] == 1,
+            f"export int8: kernels launched inside the artifact {n}")
+    inside["int8"] = n
+    log(f"export int8: equal to the live --int8 engine bit for bit; "
+        f"launches inside the artifact {n}")
+    del qlive, qdet
+
+    # bkg + chan3 + min-max on the mosaic phase's 512 px tiles
+    mpre = build_preprocessor_from_args(parse_args(
+        ["--weights=w.npz", *MOSAIC_CHAIN]))
+    mtiles = np.ascontiguousarray(batches[1][:, :MOSAIC_TILE, :MOSAIC_TILE])
+    mlive = TileEngine(model, preprocessor=mpre, **kw)
+    ref = mlive.process(mtiles)
+    _, mdet = export_artifact(torch, tmp, "mosaic", model, preprocessor=mpre,
+                              tile_shape=mtiles.shape[1:], batch=MAIN_BATCH,
+                              **kw)
+    got, n = launch_counts(counters, lambda: [t.cpu().numpy()
+                                              for t in mdet(mtiles)])
+    require(same_outputs(ref, got), "export: the mosaic-chain artifact "
+            "differs from the live engine")
+    require(n["stats"] == 3 and n["histeq"] == 1 and n["nms"] == 1
+            and n["attn"] == 2, f"export mosaic: kernels launched inside "
+            f"the artifact {n}")
+    inside["mosaic"] = n
+    log(f"export mosaic: bkg + chan3 + min-max at {MOSAIC_TILE} px equal to "
+        f"the live engine bit for bit; launches inside the artifact {n}")
+    del mlive, mdet
+    torch.cuda.empty_cache()
+
+    nat_ms, mm_ms = native_read_ms(tmp)
+    log(on_card(f"export: one read of {MAIN_BATCH} windows of {MOSAIC_TILE} "
+                f"px from a {MOSAIC_SIZE} px FITS mosaic (median of 5): "
+                f"native reader "
+                f"{'not available' if nat_ms is None else f'{nat_ms:.3f} ms'}"
+                f", memory-map slices {mm_ms:.3f} ms"))
+    return inside
+
+
 def mosaic_grid():
     """The mosaic phase's tile windows (x0, x1, y0, y1)."""
     from caesar_yolo_tpu_torch.utils.tiling import generate_tiles
@@ -3385,6 +3785,7 @@ def main() -> int:
             engine, batches, launches = phase_main(torch, counters)
             epilogue_inputs, epilogue_err = phase_epilogue(torch, engine,
                                                            batches)
+            phase_export(torch, counters, engine, batches, tmp)
             mosaic_launches, _ = phase_mosaic(torch, counters, tmp)
             phase_multiproc(torch, tmp)
             phase_profile(torch, tmp)

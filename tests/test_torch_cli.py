@@ -1,8 +1,8 @@
 """The port's detection CLI: the JAX CLI's flags and defaults, a tiled and
 a serial run on the CPU writing the port SFinder's catalog and DS9 file,
 the tiled run's device-tiling, statistics-context, spool, profiler and
-tile-image flags taking effect, the unported flags refused, and CUDA by
-default."""
+tile-image flags taking effect, the flags that were once refused taking
+effect, and CUDA by default."""
 
 import json
 import os
@@ -110,12 +110,15 @@ def test_max_ntasks_guard(tmp_path):
 @pytest.mark.parametrize("flag", [
     "--datalist=list.txt", "--int8", "--draw_plots", "--save_plots", ".pt"])
 def test_unported_flags_raise(tmp_path, monkeypatch, flag):
-    """Each unported flag raises; --datalist is ported and runs its list
-    (here the mosaic, whole-image through the BatchedDetector, writing
-    out_mosaic.json and .reg into the working directory), and so are .pt
-    weights (the fixture's as an ultralytics checkpoint, converted on the
-    fly: the npz's catalog) and --int8 (calibrated on the mosaic, the
-    sources the float run finds found again, same classes)."""
+    """Each flag the port once refused now takes effect.  --datalist runs
+    its list (here the mosaic, whole-image through the BatchedDetector,
+    writing out_mosaic.json and .reg into the working directory), and so
+    do .pt weights (the fixture's as an ultralytics checkpoint, converted
+    on the fly: the npz's catalog) and --int8 (calibrated on the mosaic,
+    the sources the float run finds found again, same classes).
+    --draw_plots draws the catalog's boxes over the image and shows the
+    figure (plt.show, recorded here); with --save_plots it writes
+    out_mosaic.png instead, as the JAX package does."""
     path = _mosaic(tmp_path)
     weights = WEIGHTS
     argv = [f"--image={path}", "--devices=cpu", "--imgsize=96"]
@@ -152,9 +155,24 @@ def test_unported_flags_raise(tmp_path, monkeypatch, flag):
         assert {o["class_id"] for o in cats[1]} == {
             o["class_id"] for o in cats[0]}
         return
-    argv.append(flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([*argv, f"--weights={weights}"])
+    plt = pytest.importorskip("matplotlib.pyplot")
+    shown = []
+    monkeypatch.setattr(plt, "show", lambda: shown.append(
+        len(plt.gca().patches)))
+    monkeypatch.chdir(tmp_path)
+    flags = ["--draw_plots"] + (["--save_plots"] if flag == "--save_plots"
+                                else [])
+    assert main([*argv, *flags, "--scoreThr=0.3",
+                 f"--weights={weights}"]) == 0
+    n_objs = len(json.loads((tmp_path / "out_mosaic.json").read_text())[
+        "objs"])
+    assert n_objs >= 3
+    png = tmp_path / "out_mosaic.png"
+    if flag == "--save_plots":
+        assert shown == [] and png.read_bytes()[:4] == b"\x89PNG"
+    else:
+        assert shown == [n_objs] and not png.exists()
+        plt.close("all")
 
 
 def _fake_spool(path, argv, score):

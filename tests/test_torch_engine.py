@@ -254,9 +254,31 @@ def test_kernel_build_command(monkeypatch, tmp_path):
     assert cuda_build.library_path("nms") != path
 
 
-def test_analyzer_unported_outputs_raise(models):
-    _, _, tm = models
+def test_analyzer_unported_outputs_raise(models, tmp_path):
+    """The Analyzer's FITS image and plot outputs, which the port once
+    refused, write their files: the preprocessed image's first channel as
+    FITS (equal to the JAX Analyzer's within 1e-6) and the plot as PNG."""
+    pytest.importorskip("matplotlib")
+    from caesar_yolo_tpu_torch.utils.fits import read_fits
+    jm, params, tm = models
     pred = Predictor(tm, device="cpu", compute_dtype=torch.float32, **KW)
-    for outputs in (AnalyzerOutputs(save_img=True), AnalyzerOutputs(draw=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Analyzer(pred, outputs=outputs)
+    image = _tiles(96)[0, :, :, 0]
+    files = {k: str(tmp_path / f"a.{k}") for k in ("fits", "png", "jfits")}
+    analyzer = Analyzer(pred, preprocessor=build_preprocessor(**README),
+                        outputs=AnalyzerOutputs(
+                            write_json=False, write_ds9=False, save_img=True,
+                            draw=True, save_plot=True,
+                            outfile_img=files["fits"],
+                            outfile_plot=files["png"]))
+    assert analyzer.predict(image, "t") == 0
+    JaxAnalyzer(JaxPredictor(jm, params, compute_dtype=jnp.float32, **KW),
+                preprocessor=jax_build_preprocessor(**README),
+                outputs=JaxOutputs(write_json=False, write_ds9=False,
+                                   save_img=True,
+                                   outfile_img=files["jfits"])).predict(
+        image, "t")
+    got, ref = (read_fits(files[k])[0] for k in ("fits", "jfits"))
+    assert got.shape == ref.shape == image.shape
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    with open(files["png"], "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"

@@ -271,21 +271,23 @@ def test_cli_evaluate_matches_jax(tmp_path, capsys, f32_engines, preproc):
 
 
 def test_cli_evaluate_refuses_unported_flags(tmp_path):
-    """--save_plot raises, naming its feature; .pt weights and --int8 are
-    ported and not refused: --int8 evaluates (calibrated on the first
-    filelist image) and finds the float run's sources."""
-    with pytest.raises(NotImplementedError, match="the plots"):
-        cli_evaluate.main([f"--weights={WEIGHTS}", "--filelist=l.txt",
-                           "--devices=cpu", "--save_plot=p.png"])
+    """Nothing is refused any more: --save_plot writes the per-class C/R/F1
+    figure and the PR curves beside it (as the JAX package names them),
+    and --int8 evaluates (calibrated on the first filelist image) and finds
+    the float run's sources."""
+    pytest.importorskip("matplotlib")
     for w in ("w.pt", WEIGHTS):
         args = cli_evaluate.parse_args([f"--weights={w}", "--filelist=l.txt",
-                                        "--int8"])
-        assert cli_evaluate.unported_flags(args) == []
+                                        "--int8", "--save_plot=p.png"])
+        assert args.int8 and args.save_plot == "p.png"
     paths, filelist = _dataset(tmp_path / "d", n=4, sizes=(96,))
     common = [f"--weights={WEIGHTS}", f"--filelist={filelist}",
               "--imgsize=96", "--devices=cpu", "--batch_size=3"]
+    plot = tmp_path / "p.png"
     reports = [cli_evaluate.run([*common, *extra])[1]
-               for extra in ([], ["--int8"])]
+               for extra in ([f"--save_plot={plot}"], ["--int8"])]
+    for p in (plot, tmp_path / "p_pr.png"):
+        assert p.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", p
     assert reports[0].completeness["compact"].n_matched >= 4
     assert reports[1].completeness["compact"].n_matched >= \
         reports[0].completeness["compact"].n_matched - 1

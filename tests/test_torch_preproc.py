@@ -193,10 +193,11 @@ def test_full_chain_gray_once_equals_repeat_first(case):
     assert not build_preprocessor(**STAGE_CASES["bkg_chid"]).channel_uniform
 
 
-def test_unported_stages_raise(tmp_path):
-    """Every preprocessing flag now builds its stage; what is still
-    unported raises at the CLI, naming the ROADMAP.  --datalist is ported:
-    a missing filelist is an argument error, not a refusal."""
+def test_unported_stages_raise(tmp_path, monkeypatch):
+    """Every preprocessing flag now builds its stage, and no CLI flag is
+    refused: --datalist is ported (a missing filelist is an argument
+    error), --draw_plots --save_plots write the plot of a run through the
+    whole chain, and --int8 calibrates through it."""
     from caesar_yolo_tpu_torch.cli.run import main
 
     pipe = build_preprocessor(subtract_bkg=True, clip_shift_data=True,
@@ -206,9 +207,6 @@ def test_unported_stages_raise(tmp_path):
     assert len(pipe.stages) == 7
     argv = [f"--image={tmp_path / 'x.fits'}", "--weights=w.npz",
             "--devices=cpu"]
-    for flag in ("--draw_plots", "--save_plots"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main([*argv, flag])
     assert main([*argv, f"--datalist={tmp_path / 'l.txt'}"]) == 1
     # --int8 is ported: it calibrates through the preprocessing chain
     from caesar_yolo_tpu_torch.utils.fits import write_fits
@@ -220,11 +218,16 @@ def test_unported_stages_raise(tmp_path):
     write_fits(img.astype(np.float32), str(tmp_path / "x.fits"))
     weights = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "fixtures", "yolov8n_synth96.npz")
-    assert main([f"--image={tmp_path / 'x.fits'}", f"--weights={weights}",
-                 "--devices=cpu", "--imgsize=96", "--int8",
-                 "--preprocessing", "--subtract_bkg", "--chan3_preproc",
-                 "--sigma_clip_baseline=0", "--sigma_clip_low=1",
-                 "--sigma_clip_up=20", "--normalize_minmax",
+    chain = [f"--image={tmp_path / 'x.fits'}", f"--weights={weights}",
+             "--devices=cpu", "--imgsize=96", "--preprocessing",
+             "--subtract_bkg", "--chan3_preproc", "--sigma_clip_baseline=0",
+             "--sigma_clip_low=1", "--sigma_clip_up=20", "--normalize_minmax"]
+    assert main([*chain, "--int8",
                  f"--detect_outfile_json={tmp_path / 'c.json'}",
                  f"--detect_outfile={tmp_path / 'c.reg'}"]) == 0
     assert (tmp_path / "c.json").exists()
+    pytest.importorskip("matplotlib")
+    monkeypatch.chdir(tmp_path)
+    assert main([*chain, "--draw_plots", "--save_plots"]) == 0
+    with open(tmp_path / "out_x.png", "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
