@@ -91,7 +91,7 @@ def make_handler(det):
             if self.path == "/healthz":
                 self._reply(200, {"status": "ok",
                                   "input_shape": list(in_shape),
-                                  "dtype": "float32"})
+                                  "dtype": det.dtype_name})
             else:
                 self._reply(404, {"error": "unknown path"})
 

@@ -21,7 +21,8 @@ wrapper modules that register them (and nothing of the model code), so
 the loaded graph runs the hand-written kernels on the card and their
 plain versions on the CPU, with the launch counters of the live path.
 The live path does not go through the ops: a call through an op costs the
-host about 22 us more than a direct launch (PERF.md, PR 15), and a yolo11l
+host about 19.5 us more than a direct launch (41.82 against 22.35 us on
+an H100, PERF.md section 6), and a yolo11l
 forward makes about 190 kernel calls.
 
 Differences from the JAX package (ROADMAP.md, design differences):
@@ -134,11 +135,10 @@ def export_detector(model, *, tile_shape, batch: int, preprocessor=None,
                     iou_thr: float = 0.5, max_det: int = 300,
                     pre_nms: int = DEFAULT_PRE_NMS,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    fuse: bool = True, platforms=None,
-                    in_dtype: torch.dtype = torch.float32) -> bytes:
-    """The detect step for `batch` tiles of `tile_shape` (H, W, C) in
-    `in_dtype`, exported (non-strict, under no_grad) and saved with its
-    weights to bytes.  `platforms`: "cuda" (default) or "cpu"."""
+                    fuse: bool = True, platforms=None) -> bytes:
+    """The detect step for `batch` f32 tiles of `tile_shape` (H, W, C),
+    exported (non-strict, under no_grad) and saved with its weights to
+    bytes.  `platforms`: "cuda" (default) or "cpu"."""
     device = platform_of(platforms)
     step = build_serving_step(
         model, preprocessor=preprocessor, img_size=img_size,
@@ -146,7 +146,7 @@ def export_detector(model, *, tile_shape, batch: int, preprocessor=None,
         pre_nms=pre_nms, compute_dtype=compute_dtype, fuse=fuse,
         device=device)
     shape = (int(batch), *(int(d) for d in tile_shape))
-    example = torch.zeros(shape, dtype=in_dtype, device=device)
+    example = torch.zeros(shape, dtype=torch.float32, device=device)
     with torch.no_grad():
         program = torch.export.export(step, (example,), strict=False)
     # torch.export.save would keep the example batch (zeros: 52.4 MB at
@@ -155,7 +155,7 @@ def export_detector(model, *, tile_shape, batch: int, preprocessor=None,
     program.example_inputs = None
     meta = {"format": FORMAT_VERSION, "device": device,
             "input_shape": list(shape),
-            "input_dtype": str(in_dtype).removeprefix("torch.")}
+            "input_dtype": "float32"}
     buf = io.BytesIO()
     torch.export.save(program, buf,
                       extra_files={META_FILE: json.dumps(meta)})
@@ -182,16 +182,20 @@ class Detector:
     """A loaded artifact: __call__(tiles) -> the six outputs, device
     tensors.  `tiles` (numpy or a tensor) must have the exported shape
     (`input_shape`, from the program's input); it is moved to the
-    artifact's device and input dtype."""
+    artifact's device and input dtype (`dtype`, f32 as exported; the
+    record's name of it is `dtype_name`)."""
 
     def __init__(self, program, meta: dict):
         self.program = program
         self.module = program.module()
         self.device = torch.device(meta["device"])
         self.input_shape, self.dtype = input_spec(program)
-        if list(self.input_shape) != meta["input_shape"]:
-            raise ValueError(f"artifact input {self.input_shape} differs from "
-                             f"its record {meta['input_shape']}")
+        self.dtype_name = str(self.dtype).removeprefix("torch.")
+        if (list(self.input_shape) != meta["input_shape"]
+                or self.dtype_name != meta["input_dtype"]):
+            raise ValueError(
+                f"artifact input {self.input_shape} {self.dtype_name} differs "
+                f"from its record {meta['input_shape']} {meta['input_dtype']}")
 
     def __call__(self, tiles):
         tiles = torch.as_tensor(tiles)

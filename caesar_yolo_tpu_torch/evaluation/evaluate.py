@@ -28,11 +28,7 @@ from caesar_yolo_tpu_torch.evaluation.metrics import (
 )
 from caesar_yolo_tpu_torch.outputs.catalog import CLASS_NAMES
 from caesar_yolo_tpu_torch.utils.fits import read_fits, read_image
-
-
-def read_filelist(path: str) -> list[str]:
-    with open(path) as f:
-        return [line.strip() for line in f if line.strip()]
+from caesar_yolo_tpu_torch.utils.misc import read_filelist
 
 
 def load_eval_image(img_path: str):

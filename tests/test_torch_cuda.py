@@ -931,39 +931,48 @@ def test_bf16_model_forward_on_the_epilogue_kernel(dev, monkeypatch):
 @pytest.mark.parametrize("arch,pipe", [
     ("yolov8n", dict(zscale_stretch=True, normalize_minmax=True)),
     ("yolo11n", dict(subtract_bkg=True, chan3_preproc=True,
-                     normalize_minmax=True))])
+                     normalize_minmax=True)),
+    ("yolov8n", "clahe")])
 def test_exported_artifact_equals_the_live_engine(dev, arch, pipe):
     """A bf16 CUDA artifact of the tile step (deploy.export_detector) run
     after a load equals the live TileEngine on the same tiles bit for bit,
     and launches the kernels of its path inside the artifact: K1, K4 and
     K10 always, K3 with the README chain, K2 in yolo11, K5 and K6 with the
-    chan3 chain."""
+    chan3 chain, K7 with an adaptive hist-eq pipeline ("clahe")."""
     from caesar_yolo_tpu_torch.deploy import export_detector, load_detector
     from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
-    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.ops.transforms import (
+        Pipeline, build_preprocessor, hist_equalizer)
     from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+
+    def preprocessor():
+        if pipe == "clahe":
+            return Pipeline([hist_equalizer(adaptive=True)])
+        return build_preprocessor(**pipe)
 
     model = init_weights(build_model(arch), seed=0)
     kw = dict(img_size=128, score_thr=1e-3, max_det=50)
     tiles = np.random.default_rng(3).random((4, 128, 128, 1), np.float32)
     tiles[1] = 0.0
-    ref = TileEngine(model, preprocessor=build_preprocessor(**pipe),
-                     **kw).process(tiles)
+    ref = TileEngine(model, preprocessor=preprocessor(), **kw).process(tiles)
     det = load_detector(export_detector(
-        model, preprocessor=build_preprocessor(**pipe),
+        model, preprocessor=preprocessor(),
         tile_shape=tiles.shape[1:], batch=len(tiles), **kw))
     counters = (cuda_nms.nms_suppress, cuda_upsample.upsample2x_forward,
                 cuda_epilogue.conv_epilogue, cuda_preproc.zscale_minmax,
                 cuda_attn.attention, cuda_stats.clip_stats,
-                cuda_histeq.equalize_hist_batch)
+                cuda_histeq.equalize_hist_batch,
+                cuda_clahe.equalize_adapthist_batch)
     n0 = [c.launches for c in counters]
     got = [t.cpu().numpy() for t in det(tiles)]
     n = dict(zip(("nms", "upsample", "epilogue", "preproc", "attn", "stats",
-                  "histeq"), (c.launches - a for c, a in zip(counters, n0))))
+                  "histeq", "clahe"),
+                 (c.launches - a for c, a in zip(counters, n0))))
     assert n["nms"] == 1 and n["upsample"] == 2 and n["epilogue"] > 50
     assert n["preproc"] == ("zscale_stretch" in pipe)
     assert n["attn"] == (arch == "yolo11n")
     assert (n["stats"], n["histeq"]) == ((3, 1) if "chan3_preproc" in pipe
                                          else (0, 0))
+    assert n["clahe"] == (pipe == "clahe")
     for r, g in zip(ref, got):
         assert r.dtype == g.dtype and np.array_equal(r, g)

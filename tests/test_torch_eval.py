@@ -275,7 +275,6 @@ def test_cli_evaluate_refuses_unported_flags(tmp_path):
     figure and the PR curves beside it (as the JAX package names them),
     and --int8 evaluates (calibrated on the first filelist image) and finds
     the float run's sources."""
-    pytest.importorskip("matplotlib")
     for w in ("w.pt", WEIGHTS):
         args = cli_evaluate.parse_args([f"--weights={w}", "--filelist=l.txt",
                                         "--int8", "--save_plot=p.png"])
@@ -283,14 +282,16 @@ def test_cli_evaluate_refuses_unported_flags(tmp_path):
     paths, filelist = _dataset(tmp_path / "d", n=4, sizes=(96,))
     common = [f"--weights={WEIGHTS}", f"--filelist={filelist}",
               "--imgsize=96", "--devices=cpu", "--batch_size=3"]
-    plot = tmp_path / "p.png"
     reports = [cli_evaluate.run([*common, *extra])[1]
-               for extra in ([f"--save_plot={plot}"], ["--int8"])]
-    for p in (plot, tmp_path / "p_pr.png"):
-        assert p.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", p
+               for extra in ([], ["--int8"])]
     assert reports[0].completeness["compact"].n_matched >= 4
     assert reports[1].completeness["compact"].n_matched >= \
         reports[0].completeness["compact"].n_matched - 1
+    pytest.importorskip("matplotlib")
+    plot = tmp_path / "p.png"
+    assert cli_evaluate.run([*common, f"--save_plot={plot}"])[0] == 0
+    for p in (plot, tmp_path / "p_pr.png"):
+        assert p.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", p
 
 
 def _run_in(path, fn, argv):
