@@ -16,8 +16,8 @@ EMA decay d = ema_decay * (1 - exp(-step / tau)) with the step after its
 increment.  The model's parameters are the f32 master weights; the
 forward runs in `compute_dtype` (bf16 by default), the loss in f32.
 BatchNorm trains with batch statistics; its running statistics are
-written by `calibrate_bn` (precise-BN).  Checkpoints are `torch.save`
-files with a `.step` sidecar.
+written by `calibrate_bn` (precise-BN, an f32 forward).  Checkpoints are
+`torch.save` files with a `.step` sidecar.
 
 Under a process group (parallel/mesh.py: one process per GPU) the step is
 the reference's data-parallel step over one global batch (trainer.py:
@@ -258,14 +258,16 @@ class Trainer:
         """Precise-BN: run `batches` (image arrays [B, S, S, C]) through
         the model in train mode, average each BatchNorm's batch mean and
         variance (in f64 on the host) and write them into the model and
-        the EMA."""
+        the EMA.  The forward runs in f32 whatever `compute_dtype` is, as
+        the reference's does on its f32 images (its model computes in the
+        input's dtype)."""
         names = {m: n for n, m in self.model.named_modules()
                  if isinstance(m, BatchNorm)}
         sums: dict = {}
         n = 0
         for images in batches:
             x = torch.as_tensor(images).to(self.device, torch.float32)
-            x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+            x = x.permute(0, 3, 1, 2)
             stats: dict = {}
             with train_mode(self.model, stats):
                 self.model(x)

@@ -1,10 +1,20 @@
 """Bounding-box math: pairwise IoU (torch, for NMS) and its numpy twin
-(host-side merge).  Counterpart of caesar_yolo_tpu/utils/boxes.py."""
+(host-side merge), the IoU of two boxes, enclosing boxes and the
+xywh/xyxy conversions.  Counterpart of caesar_yolo_tpu/utils/boxes.py."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def get_iou(bb1, bb2) -> float:
+    """IoU of two xyxy boxes (semantics of reference utils.py:54-107), in
+    float64 on the host.  Degenerate boxes (x1 >= x2 or y1 >= y2) yield 0
+    instead of asserting."""
+    m = iou_matrix_np(np.asarray(bb1, dtype=np.float64)[None, :],
+                      np.asarray(bb2, dtype=np.float64)[None, :])
+    return float(m[0, 0])
 
 
 def iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
@@ -61,6 +71,20 @@ def boxes_overlap_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
         | (boxes1[:, None, 1] > boxes2[None, :, 3])
     )
     return ~not_olap
+
+
+def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+    """Convert (cx, cy, w, h) -> (x1, y1, x2, y2) along the last axis."""
+    cx, cy, w, h = x.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                       dim=-1)
+
+
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """Convert (x1, y1, x2, y2) -> (cx, cy, w, h) along the last axis."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1],
+                       dim=-1)
 
 
 def catalog_mismatch(ref, got, iou_min: float = 0.99,

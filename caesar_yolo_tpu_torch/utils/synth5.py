@@ -88,13 +88,16 @@ def _ellipse_extents(sa, sb, ct, st):
     return hx, hy
 
 
-def _slot_fields(draws: dict, size: int):
+def _slot_fields(draws: dict, size: int, grid: int | None = None):
     """The five field formulas of every slot (render_slot,
-    synth5.py:76-157) -> (fields [5, B, S, size, size], half extents
-    hx [5, B, S], hy [5, B, S], cx [B, S], cy [B, S]) in class order."""
+    synth5.py:76-157) -> (fields [5, B, S, grid, grid], half extents
+    hx [5, B, S], hy [5, B, S], cx [B, S], cy [B, S]) in class order.
+    The fields are taken on the first `grid` (default: size) pixels of a
+    row and a column; the extents and centres do not depend on it."""
     dev = draws["noise"].device
     px = size / float(NATIVE_SIZE)  # morphology params scale with size
-    grid = torch.arange(size, dtype=torch.float32, device=dev)
+    grid = torch.arange(size if grid is None else grid,
+                        dtype=torch.float32, device=dev)
     yy, xx = grid[:, None], grid[None, :]
     qc = torch.tensor(_QUADS, dtype=torch.float32, device=dev) * size
     quad = qc[draws["perm"]]                                  # [B, S, 2]
@@ -183,14 +186,9 @@ def render_multiclass(draws: dict, *, size: int = NATIVE_SIZE,
     to the noise plane in slot order and the sum is min-max normalised
     (the FITS load convention of train/dataset.load_sample)."""
     fields, hxs, hys, cx, cy = _slot_fields(draws, size)
-    cls = draws["cls"]
+    cls, boxes, mask = _ground_truth(draws, hxs, hys, cx, cy, size, max_src)
     onehot = torch.arange(5, device=cls.device)[:, None, None] == cls
     field = torch.where(onehot[..., None, None], fields, 0.0).sum(0)
-    hx = torch.where(onehot, hxs, 0.0).sum(0)
-    hy = torch.where(onehot, hys, 0.0).sum(0)
-    boxes = torch.stack([cx - hx, cy - hy, cx + hx, cy + hy], dim=-1)
-    boxes = boxes.clamp(0.0, float(size))
-    mask = torch.arange(max_src, device=cls.device) < draws["n_src"][:, None]
     img = draws["noise"]
     for j in range(max_src):
         img = img + torch.where(mask[:, j, None, None], field[:, j], 0.0)
@@ -198,6 +196,27 @@ def render_multiclass(draws: dict, *, size: int = NATIVE_SIZE,
     hi = img.amax(dim=(1, 2), keepdim=True)
     img = (img - lo) / torch.clamp(hi - lo, min=1e-6)
     return img[..., None].repeat(1, 1, 1, 3), cls, boxes, mask
+
+
+def multiclass_boxes(draws: dict, *, size: int = NATIVE_SIZE,
+                     max_src: int = 4):
+    """render_multiclass's (labels, boxes, mask) without the image: the
+    ground truth depends on the draws alone."""
+    _, hxs, hys, cx, cy = _slot_fields(draws, size, grid=1)
+    return _ground_truth(draws, hxs, hys, cx, cy, size, max_src)
+
+
+def _ground_truth(draws, hxs, hys, cx, cy, size, max_src):
+    """Each slot's class, its class's box (clamped to the cutout) and the
+    mask of the slots present."""
+    cls = draws["cls"]
+    onehot = torch.arange(5, device=cls.device)[:, None, None] == cls
+    hx = torch.where(onehot, hxs, 0.0).sum(0)
+    hy = torch.where(onehot, hys, 0.0).sum(0)
+    boxes = torch.stack([cx - hx, cy - hy, cx + hx, cy + hy], dim=-1)
+    boxes = boxes.clamp(0.0, float(size))
+    mask = torch.arange(max_src, device=cls.device) < draws["n_src"][:, None]
+    return cls, boxes, mask
 
 
 def make_multiclass_batch(seed: int, batch: int, *, size: int = NATIVE_SIZE,

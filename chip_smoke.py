@@ -163,7 +163,9 @@ Phases (any failure exits non-zero before the last line):
             backward) and K8 must have launched as often as the steps and
             validations imply, and K4's backward must have read every
             gradient where it lies (no copy); step time, images/s and
-            validation time
+            validation time; precise-BN from the trained weights under a
+            bf16 TrainConfig bit-equal to a float32 config's (both forward
+            in f32, as the reference's)
   upsample-ab
             main-path and mosaic tiles/s with K4 and with the plain
             broadcast upsample, in turns (plain, K4, K4, plain)
@@ -1708,7 +1710,35 @@ def phase_train(torch, counters, tmp, card):
         f"augment_batch {np.mean(aug_ms):.1f} ms, together {total:.1f} ms = "
         f"{TRAIN_BATCH * 1e3 / total:.1f} images/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    precise_bn_dtypes(torch, trainer.model, [imgs, batch[0]])
     return launches["train"]
+
+
+def precise_bn_dtypes(torch, model, batches):
+    """calibrate_bn from the same weights and batches under a bfloat16 and
+    a float32 TrainConfig: the statistics written into the weights and
+    the EMA must be equal bit for bit (the forward is f32 under both)."""
+    import copy
+
+    from caesar_yolo_tpu_torch.train.trainer import TrainConfig, Trainer
+    stats = {}
+    for dtype in ("bfloat16", "float32"):
+        t = Trainer(copy.deepcopy(model),
+                    TrainConfig(img_size=MAIN_SIZE, batch_size=TRAIN_BATCH,
+                                compute_dtype=dtype))
+        t.calibrate_bn(batches)
+        stats[dtype] = {f"{w}{k}": v for w, d in
+                        (("", t.model.state_dict()), ("ema ", t.ema))
+                        for k, v in d.items()
+                        if k.endswith((".bn.mean", ".bn.var"))}
+    ref, got = stats["float32"], stats["bfloat16"]
+    differ = [k for k in ref if not torch.equal(got[k], ref[k])]
+    log(f"train precise-BN: a bfloat16 TrainConfig's statistics over "
+        f"{len(batches)} batches against a float32 config's from the same "
+        f"weights: {len(ref) - len(differ)} of {len(ref)} tensors "
+        f"(weights and EMA) bit-equal")
+    require(len(ref) > 100 and set(got) == set(ref) and not differ,
+            f"precise-BN differs by compute dtype: {differ[:4]}")
 
 
 def catalog_arrays(sources):

@@ -5,7 +5,7 @@ per-class C/R/F1 table.
 
 The twin of scripts/train_quality5.py (the JAX package's run), with the
 same recipe:
-  yolov8n, 5 classes, weights seeded 0; TrainConfig(epochs=1, batch 16,
+  yolov8n, 5 classes, weights seeded `--seed`; TrainConfig(epochs=1, batch 16,
   lr0 0.01, lrf 0.05, warmup 0.02 epochs, max_gt 4), one epoch of `steps`
   steps; each step renders 16 cutouts of 132 px (utils/synth5.py),
   resizes them bilinearly to imgsz (jax.image.resize's linear weights,
@@ -20,25 +20,33 @@ held-out evaluation runs the best weights on 512 cutouts of stream
 10_000_000 (QUALITY5_NEVAL overrides the count) and adds compute_map.
 
 Random streams: each training step's cutouts and augmentation come from
-one torch.Generator seeded 30_000_000 + step, calibration batch i from
-seed 4242 + i, and an evaluation batch of up to 64 cutouts from seed
-stream + (cutouts done before it); the JAX run draws from jax.random
-keys, so the two runs see different cutouts.
+one torch.Generator seeded 30_000_000 + 1_000_000 * seed + step,
+calibration batch i from seed 4242 + i, and an evaluation batch of up to
+64 cutouts from seed stream + (cutouts done before it); the JAX run draws
+from jax.random keys, so the two runs see different cutouts
+(scripts/torch_quality5_crosscheck.py evaluates one npz on both held-out
+streams).  `--seed k` moves the weights' init seed (k) and the training
+stream; validation, calibration and the held-out set stay the same for
+every seed, and seed 0 is the run above.  `--compute_dtype float32`
+trains in f32 (a control; validation stays a bf16 Predictor).
 
-Writes `out` (default QUALITY_torch_h100.json) and its
-`_trajectory.jsonl`, and the final EMA weights (the best step's, BN
-recalibrated) as an npz in the JAX format beside `out`
-(`<out stem>_v8n.npz`).  The gate is the JAX run's:
+Writes `out` (default QUALITY_torch_h100.json, or
+QUALITY_torch_h100_seed<k>.json for seed k > 0, with `_f32` before
+`.json` for an f32 run) and its `_trajectory.jsonl`, and the final EMA
+weights (the best step's, BN recalibrated) as an npz in the JAX format
+beside `out` (`<out stem>_v8n.npz`).  The gate is the JAX run's:
 macro-F1 > 0.5 and every class's F1 > 0.2 (exit 0), else exit 1.
 
 Usage: python3 scripts/torch_train_quality5.py [steps=12000] [imgsz=640]
-           [val_every=1000] [out=QUALITY_torch_h100.json] [ckpt_dir]
+           [val_every=1000] [out] [ckpt_dir] [--seed k]
+           [--compute_dtype bfloat16|float32]
        (QUALITY5_DEVICE=cpu runs on the CPU, for a rehearsal at a tiny
        size)
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -55,6 +63,7 @@ NATIVE = 132
 EVAL_SCORE_THR = 0.25
 EVAL_IOU_MATCH = 0.6  # reference make_prediction.py iou_thr
 TRAIN_SEED0 = 30_000_000
+SEED_STRIDE = 1_000_000     # one seed's training stream: steps < 1e6
 CAL_SEED0 = 4242
 VAL_SEED0 = 20_000_000
 N_VAL = 128
@@ -139,11 +148,17 @@ def eval_cutouts(n_imgs: int, seed0: int, device):
 def evaluate_predictor(pred, n_imgs: int, seed0: int, device):
     """The JAX script's evaluation on a Predictor -> (report, gt list,
     prediction list)."""
+    return score_batches(pred, eval_cutouts(n_imgs, seed0, device))
+
+
+def score_batches(pred, batches):
+    """The JAX script's evaluation of a Predictor on numpy batches (imgs,
+    labels, boxes, mask) -> (report, gt list, prediction list)."""
     from caesar_yolo_tpu_torch.detect.merge import merge_detections
     from caesar_yolo_tpu_torch.evaluation.metrics import compute_metrics
     from caesar_yolo_tpu_torch.utils.synth5 import CLASS_NAMES
     gl, pl = [], []
-    for imgs, labels, boxes, mask in eval_cutouts(n_imgs, seed0, device):
+    for imgs, labels, boxes, mask in batches:
         bb, ss, cc, vv, _ = (t.cpu().numpy()
                              for t in pred.predict_batch(imgs))
         for i in range(len(imgs)):
@@ -156,6 +171,32 @@ def evaluate_predictor(pred, n_imgs: int, seed0: int, device):
             pl.append({"bboxes": b, "scores": s,
                        "labels": [CLASS_NAMES[int(k)] for k in c]})
     return compute_metrics(gl, pl, iou_thr=EVAL_IOU_MATCH), gl, pl
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("steps", nargs="?", type=int, default=12000)
+    ap.add_argument("imgsz", nargs="?", type=int, default=640)
+    ap.add_argument("val_every", nargs="?", type=int, default=1000)
+    ap.add_argument("out", nargs="?", default=None)
+    ap.add_argument("ckpt_dir", nargs="?", default=None)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="init seed of the weights and the training "
+                         "stream's offset (0: the published run)")
+    ap.add_argument("--compute_dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
+    args = ap.parse_args(argv)
+    if args.seed < 0 or args.steps >= SEED_STRIDE:
+        ap.error("--seed is >= 0 and steps stay below 1e6 (the training "
+                 "streams of two seeds must not meet)")
+    return args
+
+
+def default_out(seed: int, compute_dtype: str) -> str:
+    """QUALITY_torch_h100.json for the published run (seed 0, bf16), else
+    QUALITY_torch_h100[_seed<k>][_f32].json."""
+    return ("QUALITY_torch_h100" + (f"_seed{seed}" if seed else "")
+            + ("_f32" if compute_dtype == "float32" else "") + ".json")
 
 
 def main() -> int:
@@ -173,12 +214,11 @@ def main() -> int:
                                                     make_multiclass_batch,
                                                     render_multiclass)
 
-    steps = int(sys.argv[1]) if len(sys.argv) > 1 else 12000
-    imgsz = int(sys.argv[2]) if len(sys.argv) > 2 else 640
-    val_every = int(sys.argv[3]) if len(sys.argv) > 3 else 1000
-    out_path = sys.argv[4] if len(sys.argv) > 4 else "QUALITY_torch_h100.json"
-    ckpt_dir = sys.argv[5] if len(sys.argv) > 5 else os.path.abspath(
-        "train_quality5_ckpt")
+    args = parse_args()
+    steps, imgsz, val_every = args.steps, args.imgsz, args.val_every
+    out_path = args.out or default_out(args.seed, args.compute_dtype)
+    ckpt_dir = args.ckpt_dir or os.path.abspath("train_quality5_ckpt")
+    train_seed0 = TRAIN_SEED0 + SEED_STRIDE * args.seed
     n_eval = int(os.environ.get("QUALITY5_NEVAL", "512"))
     stem = os.path.splitext(out_path)[0]
     traj_path = stem + "_trajectory.jsonl"
@@ -192,12 +232,12 @@ def main() -> int:
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     cfg = TrainConfig(epochs=1, batch_size=BATCH, img_size=imgsz,
                       lr0=0.01, lrf=0.05, warmup_epochs=0.02,
-                      max_gt=MAX_SRC)
+                      max_gt=MAX_SRC, compute_dtype=args.compute_dtype)
     scale = imgsz / float(NATIVE)
 
     def train_inputs(step):
         """132 px synth -> resize to imgsz -> the reference augmentation."""
-        gen = torch.Generator().manual_seed(TRAIN_SEED0 + step)
+        gen = torch.Generator().manual_seed(train_seed0 + step)
         draws = draw_multiclass_params(gen, BATCH, max_src=MAX_SRC)
         aug = draw_augment_params(gen, BATCH)
         draws = {k: v.to(device) for k, v in draws.items()}
@@ -223,8 +263,8 @@ def main() -> int:
             torch.cuda.synchronize()
 
     trainer = Trainer(init_weights(build_model("yolov8n", num_classes=5),
-                                   seed=0), cfg, steps_per_epoch=steps,
-                      device=device)
+                                   seed=args.seed), cfg,
+                      steps_per_epoch=steps, device=device)
 
     best_f1, best_step = -1.0, -1
     val_s = 0.0
@@ -279,8 +319,10 @@ def main() -> int:
                 "(caesar_yolo_tpu_torch/utils/synth5.py; offline analog of "
                 "the Riggi+2023 dataset, reference README.md:190-207)",
         "model": "yolov8n", "imgsz": imgsz, "native_cutout": NATIVE,
-        "steps": steps, "batch": BATCH,
-        "recipe": "rot180/flip0.5/scale0.89 device augmentation, bf16 "
+        "steps": steps, "batch": BATCH, "seed": args.seed,
+        "compute_dtype": args.compute_dtype,
+        "recipe": "rot180/flip0.5/scale0.89 device augmentation, "
+                  f"{'bf16' if args.compute_dtype == 'bfloat16' else 'f32'} "
                   "step, SGD momentum warmup-cosine, EMA, precise-BN",
         "score_thr": EVAL_SCORE_THR, "iou_match": EVAL_IOU_MATCH,
         "n_eval_images": n_eval,
@@ -299,7 +341,8 @@ def main() -> int:
         json.dump(result, fh, indent=1)
     save_params(trainer.ema_model(), npz_path, meta={
         "model": "yolov8n", "num_classes": 5, "steps": steps,
-        "best_val_step": best_step, "macro_f1": result["macro_f1"],
+        "seed": args.seed, "best_val_step": best_step,
+        "macro_f1": result["macro_f1"],
         "map50": result["map50"], "device": card})
     print("QUALITY", json.dumps(result), flush=True)
     ok = passes_gate(table, CLASS_NAMES)

@@ -104,6 +104,59 @@ def test_render_matches_jax_with_two_slots():
     assert_render_matches(got, jax_batch(2, 8, max_src=2))
 
 
+def test_boxes_without_the_image_equal_the_render():
+    """multiclass_boxes gives render_multiclass's labels, boxes and mask
+    bit for bit."""
+    draws = jax_draws(11, 6)
+    _, labels, boxes, mask = render_multiclass(draws)
+    got = synth5.multiclass_boxes(draws)
+    for g, r in zip(got, (labels, boxes, mask)):
+        assert torch.equal(g, r)
+
+
+def _two_sample_z(k1, n1, k2, n2):
+    """|p1 - p2| over the pooled standard error of two proportions."""
+    p = (k1 + k2) / (n1 + n2)
+    se = np.sqrt(p * (1 - p) * (1 / n1 + 1 / n2))
+    return abs(k1 / n1 - k2 / n2) / se if se > 0 else 0.0
+
+
+def test_draws_distribution_matches_jax():
+    """The port's draws (torch.Generator) and JAX's (jax.random key
+    splits, `jax_draws`) come from one distribution: 2048 cutouts of each
+    at 132 px.  Two-sample tests, each within 4 standard errors: the share
+    of each n_src value (0-4) among cutouts, the share of each class among
+    the sources present, and per class the 25/50/75% quartiles of box
+    width and height, by the share of each sample at or below the pooled
+    sample's quartile (binomial, so no density estimate enters).  The
+    boxes are render_multiclass's (multiclass_boxes)."""
+    n = 2048
+    port = synth5.draw_multiclass_params(torch.Generator().manual_seed(1),
+                                         n)
+    samples = []
+    for d in (port, jax_draws(1, n)):
+        labels, boxes, mask = (t.numpy() for t in
+                               synth5.multiclass_boxes(d))
+        wh = (boxes[..., 2:] - boxes[..., :2])[mask]
+        samples.append((d["n_src"].numpy(), labels[mask], wh))
+    (ns1, c1, wh1), (ns2, c2, wh2) = samples
+    z = {}
+    for k in range(5):
+        z[f"n_src={k}"] = _two_sample_z((ns1 == k).sum(), n,
+                                        (ns2 == k).sum(), n)
+        z[f"class {k}"] = _two_sample_z((c1 == k).sum(), len(c1),
+                                        (c2 == k).sum(), len(c2))
+        for axis, name in ((0, "w"), (1, "h")):
+            a, b = wh1[c1 == k, axis], wh2[c2 == k, axis]
+            assert len(a) > 300 and len(b) > 300
+            for q in (0.25, 0.5, 0.75):
+                x = np.quantile(np.concatenate([a, b]), q)
+                z[f"class {k} {name} q{q}"] = _two_sample_z(
+                    (a <= x).sum(), len(a), (b <= x).sum(), len(b))
+    assert len(z) == 40
+    assert max(z.values()) <= 4.0, max(z.items(), key=lambda kv: kv[1])
+
+
 def test_draws_shapes_and_ranges():
     gen = torch.Generator().manual_seed(0)
     d = synth5.draw_multiclass_params(gen, 5, size=64, max_src=3)

@@ -190,20 +190,24 @@ def test_train_mode_conv_bn_matches_jax(dtype):
     assert not tc.train_mode and tc.bn_collect is None
 
 
-def test_precise_bn_matches_jax():
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_precise_bn_matches_jax(compute_dtype):
     """calibrate_bn over two batches from the same weights writes the same
     running mean and variance into the weights and the EMA, yolo11n at
-    64 px f32: within 5e-4 of each layer's largest statistic.  A mean near
+    64 px: within 5e-4 of each layer's largest statistic.  A mean near
     zero is a sum that cancels, and at stride 32 a statistic is taken over
     8 values at the end of ~70 layers of f32 rounding (found: 1.2e-4, in
-    the stride-32 head)."""
+    the stride-32 head).  The reference's precise-BN forward runs on its
+    f32 images whatever the config's compute dtype (the model computes in
+    its input's dtype), so a bfloat16 config must give the f32
+    statistics too."""
     jm, params = _params("yolo11n")
     batches = [b[0] for b in _batches(2, 2, 64, seed=5)]
     jt = JaxTrainer(jm, params, JaxTrainConfig(img_size=64,
-                                               compute_dtype="float32"))
+                                               compute_dtype=compute_dtype))
     jt.calibrate_bn(batches)
     tt = Trainer(load_jax_params(build_model("yolo11n"), params),
-                 TrainConfig(img_size=64, compute_dtype="float32"),
+                 TrainConfig(img_size=64, compute_dtype=compute_dtype),
                  device="cpu")
     tt.calibrate_bn(batches)
     for tree, got in ((jt.state.params, tt.model.state_dict()),
@@ -237,6 +241,68 @@ def test_lr_and_momentum_per_step_match_optax():
         assert np.float32(jlr(jnp.int32(step))) == np.float32(lr_fn(step))
         assert (np.float32(state[2].hyperparams["decay"])
                 == np.float32(mom_fn(step)))
+
+
+def test_quality_recipe_schedules_match_jax_at_every_step():
+    """The five-class quality recipe (scripts/torch_train_quality5.py:
+    one epoch of 12000 steps, lrf 0.05, warmup 0.02 epochs = 240 steps):
+    lr and momentum at every one of the 12000 steps equal the reference's
+    schedules bit for bit in f32 (lr_fn, and the trace's injected momentum
+    read from tx.update on a state at each count, vmapped, op by op as
+    the existing 14-step test evaluates them), and so does the EMA decay's
+    exponent -step / tau (trainer.py:175, the step after its increment).
+    The decay d = ema_decay * (1 - exp(-step / tau)) and 1 - d equal the
+    reference's wherever numpy's f32 exp and XLA's give the same value,
+    and elsewhere differ by at most 2^-23 (an ulp of an exp in [0.5, 1)
+    and d's own rounding): the two libraries' f32 exp differ on 4745 of
+    the 12000
+    exponents (XLA's is not correctly rounded either), which moves d at
+    1096 steps (relatively much at the first steps, where d is small and
+    1 - exp cancels).  Jitted
+    whole, the reference rewrites x / 240 as x * (1 / 240) and its lr
+    differs from this eager evaluation at 2919 steps; the port follows the
+    expressions as written."""
+    from caesar_yolo_tpu.train.trainer import make_optimizer as jax_opt
+    from caesar_yolo_tpu_torch.train.trainer import (ema_decay_at,
+                                                     make_optimizer)
+
+    steps = 12000
+    cfg = dict(epochs=1, batch_size=16, img_size=640, lr0=0.01, lrf=0.05,
+               warmup_epochs=0.02, max_gt=4)
+    jcfg = JaxTrainConfig(**cfg)
+    tx, jlr = jax_opt(jcfg, steps)
+    p = {"w": jnp.zeros(2)}
+    init = tx.init(p)
+
+    def momentum_at(count):
+        state = jax.tree_util.tree_map(
+            lambda leaf: count if leaf.dtype == jnp.int32 else leaf, init)
+        _, state = tx.update({"w": jnp.ones(2)}, state, p)
+        return state[2].hyperparams["decay"]
+
+    count = jnp.arange(steps, dtype=jnp.int32)
+    expo = -(count + 1) / jcfg.ema_tau
+    d = jcfg.ema_decay * (1.0 - jnp.exp(expo))
+    ref = [np.asarray(r, np.float32) for r in (
+        jlr(count), jax.vmap(momentum_at)(count), d, 1.0 - d)]
+    tcfg = TrainConfig(**cfg)
+    lr_fn, mom_fn = make_optimizer(tcfg, steps)
+    got = np.asarray([(lr_fn(i), mom_fn(i), *ema_decay_at(tcfg, i + 1))
+                      for i in range(steps)], np.float32).T
+    f32 = np.float32
+    texpo = f32(-np.arange(1, steps + 1, dtype=f32)) / f32(tcfg.ema_tau)
+    np.testing.assert_array_equal(texpo, np.asarray(expo, f32))
+    same_exp = np.exp(texpo) == np.asarray(jnp.exp(expo), f32)
+    assert 0.5 < same_exp.mean() < 1.0
+    for i, name in enumerate(("lr", "momentum", "d", "1 - d")):
+        g, r = got[i], ref[i]
+        exact = np.ones(steps, bool) if i < 2 else same_exp
+        np.testing.assert_array_equal(g[exact], r[exact], err_msg=name)
+        assert np.abs(g.astype(np.float64) - r).max() <= 2.0 ** -23, name
+    # the warmup ramps lr and momentum; then momentum holds, lr decays
+    assert np.all(np.diff(ref[0][:240]) > 0) and np.all(ref[1][240:] ==
+                                                        ref[1][240])
+    assert np.all(np.diff(ref[0][240:]) < 0)
 
 
 # -- the slice: three trainer steps ------------------------------------------
