@@ -44,7 +44,7 @@ from caesar_yolo_tpu_torch.models.layers import BatchNorm, train_mode
 from caesar_yolo_tpu_torch.models.yolo import YOLO
 from caesar_yolo_tpu_torch.parallel import mesh
 from caesar_yolo_tpu_torch.train.loss import detection_loss
-from caesar_yolo_tpu_torch.utils.device import resolve_device
+from caesar_yolo_tpu_torch.utils.device import exact_f32, resolve_device
 
 
 @dataclass(frozen=True)
@@ -260,7 +260,7 @@ class Trainer:
         variance (in f64 on the host) and write them into the model and
         the EMA.  The forward runs in f32 whatever `compute_dtype` is, as
         the reference's does on its f32 images (its model computes in the
-        input's dtype)."""
+        input's dtype), with TF32 off on the card (`exact_f32`)."""
         names = {m: n for n, m in self.model.named_modules()
                  if isinstance(m, BatchNorm)}
         sums: dict = {}
@@ -269,7 +269,7 @@ class Trainer:
             x = torch.as_tensor(images).to(self.device, torch.float32)
             x = x.permute(0, 3, 1, 2)
             stats: dict = {}
-            with train_mode(self.model, stats):
+            with train_mode(self.model, stats), exact_f32():
                 self.model(x)
             for bn, (mean, var) in stats.items():
                 mean = mean.double().cpu().numpy()

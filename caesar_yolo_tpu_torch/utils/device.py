@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -20,3 +22,17 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU")
     return dev
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """Inside the block cuDNN's f32 convolutions and cuBLAS's f32 products
+    round nothing to TF32 (cuDNN's default takes TF32 for an f32 conv);
+    the previous settings come back after it.  No effect on the CPU."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev

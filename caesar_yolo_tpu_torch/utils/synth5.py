@@ -88,39 +88,25 @@ def _ellipse_extents(sa, sb, ct, st):
     return hx, hy
 
 
-def _slot_fields(draws: dict, size: int, grid: int | None = None):
-    """The five field formulas of every slot (render_slot,
-    synth5.py:76-157) -> (fields [5, B, S, grid, grid], half extents
-    hx [5, B, S], hy [5, B, S], cx [B, S], cy [B, S]) in class order.
-    The fields are taken on the first `grid` (default: size) pixels of a
-    row and a column; the extents and centres do not depend on it."""
+def _slot_shapes(draws: dict, size: int) -> dict:
+    """Each slot's geometry (render_slot, synth5.py:76-157): its centre
+    cx, cy [B, S], rotation ct, st, the five classes' shape parameters,
+    and their 2-sigma half extents hx, hy [5, B, S] in class order.  The
+    ground truth depends on these alone, not on the fields."""
     dev = draws["noise"].device
     px = size / float(NATIVE_SIZE)  # morphology params scale with size
-    grid = torch.arange(size if grid is None else grid,
-                        dtype=torch.float32, device=dev)
-    yy, xx = grid[:, None], grid[None, :]
     qc = torch.tensor(_QUADS, dtype=torch.float32, device=dev) * size
     quad = qc[draws["perm"]]                                  # [B, S, 2]
     cx = quad[..., 0] + draws["jitter"][..., 0]
     cy = quad[..., 1] + draws["jitter"][..., 1]
     theta, t = draws["theta"], draws["t"]
     ct, st = torch.cos(theta), torch.sin(theta)
-
-    def e(a):  # a per-slot value against the [size, size] grid
-        return a[..., None, None]
-
-    dx, dy = xx - e(cx), yy - e(cy)
-    u = dx * e(ct) + dy * e(st)
-    v = -dx * e(st) + dy * e(ct)
-    r = torch.sqrt(u * u + v * v + 1e-9)
     tk = [t[..., i] for i in range(8)]
 
     # -- 1 compact: beam-sized, near-circular
     sa_c = (2.0 + 2.0 * tk[0]) * px
     sb_c = sa_c / (1.0 + 0.3 * tk[1])
     amp_c = 1.0 + 4.0 * tk[2]
-    f_c = e(amp_c) * torch.exp(-0.5 * (u ** 2 / e(sa_c) ** 2
-                                       + v ** 2 / e(sb_c) ** 2))
     hx_c, hy_c = _ellipse_extents(sa_c, sb_c, ct, st)
 
     # -- 2 extended: elongated + secondary diffuse component
@@ -128,11 +114,6 @@ def _slot_fields(draws: dict, size: int, grid: int | None = None):
     sb_e = sa_e / (2.2 + 1.8 * tk[1])
     amp_e = 0.6 + 1.9 * tk[2]
     off_e = 0.8 * sa_e * (2.0 * tk[3] - 1.0)
-    f_e = (e(amp_e) * torch.exp(-0.5 * (u ** 2 / e(sa_e) ** 2
-                                        + v ** 2 / e(sb_e) ** 2))
-           + e(0.5 * amp_e) * torch.exp(
-               -0.5 * ((u - e(off_e)) ** 2 / e(0.6 * sa_e) ** 2
-                       + v ** 2 / e(sb_e) ** 2)))
     hx_e, hy_e = _ellipse_extents(sa_e, sb_e, ct, st)
 
     # -- 3 extended-multisland: 3 disjoint islands, ONE gt box
@@ -144,17 +125,12 @@ def _slot_fields(draws: dict, size: int, grid: int | None = None):
     oy = rad[..., None] * torch.sin(phis)
     sig_k = (2.0 + 1.0 * draws["sig_u"]) * px
     amp_k = (1.0 + 3.0 * tk[5])[..., None] * (0.7 + 0.3 * draws["amp_u"])
-    f_m = sum(e(amp_k[..., k]) * torch.exp(
-        -((dx - e(ox[..., k])) ** 2 + (dy - e(oy[..., k])) ** 2)
-        / e(2.0 * sig_k[..., k] ** 2)) for k in range(_ISLANDS))
     hx_m = (ox.abs() + 2.0 * sig_k).amax(-1)
     hy_m = (oy.abs() + 2.0 * sig_k).amax(-1)
 
     # -- 0 spurious: low-amplitude PSF sidelobe ring pattern
     r0 = (4.0 + 4.0 * tk[0]) * px
     amp_s = 0.35 + 0.65 * tk[2]
-    f_s = e(amp_s) * torch.cos(np.pi * r / e(r0)) \
-        * torch.exp(-r ** 2 / e(2.0 * (1.2 * r0) ** 2))
     hx_s = hy_s = 1.5 * r0
 
     # -- 4 flagged: bright compact + linear artifact stripe
@@ -162,17 +138,69 @@ def _slot_fields(draws: dict, size: int, grid: int | None = None):
     amp_f = 3.0 + 5.0 * tk[2]
     wl = (7.0 + 6.0 * tk[3]) * px
     ww = (1.0 + 1.0 * tk[4]) * px
-    f_f = e(amp_f) * torch.exp(-0.5 * (u ** 2 + v ** 2) / e(sa_f) ** 2) \
-        + e(0.35 * amp_f) * torch.exp(-0.5 * (v ** 2 / e(ww) ** 2
-                                              + u ** 2 / e(wl) ** 2))
     hx_f = torch.maximum(2.0 * sa_f,
                          2.0 * wl * ct.abs() + 2.0 * ww * st.abs())
     hy_f = torch.maximum(2.0 * sa_f,
                          2.0 * wl * st.abs() + 2.0 * ww * ct.abs())
 
-    return (torch.stack([f_s, f_c, f_e, f_m, f_f]),
-            torch.stack([hx_s, hx_c, hx_e, hx_m, hx_f]),
-            torch.stack([hy_s, hy_c, hy_e, hy_m, hy_f]), cx, cy)
+    return {"cx": cx, "cy": cy, "ct": ct, "st": st,
+            "sa_c": sa_c, "sb_c": sb_c, "amp_c": amp_c,
+            "sa_e": sa_e, "sb_e": sb_e, "amp_e": amp_e, "off_e": off_e,
+            "ox": ox, "oy": oy, "sig_k": sig_k, "amp_k": amp_k,
+            "r0": r0, "amp_s": amp_s,
+            "sa_f": sa_f, "amp_f": amp_f, "wl": wl, "ww": ww,
+            "hx": torch.stack([hx_s, hx_c, hx_e, hx_m, hx_f]),
+            "hy": torch.stack([hy_s, hy_c, hy_e, hy_m, hy_f])}
+
+
+def _slot_fields(sh: dict, size: int) -> torch.Tensor:
+    """The five field formulas of every slot (render_slot,
+    synth5.py:76-157) on `_slot_shapes`' geometry -> [5, B, S, size,
+    size] in class order."""
+    dev = sh["cx"].device
+    grid = torch.arange(size, dtype=torch.float32, device=dev)
+    yy, xx = grid[:, None], grid[None, :]
+    ct, st = sh["ct"], sh["st"]
+
+    def e(a):  # a per-slot value against the [size, size] grid
+        return a[..., None, None]
+
+    dx, dy = xx - e(sh["cx"]), yy - e(sh["cy"])
+    u = dx * e(ct) + dy * e(st)
+    v = -dx * e(st) + dy * e(ct)
+    r = torch.sqrt(u * u + v * v + 1e-9)
+
+    # -- 1 compact
+    f_c = e(sh["amp_c"]) * torch.exp(-0.5 * (u ** 2 / e(sh["sa_c"]) ** 2
+                                             + v ** 2 / e(sh["sb_c"]) ** 2))
+
+    # -- 2 extended
+    sa_e, sb_e, amp_e = sh["sa_e"], sh["sb_e"], sh["amp_e"]
+    f_e = (e(amp_e) * torch.exp(-0.5 * (u ** 2 / e(sa_e) ** 2
+                                        + v ** 2 / e(sb_e) ** 2))
+           + e(0.5 * amp_e) * torch.exp(
+               -0.5 * ((u - e(sh["off_e"])) ** 2 / e(0.6 * sa_e) ** 2
+                       + v ** 2 / e(sb_e) ** 2)))
+
+    # -- 3 extended-multisland
+    ox, oy, sig_k, amp_k = sh["ox"], sh["oy"], sh["sig_k"], sh["amp_k"]
+    f_m = sum(e(amp_k[..., k]) * torch.exp(
+        -((dx - e(ox[..., k])) ** 2 + (dy - e(oy[..., k])) ** 2)
+        / e(2.0 * sig_k[..., k] ** 2)) for k in range(_ISLANDS))
+
+    # -- 0 spurious
+    r0 = sh["r0"]
+    f_s = e(sh["amp_s"]) * torch.cos(np.pi * r / e(r0)) \
+        * torch.exp(-r ** 2 / e(2.0 * (1.2 * r0) ** 2))
+
+    # -- 4 flagged
+    amp_f, ww, wl = sh["amp_f"], sh["ww"], sh["wl"]
+    f_f = e(amp_f) * torch.exp(-0.5 * (u ** 2 + v ** 2)
+                               / e(sh["sa_f"]) ** 2) \
+        + e(0.35 * amp_f) * torch.exp(-0.5 * (v ** 2 / e(ww) ** 2
+                                              + u ** 2 / e(wl) ** 2))
+
+    return torch.stack([f_s, f_c, f_e, f_m, f_f])
 
 
 def render_multiclass(draws: dict, *, size: int = NATIVE_SIZE,
@@ -185,10 +213,11 @@ def render_multiclass(draws: dict, *, size: int = NATIVE_SIZE,
     as the reference does; masked slots add nothing; the slots are added
     to the noise plane in slot order and the sum is min-max normalised
     (the FITS load convention of train/dataset.load_sample)."""
-    fields, hxs, hys, cx, cy = _slot_fields(draws, size)
-    cls, boxes, mask = _ground_truth(draws, hxs, hys, cx, cy, size, max_src)
+    sh = _slot_shapes(draws, size)
+    cls, boxes, mask = _ground_truth(draws, sh, size, max_src)
     onehot = torch.arange(5, device=cls.device)[:, None, None] == cls
-    field = torch.where(onehot[..., None, None], fields, 0.0).sum(0)
+    field = torch.where(onehot[..., None, None], _slot_fields(sh, size),
+                        0.0).sum(0)
     img = draws["noise"]
     for j in range(max_src):
         img = img + torch.where(mask[:, j, None, None], field[:, j], 0.0)
@@ -198,21 +227,14 @@ def render_multiclass(draws: dict, *, size: int = NATIVE_SIZE,
     return img[..., None].repeat(1, 1, 1, 3), cls, boxes, mask
 
 
-def multiclass_boxes(draws: dict, *, size: int = NATIVE_SIZE,
-                     max_src: int = 4):
-    """render_multiclass's (labels, boxes, mask) without the image: the
-    ground truth depends on the draws alone."""
-    _, hxs, hys, cx, cy = _slot_fields(draws, size, grid=1)
-    return _ground_truth(draws, hxs, hys, cx, cy, size, max_src)
-
-
-def _ground_truth(draws, hxs, hys, cx, cy, size, max_src):
-    """Each slot's class, its class's box (clamped to the cutout) and the
-    mask of the slots present."""
+def _ground_truth(draws: dict, sh: dict, size: int, max_src: int):
+    """Each slot's class, its class's box from `_slot_shapes` (clamped to
+    the cutout) and the mask of the slots present."""
     cls = draws["cls"]
     onehot = torch.arange(5, device=cls.device)[:, None, None] == cls
-    hx = torch.where(onehot, hxs, 0.0).sum(0)
-    hy = torch.where(onehot, hys, 0.0).sum(0)
+    hx = torch.where(onehot, sh["hx"], 0.0).sum(0)
+    hy = torch.where(onehot, sh["hy"], 0.0).sum(0)
+    cx, cy = sh["cx"], sh["cy"]
     boxes = torch.stack([cx - hx, cy - hy, cx + hx, cy + hy], dim=-1)
     boxes = boxes.clamp(0.0, float(size))
     mask = torch.arange(max_src, device=cls.device) < draws["n_src"][:, None]

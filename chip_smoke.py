@@ -165,7 +165,8 @@ Phases (any failure exits non-zero before the last line):
             gradient where it lies (no copy); step time, images/s and
             validation time; precise-BN from the trained weights under a
             bf16 TrainConfig bit-equal to a float32 config's (both forward
-            in f32, as the reference's)
+            in f32, as the reference's), and for 2 images at most a
+            quarter as far from the CPU's statistics as a TF32 forward
   upsample-ab
             main-path and mosaic tiles/s with K4 and with the plain
             broadcast upsample, in turns (plain, K4, K4, plain)
@@ -1739,6 +1740,49 @@ def precise_bn_dtypes(torch, model, batches):
         f"(weights and EMA) bit-equal")
     require(len(ref) > 100 and set(got) == set(ref) and not differ,
             f"precise-BN differs by compute dtype: {differ[:4]}")
+
+    # the forward is exact f32 on the card: one batch of 2 images against
+    # the CPU's calibrate_bn, and a TF32 forward (cuDNN's default for an
+    # f32 conv) against the same, which must be at least 4x further off
+    from caesar_yolo_tpu_torch.models.layers import BatchNorm, train_mode
+    x = batches[0][:2]
+    cpu = Trainer(copy.deepcopy(model),
+                  TrainConfig(img_size=MAIN_SIZE, batch_size=2),
+                  device="cpu")
+    card = Trainer(copy.deepcopy(model),
+                   TrainConfig(img_size=MAIN_SIZE, batch_size=2))
+    cpu.calibrate_bn([x])
+    card.calibrate_bn([x])
+    tf32_model = copy.deepcopy(model)
+    names = {m: n for n, m in tf32_model.named_modules()
+             if isinstance(m, BatchNorm)}
+    collected: dict = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad(), train_mode(tf32_model, collected):
+            tf32_model(x.float().permute(0, 3, 1, 2))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    tf32 = {f"{names[bn]}.{w}": v.float().cpu()
+            for bn, pair in collected.items()
+            for w, v in zip(("mean", "var"), pair)}
+    want = {k: v for k, v in cpu.model.state_dict().items() if k in tf32}
+
+    def gap(stats):
+        return max(float((stats[k].cpu() - r).abs().max()
+                         / r.abs().max().clamp_min(1e-30))
+                   for k, r in want.items())
+
+    f32_gap = gap(card.model.state_dict())
+    tf32_gap = gap(tf32)
+    log(f"train precise-BN: the card's statistics of 2 images against the "
+        f"CPU's, the largest gap over {len(want)} tensors relative to the "
+        f"tensor's largest value: {f32_gap:.3g} (calibrate_bn), "
+        f"{tf32_gap:.3g} (a TF32 forward)")
+    require(len(want) == len(tf32) > 100 and f32_gap * 4 <= tf32_gap,
+            f"precise-BN's forward on the card is not exact f32: gap "
+            f"{f32_gap:.3g} against TF32's {tf32_gap:.3g}")
 
 
 def catalog_arrays(sources):

@@ -41,7 +41,9 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_quality5_v8n.npz")
 
 def bf16_forward_stats(model, batches) -> dict:
     """{state key: statistic} averaged in f64 over `batches`, each taken
-    from a train-mode forward in bf16 (the port's precise-BN before)."""
+    from a train-mode forward in bf16.  A frozen record of the port's
+    precise-BN before its forward became f32: it is kept as that was, not
+    in step with `Trainer.calibrate_bn`."""
     import torch
 
     from caesar_yolo_tpu_torch.models.layers import BatchNorm, train_mode
@@ -108,7 +110,7 @@ def main(argv=None) -> int:
                                    for k, v in stats.items()}, strict=False)
                 path = os.path.join(tmp, f"{name}.npz")
                 save_params(m, path, meta=meta)
-                rec = crosscheck(path, 512, "float32", [("jax", "jax")])[0]
+                rec = crosscheck(path, [("jax", "jax")])[0]
                 out[f"heldout_macro_f1_{name}"] = rec["macro_f1"]
     print(json.dumps(out), flush=True)
     return 0

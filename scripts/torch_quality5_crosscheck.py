@@ -19,11 +19,12 @@ and each class's F1 and n_gt.  The (jax, jax) line is the JAX run's own
 evaluation of these weights; (port, port) the port's; the crossed pairs
 show whether the two evaluations agree on one stream.
 
+Every evaluation is in f32, on the runs' 512 held-out cutouts, for all
+four (stream, evaluator) pairs.
+
 Usage: python3 scripts/torch_quality5_crosscheck.py W.npz [W2.npz ...]
-           [--n 512] [--dtype float32|bfloat16]
-           [--pairs jax:jax,jax:port,port:port,port:jax]
-(f32 takes about 25 s a pair for 512 cutouts with JAX, longer with the
-port on a few CPU threads.)
+(about 25 s a pair with JAX's evaluation, longer with the port's on a
+few CPU threads.)
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ from torch_train_quality5 import (EVAL_IOU_MATCH, EVAL_SCORE_THR,  # noqa: E402
 
 IMGSZ = 640
 NMS_IOU = 0.5
+N_HELDOUT = 512      # the quality runs' held-out cutouts
+PAIRS = (("jax", "jax"), ("jax", "port"), ("port", "port"), ("port", "jax"))
 
 
 def jax_stream(n_imgs: int, seed0: int = HELDOUT_SEED0):
@@ -68,8 +71,9 @@ def port_stream(n_imgs: int, seed0: int = HELDOUT_SEED0):
     return eval_cutouts(n_imgs, seed0, "cpu")
 
 
-def jax_evaluate(path: str, batches, dtype: str):
-    """scripts/train_quality5.py's evaluation of the npz's weights."""
+def jax_evaluate(path: str, batches):
+    """scripts/train_quality5.py's evaluation of the npz's weights, in
+    f32."""
     import jax.numpy as jnp
 
     from caesar_yolo_tpu.detect import Predictor, merge_detections
@@ -82,7 +86,7 @@ def jax_evaluate(path: str, batches, dtype: str):
     model = build_model(meta["model"], num_classes=int(meta["num_classes"]))
     pred = Predictor(model, params, img_size=IMGSZ,
                      score_thr=EVAL_SCORE_THR, iou_thr=NMS_IOU,
-                     compute_dtype=getattr(jnp, dtype))
+                     compute_dtype=jnp.float32)
     gl, pl = [], []
     for imgs, labels, boxes, mask in batches:
         bb, ss, cc, vv, _ = (np.asarray(v) for v in
@@ -100,9 +104,9 @@ def jax_evaluate(path: str, batches, dtype: str):
             compute_map(gl, pl))
 
 
-def port_evaluate(path: str, batches, dtype: str):
+def port_evaluate(path: str, batches):
     """scripts/torch_train_quality5.py's evaluation of the npz's weights
-    (its Predictor on the CPU in `dtype`)."""
+    (its Predictor on the CPU, in f32)."""
     import torch
 
     from caesar_yolo_tpu_torch.detect.predictor import Predictor
@@ -110,7 +114,7 @@ def port_evaluate(path: str, batches, dtype: str):
     from caesar_yolo_tpu_torch.models.convert import load_model
     model, _ = load_model(path)
     pred = Predictor(model, img_size=IMGSZ, score_thr=EVAL_SCORE_THR,
-                     iou_thr=NMS_IOU, compute_dtype=getattr(torch, dtype),
+                     iou_thr=NMS_IOU, compute_dtype=torch.float32,
                      device="cpu")
     rep, gl, pl = score_batches(pred, batches)
     return rep, compute_map(gl, pl)
@@ -120,20 +124,19 @@ STREAMS = {"jax": jax_stream, "port": port_stream}
 EVALUATORS = {"jax": jax_evaluate, "port": port_evaluate}
 
 
-def crosscheck(path: str, n_imgs: int, dtype: str, pairs) -> list[dict]:
+def crosscheck(path: str, pairs=PAIRS) -> list[dict]:
     """One record per (stream, evaluator) pair for the npz at `path`."""
     from caesar_yolo_tpu_torch.utils.synth5 import CLASS_NAMES
     out = []
     for stream, evaluator in pairs:
         t0 = time.time()
-        rep, mrep = EVALUATORS[evaluator](
-            path, STREAMS[stream](n_imgs), dtype)
+        rep, mrep = EVALUATORS[evaluator](path, STREAMS[stream](N_HELDOUT))
         table = class_table(rep, CLASS_NAMES)
         out.append({
             "npz": os.path.relpath(path, ROOT) if path.startswith(ROOT)
             else path,
-            "stream": stream, "evaluator": evaluator, "dtype": dtype,
-            "n_images": n_imgs,
+            "stream": stream, "evaluator": evaluator, "dtype": "float32",
+            "n_images": N_HELDOUT,
             "macro_f1": round(macro_f1(table, CLASS_NAMES), 4),
             "map50": round(float(mrep.map50), 4),
             "map50_95": round(float(mrep.map50_95), 4),
@@ -147,23 +150,12 @@ def crosscheck(path: str, n_imgs: int, dtype: str, pairs) -> list[dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("npz", nargs="+")
-    ap.add_argument("--n", type=int, default=512,
-                    help="held-out cutouts a stream (the runs' 512)")
-    ap.add_argument("--dtype", default="float32",
-                    choices=("float32", "bfloat16"))
-    ap.add_argument("--pairs", default="jax:jax,jax:port,port:port,port:jax",
-                    help="comma-separated stream:evaluator pairs")
     args = ap.parse_args(argv)
-    pairs = [tuple(p.split(":")) for p in args.pairs.split(",")]
-    for stream, evaluator in pairs:
-        if stream not in STREAMS or evaluator not in EVALUATORS:
-            ap.error(f"unknown pair {stream}:{evaluator}")
 
     import jax
     jax.config.update("jax_platforms", "cpu")
     for path in args.npz:
-        for rec in crosscheck(os.path.abspath(path), args.n, args.dtype,
-                              pairs):
+        for rec in crosscheck(os.path.abspath(path)):
             print(json.dumps(rec), flush=True)
     return 0
 

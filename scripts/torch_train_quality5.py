@@ -28,7 +28,8 @@ from jax.random keys, so the two runs see different cutouts
 streams).  `--seed k` moves the weights' init seed (k) and the training
 stream; validation, calibration and the held-out set stay the same for
 every seed, and seed 0 is the run above.  `--compute_dtype float32`
-trains in f32 (a control; validation stays a bf16 Predictor).
+trains in f32 with TF32 off on the card (a control; validation stays a
+bf16 Predictor).
 
 Writes `out` (default QUALITY_torch_h100.json, or
 QUALITY_torch_h100_seed<k>.json for seed k > 0, with `_f32` before
@@ -228,6 +229,9 @@ def main() -> int:
     print(card, flush=True)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
+    if args.compute_dtype == "float32":     # the f32 control: no TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     cfg = TrainConfig(epochs=1, batch_size=BATCH, img_size=imgsz,
@@ -322,8 +326,9 @@ def main() -> int:
         "steps": steps, "batch": BATCH, "seed": args.seed,
         "compute_dtype": args.compute_dtype,
         "recipe": "rot180/flip0.5/scale0.89 device augmentation, "
-                  f"{'bf16' if args.compute_dtype == 'bfloat16' else 'f32'} "
-                  "step, SGD momentum warmup-cosine, EMA, precise-BN",
+                  + ("bf16" if args.compute_dtype == "bfloat16"
+                     else "f32 (no TF32)")
+                  + " step, SGD momentum warmup-cosine, EMA, precise-BN",
         "score_thr": EVAL_SCORE_THR, "iou_match": EVAL_IOU_MATCH,
         "n_eval_images": n_eval,
         "per_class": table,

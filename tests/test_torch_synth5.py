@@ -105,11 +105,12 @@ def test_render_matches_jax_with_two_slots():
 
 
 def test_boxes_without_the_image_equal_the_render():
-    """multiclass_boxes gives render_multiclass's labels, boxes and mask
-    bit for bit."""
+    """The slots' geometry alone (`_slot_shapes`, no fields) gives
+    render_multiclass's labels, boxes and mask bit for bit."""
     draws = jax_draws(11, 6)
     _, labels, boxes, mask = render_multiclass(draws)
-    got = synth5.multiclass_boxes(draws)
+    got = synth5._ground_truth(
+        draws, synth5._slot_shapes(draws, NATIVE_SIZE), NATIVE_SIZE, 4)
     for g, r in zip(got, (labels, boxes, mask)):
         assert torch.equal(g, r)
 
@@ -129,14 +130,14 @@ def test_draws_distribution_matches_jax():
     the sources present, and per class the 25/50/75% quartiles of box
     width and height, by the share of each sample at or below the pooled
     sample's quartile (binomial, so no density estimate enters).  The
-    boxes are render_multiclass's (multiclass_boxes)."""
+    boxes are render_multiclass's, from the slots' geometry alone."""
     n = 2048
     port = synth5.draw_multiclass_params(torch.Generator().manual_seed(1),
                                          n)
     samples = []
     for d in (port, jax_draws(1, n)):
-        labels, boxes, mask = (t.numpy() for t in
-                               synth5.multiclass_boxes(d))
+        labels, boxes, mask = (t.numpy() for t in synth5._ground_truth(
+            d, synth5._slot_shapes(d, NATIVE_SIZE), NATIVE_SIZE, 4))
         wh = (boxes[..., 2:] - boxes[..., :2])[mask]
         samples.append((d["n_src"].numpy(), labels[mask], wh))
     (ns1, c1, wh1), (ns2, c2, wh2) = samples

@@ -254,14 +254,15 @@ def test_quality_recipe_schedules_match_jax_at_every_step():
     The decay d = ema_decay * (1 - exp(-step / tau)) and 1 - d equal the
     reference's wherever numpy's f32 exp and XLA's give the same value,
     and elsewhere differ by at most 2^-23 (an ulp of an exp in [0.5, 1)
-    and d's own rounding): the two libraries' f32 exp differ on 4745 of
-    the 12000
+    and d's own rounding): with the numpy and jax this was written
+    against, the two libraries' f32 exp differ on 4745 of the 12000
     exponents (XLA's is not correctly rounded either), which moves d at
     1096 steps (relatively much at the first steps, where d is small and
-    1 - exp cancels).  Jitted
+    1 - exp cancels); the test asks only that they agree on most.  Jitted
     whole, the reference rewrites x / 240 as x * (1 / 240) and its lr
-    differs from this eager evaluation at 2919 steps; the port follows the
-    expressions as written."""
+    differs from this eager evaluation at 2919 steps: the port matches
+    the schedules' expressions as written, not a jitted training run's
+    evaluation of them."""
     from caesar_yolo_tpu.train.trainer import make_optimizer as jax_opt
     from caesar_yolo_tpu_torch.train.trainer import (ema_decay_at,
                                                      make_optimizer)
@@ -293,7 +294,7 @@ def test_quality_recipe_schedules_match_jax_at_every_step():
     texpo = f32(-np.arange(1, steps + 1, dtype=f32)) / f32(tcfg.ema_tau)
     np.testing.assert_array_equal(texpo, np.asarray(expo, f32))
     same_exp = np.exp(texpo) == np.asarray(jnp.exp(expo), f32)
-    assert 0.5 < same_exp.mean() < 1.0
+    assert same_exp.mean() > 0.5
     for i, name in enumerate(("lr", "momentum", "d", "1 - d")):
         g, r = got[i], ref[i]
         exact = np.ones(steps, bool) if i < 2 else same_exp
