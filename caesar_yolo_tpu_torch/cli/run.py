@@ -38,6 +38,11 @@ kernel K9.  --draw_plots draws the detections over the image of a serial
 run (with --save_plots into out_<image>.png, else shown; matplotlib,
 imported only then); with --datalist it takes the per-image path.
 --multigpu is a no-op, as in the reference package.
+
+A single image's run records the spans `cli.load_weights`, `cli.build`
+and `cli.preprocessor` into the recorder it hands the SFinder, so a tiled
+run's SFinderReport.phase_times holds them beside the SFinder's own
+(utils/trace.py).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from caesar_yolo_tpu_torch.cli.preproc_args import (
     build_preprocessor_from_args,
 )
 from caesar_yolo_tpu_torch.evaluation.evaluate import read_filelist
+from caesar_yolo_tpu_torch.utils.trace import NULL, Recorder
 
 
 def parse_args(argv=None):
@@ -183,11 +189,12 @@ def validate_args(args) -> int:
     return 0
 
 
-def load_model_from_args(args):
+def load_model_from_args(args, recorder: Recorder = NULL):
     """The model with the weights loaded, on the CPU in f32.  A `.pt`
     checkpoint is converted on the fly (the architecture from --model,
     else the file's stem); an npz names its architecture in its meta (else
-    --model, else the weights' file name)."""
+    --model, else the weights' file name).  Spans `cli.load_weights` and
+    `cli.build` go to `recorder`."""
     from caesar_yolo_tpu_torch.models.convert import (
         convert_checkpoint,
         load_jax_params,
@@ -195,13 +202,16 @@ def load_model_from_args(args):
     )
     from caesar_yolo_tpu_torch.models.yolo import build_model
     if args.weights.endswith(".pt"):
-        return convert_checkpoint(args.weights,
-                                  model_name=args.model or None)[0]
+        with recorder.span("cli.load_weights"):
+            return convert_checkpoint(args.weights,
+                                      model_name=args.model or None)[0]
     name = args.model or os.path.splitext(os.path.basename(args.weights))[0]
-    params, meta = load_params(args.weights)
-    model = build_model(meta.get("model", name),
-                        num_classes=int(meta.get("num_classes", 5)))
-    return load_jax_params(model, params)
+    with recorder.span("cli.load_weights"):
+        params, meta = load_params(args.weights)
+    with recorder.span("cli.build"):
+        model = build_model(meta.get("model", name),
+                            num_classes=int(meta.get("num_classes", 5)))
+        return load_jax_params(model, params)
 
 
 def quantize_from_image(model, image_path, preproc, img_size, device=None):
@@ -388,9 +398,13 @@ def run(argv=None):
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
 
     mesh.initialize_distributed(device=args.devices or None)
-    model = load_model_from_args(args)
+    # a datalist's SFinders record their own runs: the CLI's spans are
+    # reported by a single image's run
+    recorder = NULL if args.datalist else Recorder()
+    model = load_model_from_args(args, recorder)
     cfg = config_from_args(args)
-    preproc = build_preprocessor_from_args(args)
+    with recorder.span("cli.preprocessor"):
+        preproc = build_preprocessor_from_args(args)
     device = args.devices or None
     images = read_filelist(args.datalist) if args.datalist else []
     engine_kwargs = {}
@@ -415,7 +429,7 @@ def run(argv=None):
         return route(model, cfg, images, preproc, device,
                      engine_kwargs), None
     sf = SFinder(model, cfg, preprocessor=preproc, device=device,
-                 engine_kwargs=engine_kwargs)
+                 engine_kwargs=engine_kwargs, recorder=recorder)
     rc = sf.run_tiled() if args.split_img_in_tiles else sf.run()
     return (0 if rc == 0 else 1), sf
 

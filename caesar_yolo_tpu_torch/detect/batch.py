@@ -13,7 +13,6 @@ drained one batch behind dispatch.
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -47,7 +46,6 @@ class BatchedDetector:
             device=device, **engine_kwargs)
         self.batch_size = max(int(batch_size), 1)
         self.pre_nms = pre_nms
-        self.h2d_put_s = 0.0  # wall spent staging batches (worker sum)
 
     def detect_many(self, items, load_fn, *, read_workers: int = 8):
         results: dict = {}
@@ -56,17 +54,11 @@ class BatchedDetector:
             staged: deque = deque()          # [(keys, staging future)]
             pending: list = []               # [(keys, device outputs)]
 
-            def timed_put(arr):
-                t0 = time.perf_counter()
-                dev = self.engine.put_tiles(arr)
-                return dev, time.perf_counter() - t0
-
             def launch(item):
                 """Enqueue the compute of an already-staged batch."""
                 keys, put_fut = item
-                dev, put_s = put_fut.result()
-                self.h2d_put_s += put_s
-                pending.append((keys, self.engine.process_async(dev)))
+                pending.append((keys, self.engine.process_async(
+                    put_fut.result())))
                 # drain one behind dispatch: bounds device-result memory
                 # while host loads overlap device compute
                 if len(pending) > 1:
@@ -80,7 +72,7 @@ class BatchedDetector:
                 # the copy of THIS batch runs in a worker while the batch
                 # staged before it is enqueued
                 staged.append(([k for k, _ in pairs],
-                               pool.submit(timed_put, arr)))
+                               pool.submit(self.engine.put_tiles, arr)))
                 if len(staged) > 1:
                     launch(staged.popleft())
 

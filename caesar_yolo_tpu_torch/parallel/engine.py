@@ -13,6 +13,11 @@ global statistics context), and batches of windows are cut from it on
 the device by one gather (`process_mosaic_async`).  On several GPUs each
 process runs its own engine (parallel/mesh.py, parallel/sfinder.py).
 The serving export (deploy.py) traces `make_tile_step`'s step.
+
+`recorder` (utils/trace.py) is the span recorder of the run driving the
+engine, set by that run (the SFinder) for its duration: staging is the
+span `engine.stage` (child `engine.pin`), each dispatched batch the span
+`engine.dispatch` (child `engine.origins`) with its device events.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from caesar_yolo_tpu_torch.detect.predictor import detect_images, prepare_model
 from caesar_yolo_tpu_torch.models.yolo import YOLO
 from caesar_yolo_tpu_torch.ops.transforms import prepare_tiles
 from caesar_yolo_tpu_torch.utils.device import resolve_device
+from caesar_yolo_tpu_torch.utils.trace import NULL
 
 
 def make_tile_step(model: YOLO, *, preprocessor=None, img_size: int = 640,
@@ -67,6 +73,7 @@ class TileEngine:
                  fuse: bool = True, relay_dtype: str = "float32",
                  device=None):
         self.device = resolve_device(device)
+        self.recorder = NULL
         self.relay_dtype = (torch.bfloat16
                             if str(relay_dtype) in ("bfloat16", "bf16")
                             else torch.float32)
@@ -97,19 +104,24 @@ class TileEngine:
     def put_tiles(self, tiles: np.ndarray) -> torch.Tensor:
         """Stage a host tile batch on the device in the relay dtype
         (pinned and asynchronous on CUDA)."""
-        t = torch.from_numpy(np.ascontiguousarray(tiles, np.float32))
-        t = t.to(self.relay_dtype)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        with self.recorder.span("engine.stage"):
+            t = torch.from_numpy(np.ascontiguousarray(tiles, np.float32))
+            t = t.to(self.relay_dtype)
+            if self.device.type == "cuda":
+                with self.recorder.span("engine.pin"):
+                    t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
 
     @torch.inference_mode()
-    def process_async(self, tiles):
+    def process_async(self, tiles, batch: int | None = None):
         """Enqueue one batch without waiting for the device; returns
-        device tensors.  Takes a host array or a staged tensor."""
-        if isinstance(tiles, np.ndarray):
-            tiles = self.put_tiles(tiles)
-        return self._step(tiles)
+        device tensors.  Takes a host array or a staged tensor.  `batch`
+        is the run's index of the batch (its spans and device events)."""
+        with self.recorder.span("engine.dispatch", batch), \
+                self.recorder.on_device(batch, self.device):
+            if isinstance(tiles, np.ndarray):
+                tiles = self.put_tiles(tiles)
+            return self._step(tiles)
 
     def process(self, tiles):
         return tuple(t.cpu().numpy() for t in self.process_async(tiles))
@@ -138,24 +150,30 @@ class TileEngine:
     @torch.inference_mode()
     def process_mosaic_async(self, mosaic_dev: torch.Tensor,
                              origins: np.ndarray, tile_shape: tuple[int, int],
-                             preprocessed: bool = False):
+                             preprocessed: bool = False,
+                             batch: int | None = None):
         """Detect a batch of windows cut from a device-resident mosaic
         [H, W]: origins [B, 2] (row, column) of each window's corner, all of
         shape tile_shape = (h, w) (padding slots take (0, 0)).  Same outputs
         as process_async.  preprocessed=True: the mosaic went through
         preprocess_mosaic, so only gray -> 3 channels and the
-        degenerate-channel guard run on the windows."""
+        degenerate-channel guard run on the windows.  `batch` as in
+        process_async."""
         h, w = tile_shape
-        origins = np.asarray(origins, np.int64).reshape(-1, 2)
-        H, W = mosaic_dev.shape
-        if (origins < 0).any() or (origins[:, 0] + h > H).any() or (
-                origins[:, 1] + w > W).any():
-            raise ValueError(f"windows {tile_shape} at {origins.tolist()} "
-                             f"leave the mosaic {(H, W)}")
         dev = mosaic_dev.device
-        o = torch.from_numpy(origins).to(dev)
-        rows = o[:, :1] + torch.arange(h, device=dev)          # [B, h]
-        cols = o[:, 1:] + torch.arange(w, device=dev)          # [B, w]
-        tiles = mosaic_dev[rows[:, :, None], cols[:, None, :]]  # one gather
-        step = self._step_preprocessed if preprocessed else self._step
-        return step(tiles[..., None])
+        with self.recorder.span("engine.dispatch", batch), \
+                self.recorder.on_device(batch, dev):
+            origins = np.asarray(origins, np.int64).reshape(-1, 2)
+            H, W = mosaic_dev.shape
+            if (origins < 0).any() or (origins[:, 0] + h > H).any() or (
+                    origins[:, 1] + w > W).any():
+                raise ValueError(f"windows {tile_shape} at "
+                                 f"{origins.tolist()} leave the mosaic "
+                                 f"{(H, W)}")
+            with self.recorder.span("engine.origins"):
+                o = torch.from_numpy(origins).to(dev)
+            rows = o[:, :1] + torch.arange(h, device=dev)          # [B, h]
+            cols = o[:, 1:] + torch.arange(w, device=dev)          # [B, w]
+            tiles = mosaic_dev[rows[:, :, None], cols[:, None, :]]  # 1 gather
+            step = self._step_preprocessed if preprocessed else self._step
+            return step(tiles[..., None])

@@ -37,6 +37,16 @@ context preprocesses, the whole mosaic), spools them to its own file
 results come back to every rank by a chunked allgather of fixed-size byte
 rounds (`gather_payload_bytes`), so every rank stitches the same catalog;
 only rank 0 writes it.
+
+A tiled run records spans (utils/trace.py) into its recorder, the CLI's
+or its own: `sfinder.header`, `engine.prepare`, `detect` (with
+`sfinder.read`, the engine's `engine.stage` and `engine.dispatch`,
+`preprocess_mosaic` and one `sfinder.drain` a batch, whose child
+`sfinder.drain_wait` is the copy of the batch's outputs to the host),
+`edge_flagging`, `stitch` and `save`.  At the end of the run each name's
+total, and the device-clock counter `engine.device_starved`, go into
+`SFinderReport.phase_times` under that name, and `read_s` is the
+`sfinder.read` total; the spans themselves are `SFinderReport.spans`.
 """
 
 from __future__ import annotations
@@ -82,6 +92,7 @@ from caesar_yolo_tpu_torch.utils.tiling import (
     make_tile_windows,
     neighbor_table,
 )
+from caesar_yolo_tpu_torch.utils.trace import NULL, Recorder
 
 
 @dataclass(frozen=True)
@@ -145,16 +156,15 @@ class SFinderReport:
     n_local_tiles: int = 0  # tiles this rank detected (its stripe)
     n_sources: int = 0
     max_inflight_batches: int = 0  # peak read futures + undrained batches
-    read_s: float = 0.0     # wall spent reading tiles, bands or the mosaic
-    h2d_put_s: float = 0.0  # wall spent staging on the device (worker sum)
-    drain_s: float = 0.0    # main thread waiting on and unpacking results
+    read_s: float = 0.0     # the sfinder.read spans' total (worker sum)
     tiling_mode: str = ""   # "full", "band" or "stream" (the paths taken)
     h2d_bytes: int = 0      # pixel bytes shipped to the device
     n_resumed: int = 0      # tile results taken from the spool
     gather_rounds: int = 0  # rounds of the results' allgather (a group)
     gather_bytes: int = 0   # this rank's gathered payload
-    phase_times: dict = field(default_factory=dict)
+    phase_times: dict = field(default_factory=dict)  # seconds by span name
     tile_errors: list = field(default_factory=list)
+    spans: list = field(default_factory=list)   # the run's trace.Span list
 
 
 class SFinder:
@@ -162,18 +172,20 @@ class SFinder:
     `device` says otherwise; under a process group, one rank of a striped
     tiled run).  `model` is the port's YOLO with its weights loaded;
     `engine_kwargs` go to the TileEngine and the Predictor (e.g.
-    compute_dtype)."""
+    compute_dtype).  `recorder` is the run's span recorder (utils/trace.py;
+    the CLI passes the one holding its own spans), a new one if None."""
 
     def __init__(self, model, config: SFinderConfig, *, preprocessor=None,
                  engine_kwargs=None, predictor=None, engine=None,
-                 device=None):
+                 device=None, recorder: Recorder | None = None):
         self.model = model
         self.config = config
         self.preprocessor = preprocessor
         self.engine_kwargs = dict(engine_kwargs or {})
         self.device = resolve_device(device)
         self.sources: dict = {"sources": []}
-        self.report = SFinderReport()
+        self.recorder = Recorder() if recorder is None else recorder
+        self.report = SFinderReport(spans=self.recorder.spans)
         self._engine = engine
         self._predictor = predictor
         base = os.path.basename(os.path.abspath(config.image_path))
@@ -325,34 +337,46 @@ class SFinder:
         results are spooled as they arrive, and resume=True skips the tiles
         a crashed run finished.  With profile_dir set, the run is recorded
         by torch.profiler and written there as a Chrome trace
-        (<image>.trace.json; the reference writes a jax.profiler trace)."""
-        if not self.config.profile_dir:
-            return self._run_tiled_impl()
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            rc = self._run_tiled_impl()
-        os.makedirs(self.config.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            self.config.profile_dir, f"{self.image_id}.trace.json"))
-        return rc
+        (<image>.trace.json; the reference writes a jax.profiler trace),
+        the run's spans among its events."""
+        try:
+            if not self.config.profile_dir:
+                return self._run_tiled_impl()
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                self.recorder.profiling = True
+                try:
+                    rc = self._run_tiled_impl()
+                finally:
+                    self.recorder.profiling = False
+            os.makedirs(self.config.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                self.config.profile_dir, f"{self.image_id}.trace.json"))
+            return rc
+        finally:
+            self.report.phase_times.update(self.recorder.totals())
+            self.report.read_s = self.report.phase_times.get("sfinder.read",
+                                                             0.0)
 
     def _run_tiled_impl(self) -> int:
         t0 = time.time()
         cfg = self.config
+        rec = self.recorder
         if os.path.splitext(cfg.image_path)[1] != ".fits":
             logger.error("Only FITS images are supported in tiled runs!")
             return -1
-        if self.set_img_size_params() < 0:
-            return -1
-        grid = generate_tiles(self.xmin, self.xmax, self.ymin, self.ymax,
-                              cfg.tile_xsize, cfg.tile_ysize,
-                              cfg.tile_xstep, cfg.tile_ystep)
-        if grid is None:
-            return -1
-        tiles = make_tile_windows(grid)
+        with rec.span("sfinder.header"):
+            if self.set_img_size_params() < 0:
+                return -1
+            grid = generate_tiles(self.xmin, self.xmax, self.ymin, self.ymax,
+                                  cfg.tile_xsize, cfg.tile_ysize,
+                                  cfg.tile_xstep, cfg.tile_ystep)
+            if grid is None:
+                return -1
+            tiles = make_tile_windows(grid)
         per_worker = -(-len(tiles) // mesh.process_count())
         if per_worker > cfg.max_ntasks_per_worker:
             # the reference's guard (inference.py:1150-1160), a GPU a rank
@@ -367,34 +391,36 @@ class SFinder:
                     cfg.tile_ysize, cfg.tile_xstep, cfg.tile_ystep)
 
         if self._engine is None:
-            self._engine = TileEngine(
-                self.model, preprocessor=self.preprocessor,
-                img_size=cfg.img_size, score_thr=cfg.score_thr,
-                iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms,
-                relay_dtype=cfg.relay_dtype, device=self.device,
-                **self.engine_kwargs)
+            # the weights' copy, BatchNorm fold, cast and move to the device
+            with rec.span("engine.prepare"):
+                self._engine = TileEngine(
+                    self.model, preprocessor=self.preprocessor,
+                    img_size=cfg.img_size, score_thr=cfg.score_thr,
+                    iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms,
+                    relay_dtype=cfg.relay_dtype, device=self.device,
+                    **self.engine_kwargs)
 
-        t_detect = time.time()
-        tile_results = self._detect_tiles(self._engine, tiles)
-        self.report.phase_times["detect"] = time.time() - t_detect
+        self._engine.recorder = rec
+        try:
+            with rec.span("detect"):
+                tile_results = self._detect_tiles(self._engine, tiles)
+        finally:
+            self._engine.recorder = NULL
 
         # edge flagging (reference inference.py:663-726)
-        t_edge = time.time()
-        tile_by_id = {t.tid: t for t in tiles}
-        for tr in tile_results:
-            nb = [tile_by_id[tid] for tid in tr["neighborTileIds"]]
-            flag_edge_sources(tr["objs"], tile_by_id[tr["tileId"]], nb)
-        self.report.phase_times["edge_flagging"] = time.time() - t_edge
+        with rec.span("edge_flagging"):
+            tile_by_id = {t.tid: t for t in tiles}
+            for res in tile_results:
+                nb = [tile_by_id[tid] for tid in res["neighborTileIds"]]
+                flag_edge_sources(res["objs"], tile_by_id[res["tileId"]], nb)
 
         # stitch (reference inference.py:731-931)
-        t_stitch = time.time()
-        self.sources = stitch_tile_sources(tile_results)
-        self.report.phase_times["stitch"] = time.time() - t_stitch
+        with rec.span("stitch"):
+            self.sources = stitch_tile_sources(tile_results)
         self.last_tile_results = tile_results
 
-        t_save = time.time()
-        self.save()
-        self.report.phase_times["save"] = time.time() - t_save
+        with rec.span("save"):
+            self.save()
         self.report.runtime_s = time.time() - t0
         self.report.n_sources = len(self.sources["sources"])
         logger.info("Run completed in %.2f seconds (%d tiles, %d sources)",
@@ -510,10 +536,10 @@ class SFinder:
         """The host mosaic (crop) f32 [ny, nx] for device-resident tiling,
         or None when it is unreadable (the tiles then stream)."""
         cfg = self.config
-        t0 = time.time()
-        res = read_fits_crop(cfg.image_path, self.xmin, self.xmax + 1,
-                             self.ymin, self.ymax + 1, strip_deg_axis=True)
-        self.report.read_s += time.time() - t0
+        with self.recorder.span("sfinder.read"):
+            res = read_fits_crop(cfg.image_path, self.xmin, self.xmax + 1,
+                                 self.ymin, self.ymax + 1,
+                                 strip_deg_axis=True)
         if res is None or np.asarray(res[0]).ndim != 2:
             logger.warning("Device tiling skipped: full mosaic read failed; "
                            "streaming windowed reads instead")
@@ -560,10 +586,15 @@ class SFinder:
             spool.flush()
 
             def drain(item):
-                t_drain = time.time()
-                kept_tiles, outs = item
-                boxes, scores, cls, valid, tile_ok, ndrop = (
-                    o.cpu().numpy() for o in outs)
+                batch, kept_tiles, outs = item
+                with self.recorder.span("sfinder.drain", batch):
+                    # the host blocks here until the device is done
+                    with self.recorder.span("sfinder.drain_wait", batch):
+                        host = [o.cpu().numpy() for o in outs]
+                    self.recorder.batch_done(batch)
+                    unpack(kept_tiles, *host)
+
+            def unpack(kept_tiles, boxes, scores, cls, valid, tile_ok, ndrop):
                 for k, t in enumerate(kept_tiles):
                     img = tile_imgs.pop(t.tid, None)
                     if ndrop[k]:
@@ -583,7 +614,6 @@ class SFinder:
                     results.append(tr)
                     spool.write(json.dumps(tr) + "\n")
                 spool.flush()
-                self.report.drain_s += time.time() - t_drain
 
             flow = _Inflight(drain, self.report)
             paths = []
@@ -602,9 +632,7 @@ class SFinder:
                 global_ctx = False
             if mode == "full":
                 paths.append("full")
-                t_put = time.time()
                 mosaic_dev = engine.put_mosaic(mosaic_np)
-                self.report.h2d_put_s += time.time() - t_put
                 self.report.h2d_bytes += (mosaic_np.size
                                           * engine.relay_dtype.itemsize)
                 if not cfg.save_tile_img:
@@ -664,9 +692,8 @@ class SFinder:
         mosaic and the windows skip it."""
         cfg = self.config
         if global_ctx:
-            t_pre = time.time()
-            mosaic_dev, ok = engine.preprocess_mosaic(mosaic_dev)
-            self.report.phase_times["preprocess_mosaic"] = time.time() - t_pre
+            with self.recorder.span("preprocess_mosaic"):
+                mosaic_dev, ok = engine.preprocess_mosaic(mosaic_dev)
             if not ok:
                 logger.warning(
                     "Whole-mosaic preprocessing flagged the image invalid "
@@ -682,7 +709,7 @@ class SFinder:
                             t.xmin - self.xmin:t.xmax - self.xmin]
                 flow.push(tile_batch, engine.process_mosaic_async(
                     mosaic_dev, self._origins(tile_batch, self.ymin), (h, w),
-                    preprocessed=global_ctx))
+                    preprocessed=global_ctx, batch=flow.dispatched))
         flow.finish()
 
     def _band_path(self, engine, groups, flow, tile_imgs) -> dict:
@@ -704,16 +731,16 @@ class SFinder:
         def read_band(bk):
             """Worker-side band read and device put, so that the next band
             ships while the current band's batches compute."""
-            t_read = time.time()
-            res = read_fits_crop(cfg.image_path, self.xmin, self.xmax + 1,
-                                 bk[0], bk[1], strip_deg_axis=True)
-            if res is None or np.asarray(res[0]).ndim != 2:
-                return None
-            band_np = np.asarray(res[0], np.float32)
-            t_put = time.time()
+            with self.recorder.span("sfinder.read"):
+                res = read_fits_crop(cfg.image_path, self.xmin,
+                                     self.xmax + 1, bk[0], bk[1],
+                                     strip_deg_axis=True)
+                if res is None or np.asarray(res[0]).ndim != 2:
+                    return None
+                band_np = np.asarray(res[0], np.float32)
             band_dev = engine.put_mosaic(band_np)
             return (band_np if cfg.save_tile_img else None, band_dev,
-                    band_np.size * item, t_put - t_read, time.time() - t_put)
+                    band_np.size * item)
 
         with ThreadPoolExecutor(max_workers=2) as pool:
             futs: deque = deque((bk, pool.submit(read_band, bk))
@@ -733,9 +760,7 @@ class SFinder:
                                    "falling back to windowed reads for its "
                                    "tiles", *bk)
                     continue
-                band_np, band_dev, nbytes, read_s, put_s = staged
-                self.report.read_s += read_s
-                self.report.h2d_put_s += put_s
+                band_np, band_dev, nbytes = staged
                 self.report.h2d_bytes += nbytes
                 for (h, w), ts in bands[bk].items():
                     for i in range(0, len(ts), cfg.batch_size):
@@ -746,7 +771,8 @@ class SFinder:
                                     :, t.xmin - self.xmin:t.xmax - self.xmin]
                         flow.push(tile_batch, engine.process_mosaic_async(
                             band_dev, self._origins(tile_batch, bk[0]),
-                            (h, w)), waiting=len(futs))
+                            (h, w), batch=flow.dispatched),
+                            waiting=len(futs))
             flow.finish()
         return leftover
 
@@ -774,18 +800,16 @@ class SFinder:
                     """Worker-side read, batch assembly and device put, so
                     that staging batch N+1 overlaps the device computing
                     batch N."""
-                    t_read = time.time()
-                    datas = list(pool.map(read_tile, tile_batch))
-                    ok_idx = [i for i, d in enumerate(datas)
-                              if d is not None]
-                    arr = np.zeros((batch, h, w, 1), np.float32)
-                    for k, i in enumerate(ok_idx):
-                        arr[k] = datas[i]
-                    t_put = time.time()
+                    with self.recorder.span("sfinder.read"):
+                        datas = list(pool.map(read_tile, tile_batch))
+                        ok_idx = [i for i, d in enumerate(datas)
+                                  if d is not None]
+                        arr = np.zeros((batch, h, w, 1), np.float32)
+                        for k, i in enumerate(ok_idx):
+                            arr[k] = datas[i]
                     dev = engine.put_tiles(arr)
                     keep = datas if cfg.save_tile_img else None
-                    return (ok_idx, keep, dev, t_put - t_read,
-                            time.time() - t_put)
+                    return ok_idx, keep, dev
 
                 futures: deque = deque()
                 next_batch = 0
@@ -801,10 +825,8 @@ class SFinder:
                 submit_read()
                 while futures:
                     tile_batch, fut = futures.popleft()
-                    ok_idx, datas, dev, read_s, put_s = fut.result()
+                    ok_idx, datas, dev = fut.result()
                     submit_read()
-                    self.report.read_s += read_s
-                    self.report.h2d_put_s += put_s
                     self.report.h2d_bytes += batch * h * w * item
                     ok_set = set(ok_idx)
                     for i, t in enumerate(tile_batch):
@@ -817,7 +839,8 @@ class SFinder:
                         for i in ok_idx:
                             tile_imgs[tile_batch[i].tid] = datas[i][:, :, 0]
                     flow.push([tile_batch[i] for i in ok_idx],
-                              engine.process_async(dev),
+                              engine.process_async(
+                                  dev, batch=flow.dispatched),
                               waiting=len(futures))
                 flow.finish()
 
@@ -869,17 +892,22 @@ class SFinder:
 class _Inflight:
     """Device batches dispatched and not yet drained: the oldest is drained
     once three wait, so the host unpacks batch N while the device computes
-    N + 1 and N + 2 (the reference's loops)."""
+    N + 1 and N + 2 (the reference's loops).  Batches are numbered in the
+    order they are dispatched, and drained in that order: `dispatched`
+    is the index of the next one."""
 
     def __init__(self, drain, report: SFinderReport):
         self.pending: deque = deque()
         self.drain = drain
         self.report = report
+        self.dispatched = 0
 
     def push(self, kept_tiles, outs, waiting: int = 0):
-        """Queue a dispatched batch; `waiting` reads or bands are in flight
-        beside it (counted in report.max_inflight_batches)."""
-        self.pending.append((list(kept_tiles), outs))
+        """Queue the dispatched batch number `dispatched`; `waiting` reads
+        or bands are in flight beside it (counted in
+        report.max_inflight_batches)."""
+        self.pending.append((self.dispatched, list(kept_tiles), outs))
+        self.dispatched += 1
         self.report.max_inflight_batches = max(
             self.report.max_inflight_batches, waiting + len(self.pending))
         if len(self.pending) > 2:

@@ -45,6 +45,7 @@ from caesar_yolo_tpu_torch.models.yolo import YOLO
 from caesar_yolo_tpu_torch.parallel import mesh
 from caesar_yolo_tpu_torch.train.loss import detection_loss
 from caesar_yolo_tpu_torch.utils.device import exact_f32, resolve_device
+from caesar_yolo_tpu_torch.utils.trace import NULL
 
 
 @dataclass(frozen=True)
@@ -138,6 +139,8 @@ class Trainer:
         self.ema = {n: t.detach().clone()
                     for n, t in self.model.state_dict().items()}
         self.step = 0
+        # the span recorder of a traced run (utils/trace.py); none by default
+        self.recorder = NULL
         # best validation metric seen so far, kept across resume
         self.best_metric = -1.0
         # (step, loss) of every step `fit` ran, the loss a device scalar
@@ -193,7 +196,7 @@ class Trainer:
         if mesh.distributed():
             # one collective for every gradient, then back into each
             # gradient's own layout (channels_last on CUDA)
-            with torch.profiler.record_function("grad_all_reduce"):
+            with self.recorder.span("train.grad_all_reduce"):
                 flat = mesh.all_reduce_sum(
                     torch.cat([g.reshape(-1) for g in grads]))
                 torch._foreach_copy_(grads, [

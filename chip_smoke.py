@@ -2513,8 +2513,7 @@ def phase_mosaic(torch, counters, tmp):
             f"({sum(o['merged'] for o in objs)} merged)")
         log(f"mosaic {name} phase_times: {rep.phase_times}; SFinder runtime "
             f"{rep.runtime_s:.4f} s, setup before it (weights, model) "
-            f"{wall - rep.runtime_s:.4f} s; read_s {rep.read_s:.4f}, "
-            f"h2d_put_s {rep.h2d_put_s:.4f}, drain_s {rep.drain_s:.4f}, max "
+            f"{wall - rep.runtime_s:.4f} s; read_s {rep.read_s:.4f}, max "
             f"in flight {rep.max_inflight_batches}")
     # the tile-context catalogs of the three paths agree by the catalog rule
     for name in ("auto", "band"):

@@ -96,7 +96,6 @@ def worker(argv: list[str]) -> int:
                    "n_tiles": rep.n_tiles, "n_resumed": rep.n_resumed,
                    "tiling_mode": rep.tiling_mode,
                    "h2d_bytes": rep.h2d_bytes, "read_s": rep.read_s,
-                   "h2d_put_s": rep.h2d_put_s, "drain_s": rep.drain_s,
                    "phase_times": rep.phase_times,
                    "n_sources": rep.n_sources,
                    "tile_errors": len(rep.tile_errors)}, f)
@@ -216,8 +215,7 @@ def drill(workdir: str, cli_flags: list[str], kill_after: int,
         "mpix_per_s_A": nx * ny / 1e6 / rep_a["runtime_s"],
         "tiles_per_s_A": rep_a["n_tiles"] / rep_a["runtime_s"],
         "phase_times_A": rep_a["phase_times"],
-        "read_s_A": rep_a["read_s"], "h2d_put_s_A": rep_a["h2d_put_s"],
-        "drain_s_A": rep_a["drain_s"],
+        "read_s_A": rep_a["read_s"],
         "killed_with_spooled_tiles": done_before,
         "resumed_tiles_C": rep_c["n_resumed"],
         "recomputed_tiles_C": rep_c["n_tiles"] - rep_c["n_resumed"],

@@ -77,7 +77,6 @@ def run_mode(mode: str, flags: list[str]) -> dict:
             "tiles_per_s": rep.n_tiles / wall, "wall_s": wall,
             "runtime_s": rep.runtime_s, "setup_s": wall - rep.runtime_s,
             "phase_times": rep.phase_times, "read_s": rep.read_s,
-            "h2d_put_s": rep.h2d_put_s, "drain_s": rep.drain_s,
             "h2d_bytes": getattr(rep, "h2d_bytes", None)}
 
 

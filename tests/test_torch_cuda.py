@@ -976,3 +976,38 @@ def test_exported_artifact_equals_the_live_engine(dev, arch, pipe):
     assert n["clahe"] == (pipe == "clahe")
     for r, g in zip(ref, got):
         assert r.dtype == g.dtype and np.array_equal(r, g)
+
+
+@pytest.mark.parametrize("devices", ["cuda", "cpu"])
+def test_device_starved_on_the_card_only(dev, tmp_path, devices):
+    """cli.run tiled over a 512 px mosaic (64 tiles of 96 px at step 0.75,
+    nine shapes, 13 batches of up to 8): on the card the report carries `engine.device_starved`, the
+    stream's idle time between consecutive batches on the device's clock,
+    never negative and within the detection span; on the CPU it is
+    absent."""
+    import os
+
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+    from caesar_yolo_tpu_torch.utils.synth import write_mosaic_fits
+    from caesar_yolo_tpu_torch.utils.trace import DEVICE_STARVED
+
+    path = str(tmp_path / "m.fits")
+    write_mosaic_fits(path, 512, 512, n_sources=30, seed=1)
+    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "yolov8n_synth96.npz")
+    rc, sf = cli_run.run([
+        f"--image={path}", f"--weights={weights}", "--imgsize=96",
+        "--scoreThr=0.3", "--preprocessing", "--normalize_minmax",
+        "--split_img_in_tiles", "--tile_xsize=96", "--tile_ysize=96",
+        "--tile_xstep=0.75", "--tile_ystep=0.75", "--batch_size=8",
+        f"--detect_outfile_json={tmp_path}/c.json",
+        f"--detect_outfile={tmp_path}/c.reg",
+        f"--spool_path={tmp_path}/spool.jsonl", f"--devices={devices}"])
+    assert rc == 0
+    phases = sf.report.phase_times
+    assert len({s.batch for s in sf.report.spans
+                if s.name == "sfinder.drain"}) == 13
+    if devices == "cpu":
+        assert DEVICE_STARVED not in phases
+    else:
+        assert 0.0 <= phases[DEVICE_STARVED] <= phases["detect"]

@@ -37,6 +37,7 @@ from caesar_yolo_tpu_torch.utils.synth import (
     make_mosaic,
     write_labelled_cutouts,
 )
+from caesar_yolo_tpu_torch.utils.trace import Recorder
 
 torch.set_num_threads(1)
 
@@ -147,6 +148,7 @@ def test_batched_detector_matches_jax(models):
                       **kw).detect_many(list(imgs), imgs.get)
     det = BatchedDetector(tmodel, device="cpu", compute_dtype=torch.float32,
                           **kw)
+    det.engine.recorder = recorder = Recorder()
     got = det.detect_many(list(imgs), imgs.get)
     assert set(got) == set(ref) == set(imgs)
     assert got["k05"] is None and ref["k05"] is None
@@ -159,7 +161,11 @@ def test_batched_detector_matches_jax(models):
         assert catalog_mismatch(r[:3], got[key][:3]) is None, key
         n += len(r[1])
     assert n >= 10
-    assert det.h2d_put_s > 0
+    # the workers' staging spans, one a batch, summed across threads
+    stage = [sp for sp in recorder.spans if sp.name == "engine.stage"]
+    assert len(stage) == len([sp for sp in recorder.spans
+                              if sp.name == "engine.dispatch"]) > 1
+    assert recorder.totals()["engine.stage"] > 0
 
 
 def test_update_params_swaps_weights_without_touching_the_model(models):

@@ -210,12 +210,14 @@ def bf16_step(model, cfg, local, device):
     """bf16 steps after a warm-up: one step's wall time and the
     collectives it made; the gradient all-reduce's time in another, timed
     between two synchronizations; and under torch.profiler the host time
-    in the trainer's grad_all_reduce span of a third."""
+    in the trainer's train.grad_all_reduce span of a third, from the
+    span recorder (utils/trace.py) the trainer is given for that step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from caesar_yolo_tpu_torch.parallel import mesh
     from caesar_yolo_tpu_torch.train.trainer import TrainConfig, Trainer
+    from caesar_yolo_tpu_torch.utils.trace import Recorder
 
     trainer = Trainer(model, TrainConfig(**dict(
         cfg, compute_dtype="bfloat16")), steps_per_epoch=2, device=device)
@@ -251,20 +253,20 @@ def bf16_step(model, cfg, local, device):
         step()
     finally:
         mesh.all_reduce_sum = all_reduce_sum
+    trainer.recorder = recorder = Recorder()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if trainer.device.type == "cuda" else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=acts):
         t0 = time.perf_counter()
         step()
         prof_step_s = time.perf_counter() - t0
-    span = [e for e in prof.key_averages() if e.key == "grad_all_reduce"]
+    span_s = recorder.totals().get("train.grad_all_reduce")
     return {"step_s": step_s, "collectives_per_step": calls,
             "grad_all_reduce_s": reduce_s[0] if reduce_s else None,
             "grad_all_reduce_share": (reduce_s[0] / step_s if reduce_s
                                       else None),
             "profiled_step_s": prof_step_s,
-            "profiled_span_s": (span[0].cpu_time_total / 1e6 if span
-                                else None),
+            "profiled_span_s": span_s,
             "grad_bytes": 4 * sum(p.numel() for p in trainer.params.values())}
 
 
