@@ -8,7 +8,8 @@ includes and its flags, so an edited source is rebuilt and a stale
 library is never loaded.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-``check`` turns a non-zero code into an exception.
+``check`` turns a non-zero code into an exception.  Each wrapper counts
+its launches in attributes of its function, listed in ``COUNTERS``.
 """
 
 from __future__ import annotations
@@ -62,6 +63,31 @@ HEADERS = {
 # are int32, as the JAX functions' own counts are (x64 off), so a plane
 # ends where int32 counting does: 2^31 - 1 values.
 MAX_PLANE = 2 ** 31 - 1
+
+# The wrappers' launch counters, (function, attribute) each, in the order
+# they were made.  A wrapper bumps them in Python as it launches, so a
+# CUDA graph's replay (parallel/engine.py) bumps nothing by itself.
+COUNTERS: list[tuple[object, str]] = []
+
+
+def counters(fn, *names: str) -> None:
+    """Start the launch counters `names` of wrapper `fn` at 0 and list
+    them in COUNTERS."""
+    for name in names:
+        setattr(fn, name, 0)
+        COUNTERS.append((fn, name))
+
+
+def counter_values() -> list[int]:
+    """Every counter of COUNTERS, in its order."""
+    return [getattr(fn, name) for fn, name in COUNTERS]
+
+
+def add_to_counters(amounts) -> None:
+    """Add amounts[i] to COUNTERS[i] (a shorter list leaves the rest)."""
+    for (fn, name), n in zip(COUNTERS, amounts):
+        if n:
+            setattr(fn, name, getattr(fn, name) + n)
 
 
 def plane_limit_error(kernel: str, hw: int) -> ValueError:

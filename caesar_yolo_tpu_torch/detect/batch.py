@@ -7,7 +7,8 @@ per image; this runner groups images by shape, pads each group with zero
 images into fixed batches, and drives them through one TileEngine: the
 image loads run ahead on a thread pool, the host-to-device copy of a
 batch runs in a worker thread (pinned and non-blocking, on the current
-stream) while the previous batch's compute is enqueued, and results are
+stream) while the previous batch's compute is enqueued, each batch's
+results start their copy to the host as it is enqueued, and they are
 drained one batch behind dispatch.
 """
 
@@ -52,13 +53,13 @@ class BatchedDetector:
         with ThreadPoolExecutor(max_workers=read_workers) as pool:
             buckets: dict[tuple, list] = {}  # shape -> [(key, img)]
             staged: deque = deque()          # [(keys, staging future)]
-            pending: list = []               # [(keys, device outputs)]
+            pending: list = []               # [(keys, host fetch)]
 
             def launch(item):
                 """Enqueue the compute of an already-staged batch."""
                 keys, put_fut = item
-                pending.append((keys, self.engine.process_async(
-                    put_fut.result())))
+                pending.append((keys, self.engine.to_host_async(
+                    self.engine.process_async(put_fut.result()))))
                 # drain one behind dispatch: bounds device-result memory
                 # while host loads overlap device compute
                 if len(pending) > 1:
@@ -121,8 +122,8 @@ class BatchedDetector:
         return results
 
     def _drain(self, item, results):
-        keys, outs = item
-        boxes, scores, cls, valid, ok, ndrop = (o.cpu().numpy() for o in outs)
+        keys, fetch = item
+        boxes, scores, cls, valid, ok, ndrop = fetch()
         for i, key in enumerate(keys):
             if ndrop[i]:
                 logger.warning(

@@ -97,7 +97,7 @@ def _entry():
     return fn
 
 
-nms_suppress.launches = 0
+cuda_build.counters(nms_suppress, "launches")
 
 
 @torch.library.custom_op("caesar_yolo::nms_suppress", mutates_args=())

@@ -47,10 +47,12 @@ def letterbox_batch(images: torch.Tensor, img_size: int,
 def unletterbox_boxes(boxes: torch.Tensor, h: int, w: int,
                       img_size: int) -> torch.Tensor:
     """Map xyxy boxes from letterboxed [S, S] coords back to the original
-    [h, w] image, clipped to its bounds."""
+    [h, w] image, clipped to its bounds.  The constants are filled on the
+    boxes' device (no host copy: a CUDA graph may capture this)."""
     r, _, _, top, left = letterbox_geometry(h, w, img_size)
-    shift = torch.tensor([left, top, left, top], dtype=boxes.dtype,
-                         device=boxes.device)
-    lim = torch.tensor([w, h, w, h], dtype=boxes.dtype, device=boxes.device)
+    shift = boxes.new_full((4,), left)      # [left, top, left, top]
+    shift[1::2] = top
+    lim = boxes.new_full((4,), w)           # [w, h, w, h]
+    lim[1::2] = h
     out = (boxes - shift) / r
     return torch.minimum(out.clamp(min=0.0), lim)

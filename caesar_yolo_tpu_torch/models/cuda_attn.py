@@ -147,7 +147,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-attention.launches = 0
+cuda_build.counters(attention, "launches")
 
 
 @torch.library.custom_op("caesar_yolo::attention", mutates_args=())
@@ -208,7 +208,7 @@ def attention_backward(q, k, v, g, scale):
     return dq, dk, dv
 
 
-attention_backward.launches = 0
+cuda_build.counters(attention_backward, "launches")
 
 
 class _FusedAttention(torch.autograd.Function):

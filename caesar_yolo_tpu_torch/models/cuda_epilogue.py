@@ -92,7 +92,7 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor | None,
     return out
 
 
-conv_epilogue.launches = 0
+cuda_build.counters(conv_epilogue, "launches")
 
 
 @torch.library.custom_op("caesar_yolo::conv_epilogue", mutates_args=())

@@ -152,7 +152,7 @@ def qconv(x, wq, ws, xs, b, stride: int, pad: int, act: bool, wp=None):
                  x.dtype)
 
 
-qconv.launches = 0
+cuda_build.counters(qconv, "launches")
 
 
 @torch.library.custom_op("caesar_yolo::qconv", mutates_args=())

@@ -166,9 +166,8 @@ def _entry():
     return fn
 
 
-equalize_adapthist_batch.launches = 0
-equalize_adapthist_batch.cluster_launches = 0
-equalize_adapthist_batch.stream_launches = 0
+cuda_build.counters(equalize_adapthist_batch,
+                    "launches", "cluster_launches", "stream_launches")
 
 
 @torch.library.custom_op("caesar_yolo::equalize_adapthist", mutates_args=())
@@ -247,5 +246,5 @@ def blend(planes: torch.Tensor, vmin: torch.Tensor, span: torch.Tensor,
     return out
 
 
-tile_histograms.launches = 0
-blend.launches = 0
+cuda_build.counters(tile_histograms, "launches")
+cuda_build.counters(blend, "launches")

@@ -115,9 +115,8 @@ def _entry():
     return fn
 
 
-equalize_hist_batch.launches = 0
-equalize_hist_batch.cluster_launches = 0
-equalize_hist_batch.stream_launches = 0
+cuda_build.counters(equalize_hist_batch,
+                    "launches", "cluster_launches", "stream_launches")
 
 
 @torch.library.custom_op("caesar_yolo::equalize_hist", mutates_args=())

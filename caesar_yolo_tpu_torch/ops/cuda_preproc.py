@@ -158,9 +158,8 @@ def _entry():
     return fn
 
 
-zscale_minmax.launches = 0
-zscale_minmax.cluster_launches = 0
-zscale_minmax.stream_launches = 0
+cuda_build.counters(zscale_minmax,
+                    "launches", "cluster_launches", "stream_launches")
 
 
 @torch.library.custom_op("caesar_yolo::zscale_minmax", mutates_args=())

@@ -149,6 +149,5 @@ def _lib():
     return lib
 
 
-fractional_row_shift_batch.launches = 0
-fractional_row_shift_batch.row_launches = 0
-fractional_row_shift_batch.column_launches = 0
+cuda_build.counters(fractional_row_shift_batch,
+                    "launches", "row_launches", "column_launches")

@@ -124,9 +124,8 @@ def _entry():
     return fn
 
 
-clip_stats.launches = 0
-clip_stats.cluster_launches = 0
-clip_stats.stream_launches = 0
+cuda_build.counters(clip_stats,
+                    "launches", "cluster_launches", "stream_launches")
 
 
 @torch.library.custom_op("caesar_yolo::clip_stats", mutates_args=())

@@ -75,7 +75,7 @@ def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-upsample2x_forward.launches = 0
+cuda_build.counters(upsample2x_forward, "launches")
 
 
 @torch.library.custom_op("caesar_yolo::upsample2x", mutates_args=())
@@ -152,8 +152,7 @@ def _bwd_entry():
     return fn
 
 
-upsample2x_backward.launches = 0
-upsample2x_backward.copies = 0
+cuda_build.counters(upsample2x_backward, "launches", "copies")
 
 
 class _Upsample2x(torch.autograd.Function):

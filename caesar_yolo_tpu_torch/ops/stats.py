@@ -49,7 +49,7 @@ def _pin(xm, lo, hi, k):
     """The exact k-th order statistic inside the bracket (lo, hi]
     (pallas_stats.py:79-85): the smallest member whose cumulative count
     reaches k, else the next distinct member, else hi."""
-    inf = torch.tensor(float("inf"), device=xm.device)
+    inf = float("inf")
     in_b = (xm > lo[:, None]) & (xm <= hi[:, None])
     m1 = torch.where(in_b, xm, inf).amin(dim=1)
     c1 = _count_le(xm, m1)

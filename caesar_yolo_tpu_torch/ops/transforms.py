@@ -82,23 +82,43 @@ def _center_box(h: int, w: int, fract: float, device) -> torch.Tensor:
     return box
 
 
+def _runs(chans: list[int]) -> list[tuple[int, int]]:
+    """Ascending channel indices -> their runs of consecutive channels as
+    slice bounds [(start, stop)]."""
+    runs: list[tuple[int, int]] = []
+    for i in chans:
+        if runs and runs[-1][1] == i:
+            runs[-1] = (runs[-1][0], i + 1)
+        else:
+            runs.append((i, i + 1))
+    return runs
+
+
 def _per_channel(data: torch.Tensor, chid: int, fn, skip: bool = False):
     """Apply fn(planes[B*k, H, W]) -> (planes', valid[B*k]) to the channels
     chid selects (-1: all; with skip=True every channel but chid) of data
-    [B, H, W, C] in one call; the others pass through as valid."""
+    [B, H, W, C] in one call; the others pass through as valid.  The
+    channels are taken and put back by slices: a list index would copy
+    itself to the device first, a host wait that no CUDA graph can
+    capture."""
     b, c = data.shape[0], data.shape[-1]
-    chans = [i for i in range(c)
-             if chid == -1 or (i != chid if skip else i == chid)]
+    runs = _runs([i for i in range(c)
+                  if chid == -1 or (i != chid if skip else i == chid)])
     valid = _ones(data)
-    if not chans:
+    if not runs:
         return data, valid
-    sel = data[..., chans]
+    parts = [data[..., a:e] for a, e in runs]
+    sel = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     out, ok = fn(_planes(sel))
     valid = valid & ok.reshape(b, -1).all(dim=1)
-    if len(chans) == c:
-        return _unplanes(out, b), valid
+    out = _unplanes(out, b)
+    if runs == [(0, c)]:
+        return out, valid
     data = data.clone()
-    data[..., chans] = _unplanes(out, b)
+    k = 0
+    for a, e in runs:
+        data[..., a:e] = out[..., k:k + e - a]
+        k += e - a
     return data, valid
 
 

@@ -588,9 +588,9 @@ class SFinder:
             def drain(item):
                 batch, kept_tiles, outs = item
                 with self.recorder.span("sfinder.drain", batch):
-                    # the host blocks here until the device is done
+                    # the host blocks here until the batch's copies are done
                     with self.recorder.span("sfinder.drain_wait", batch):
-                        host = [o.cpu().numpy() for o in outs]
+                        host = outs()
                     self.recorder.batch_done(batch)
                     unpack(kept_tiles, *host)
 
@@ -615,7 +615,7 @@ class SFinder:
                     spool.write(json.dumps(tr) + "\n")
                 spool.flush()
 
-            flow = _Inflight(drain, self.report)
+            flow = _Inflight(drain, self.report, engine.to_host_async)
             paths = []
             mode = self._device_tiling_mode(engine, groups)
             mosaic_np = None
@@ -892,21 +892,25 @@ class SFinder:
 class _Inflight:
     """Device batches dispatched and not yet drained: the oldest is drained
     once three wait, so the host unpacks batch N while the device computes
-    N + 1 and N + 2 (the reference's loops).  Batches are numbered in the
+    N + 1 and N + 2 (the reference's loops).  Each batch's outputs start
+    for the host as it is queued (`to_host`, TileEngine.to_host_async), so
+    its drain waits for that batch alone.  Batches are numbered in the
     order they are dispatched, and drained in that order: `dispatched`
     is the index of the next one."""
 
-    def __init__(self, drain, report: SFinderReport):
+    def __init__(self, drain, report: SFinderReport, to_host):
         self.pending: deque = deque()
         self.drain = drain
         self.report = report
+        self.to_host = to_host
         self.dispatched = 0
 
     def push(self, kept_tiles, outs, waiting: int = 0):
-        """Queue the dispatched batch number `dispatched`; `waiting` reads
-        or bands are in flight beside it (counted in
-        report.max_inflight_batches)."""
-        self.pending.append((self.dispatched, list(kept_tiles), outs))
+        """Queue the dispatched batch number `dispatched` (its device
+        outputs `outs`); `waiting` reads or bands are in flight beside it
+        (counted in report.max_inflight_batches)."""
+        self.pending.append((self.dispatched, list(kept_tiles),
+                             self.to_host(outs)))
         self.dispatched += 1
         self.report.max_inflight_batches = max(
             self.report.max_inflight_batches, waiting + len(self.pending))

@@ -1933,14 +1933,16 @@ def phase_main(torch, counters):
     tps = [staged_tps(torch, engine, staged) for _ in range(2)]
     log(on_card(f"main path: staged tiles/s, yolo11l@{MAIN_SIZE} bf16 batch "
                 f"{MAIN_BATCH}, two runs: {[round(v, 2) for v in tps]}"))
-    return engine, batches, launches
+    return engine, model, batches, launches
 
 
-def phase_epilogue(torch, engine, batches):
+def phase_epilogue(torch, engine, model, batches):
     """K10 against its plain version on every bf16 conv of one yolo11l@640
     forward (batch 32), on each call's own input: conv_epilogue wrapped so
-    that each call also runs epilogue_plain on the same tensors.  Returns
-    (the timing inputs of the most launched shape, max abs err)."""
+    that each call also runs epilogue_plain on the same tensors (the
+    engine's graphs dropped first, since a replay calls no wrapper).
+    Returns (the timing inputs of the most launched shape, max abs
+    err)."""
     from caesar_yolo_tpu_torch.models import cuda_epilogue
     from caesar_yolo_tpu_torch.models.layers import Conv, Conv2dRaw
     kernel, shapes, seen = cuda_epilogue.conv_epilogue, Counter(), {}
@@ -1960,6 +1962,7 @@ def phase_epilogue(torch, engine, batches):
     held.launches = kernel.launches
     cuda_epilogue.conv_epilogue = held
     try:
+        engine.update_params(model)
         staged = engine.put_tiles(batches[0])
         engine.process_async(staged)
         torch.cuda.synchronize()
@@ -3303,7 +3306,10 @@ class plain_upsample:
 
 
 def staged_tps(torch, engine, staged):
-    engine.process_async(staged[0])
+    # two warm batches: a shape's first runs eagerly, its second is
+    # captured as the engine's CUDA graph, so that no capture is timed
+    for st in staged[:2]:
+        engine.process_async(st)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for st in staged:
@@ -3312,10 +3318,14 @@ def staged_tps(torch, engine, staged):
     return len(staged) * MAIN_BATCH / (time.perf_counter() - t0)
 
 
-def phase_upsample_ab(torch, engine, batches, tmp):
+def phase_upsample_ab(torch, engine, model, batches, tmp):
     """Main-path staged tiles/s and mosaic tiled tiles/s with the plain
-    broadcast upsample and with K4, in turns: plain, K4, K4, plain."""
+    broadcast upsample and with K4, in turns: plain, K4, K4, plain.  The
+    engine's graphs are dropped as each leg starts (a replay runs the
+    upsample it was captured with), and K4's launch counter must move in
+    the K4 legs alone."""
     from caesar_yolo_tpu_torch.cli import run as cli_run
+    from caesar_yolo_tpu_torch.ops import cuda_upsample
 
     staged = [engine.put_tiles(bt) for bt in batches]
     common = [*mosaic_cli(tmp), *MOSAIC_TILED,
@@ -3326,6 +3336,8 @@ def phase_upsample_ab(torch, engine, batches, tmp):
     for variant in ("plain", "k4", "k4", "plain"):
         ctx = plain_upsample() if variant == "plain" else nullcontext()
         with ctx:
+            engine.update_params(model)
+            n0 = cuda_upsample.upsample2x_forward.launches
             out[variant]["main"].append(staged_tps(torch, engine, staged))
             t0 = time.perf_counter()
             rc, sf = cli_run.run(common)
@@ -3333,6 +3345,10 @@ def phase_upsample_ab(torch, engine, batches, tmp):
             require(rc == 0, "mosaic A/B run failed")
             out[variant]["mosaic"].append(
                 sf.report.n_tiles / (time.perf_counter() - t0))
+            moved = cuda_upsample.upsample2x_forward.launches - n0
+        require((moved > 0) == (variant == "k4"),
+                f"upsample A/B: the {variant} leg launched K4 {moved} times")
+    engine.update_params(model)
     for variant, r in out.items():
         log(f"upsample A/B {variant}: main path staged tiles/s "
             f"{[round(x, 1) for x in r['main']]}, mosaic tiled tiles/s "
@@ -3855,9 +3871,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_golden_eval(torch, counters, tmp)
             phase_golden_mosaic(torch, tmp)
-            engine, batches, launches = phase_main(torch, counters)
-            epilogue_inputs, epilogue_err = phase_epilogue(torch, engine,
-                                                           batches)
+            engine, model, batches, launches = phase_main(torch, counters)
+            epilogue_inputs, epilogue_err = phase_epilogue(
+                torch, engine, model, batches)
             phase_export(torch, counters, engine, batches, tmp)
             mosaic_launches, _ = phase_mosaic(torch, counters, tmp)
             phase_multiproc(torch, tmp)
@@ -3867,7 +3883,7 @@ def main() -> int:
             phase_image(torch, counters, tmp)
             eval_launches = phase_eval(torch, counters, tmp, card)
             train_launches = phase_train(torch, counters, tmp, card)
-            phase_upsample_ab(torch, engine, batches, tmp)
+            phase_upsample_ab(torch, engine, model, batches, tmp)
             phase_shear_ab(torch, card)
             plane_rows, planes = phase_whole_plane(torch, tmp)
             q5_model, q5_bf16 = phase_synth5(torch)

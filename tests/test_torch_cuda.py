@@ -1011,3 +1011,332 @@ def test_device_starved_on_the_card_only(dev, tmp_path, devices):
         assert DEVICE_STARVED not in phases
     else:
         assert 0.0 <= phases[DEVICE_STARVED] <= phases["detect"]
+
+
+# -- the tile step as a CUDA graph (parallel/engine.py) -----------------------
+
+GRAPH_KW = dict(img_size=128, score_thr=1e-3, max_det=50)
+GRAPH_CHAINS = {
+    "readme-yolo11n": ("yolo11n", dict(zscale_stretch=True,
+                                       normalize_minmax=True), False),
+    "bkg-chan3-yolov8n": ("yolov8n", dict(
+        subtract_bkg=True, chan3_preproc=True, sigma_clip_baseline=0.0,
+        sigma_clip_low=1.0, sigma_clip_up=20.0, normalize_minmax=True,
+        norm_min=0.0, norm_max=255.0), False),
+    "int8-readme-yolov8n": ("yolov8n", dict(zscale_stretch=True,
+                                            normalize_minmax=True), True),
+}
+# a mosaic's batches: four of the main shape, then three edge shapes once
+GRAPH_BATCHES = [(128, 128)] * 4 + [(128, 96), (96, 128), (96, 96)]
+
+
+def _graph_engine(dev, chain, seed=0, preprocessor=None):
+    """(TileEngine with a Recorder, a factory of the model) for a chain of
+    GRAPH_CHAINS; `preprocessor` replaces the chain's."""
+    from caesar_yolo_tpu_torch.models import quant
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+    from caesar_yolo_tpu_torch.utils.trace import Recorder
+
+    arch, pipe, int8 = GRAPH_CHAINS[chain]
+
+    def model_of(s):
+        model = init_weights(build_model(arch), seed=s)
+        if not int8:
+            return model
+        x = torch.rand((4, 3, 128, 128), generator=torch.Generator()
+                       .manual_seed(s)).to(dev, torch.bfloat16).contiguous(
+                           memory_format=torch.channels_last)
+        return quant.quantize_model(model, [x])
+
+    engine = TileEngine(model_of(seed), fuse=not int8,
+                        preprocessor=preprocessor or build_preprocessor(
+                            **pipe), **GRAPH_KW)
+    engine.recorder = Recorder()
+    return engine, model_of
+
+
+def _mosaic_batch(dev, mosaic_dev, k, shape, b=4):
+    """Batch k's origins (distinct for every k) and its windows cut on
+    the device apart from the engine."""
+    h, w = shape
+    H, W = mosaic_dev.shape
+    rng = np.random.default_rng(k)
+    origins = np.stack([rng.integers(0, H - h + 1, b),
+                        rng.integers(0, W - w + 1, b)], axis=1)
+    tiles = torch.stack([mosaic_dev[r:r + h, c:c + w]
+                         for r, c in origins])[..., None]
+    return origins, tiles
+
+
+def _eager_step(engine):
+    from caesar_yolo_tpu_torch.parallel.engine import make_tile_step
+    return make_tile_step(engine.model, preprocessor=engine.preprocessor,
+                          **GRAPH_KW)
+
+
+def _assert_bit_equal(got, ref):
+    for g, r in zip(got, ref, strict=True):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g.contiguous().view(torch.uint8),
+                           r.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("chain", list(GRAPH_CHAINS))
+def test_replayed_tile_step_equals_the_eager_step(dev, chain):
+    """Over a mosaic of four tile shapes (four batches of the main one),
+    every batch's outputs equal make_tile_step's eager outputs bit for
+    bit: the main shape's first batch eager, the second captured, the
+    rest replayed, the edge shapes eager.  Three batches dispatched before
+    any drain each keep their own outputs; a replayed batch waits on the
+    host nowhere (sync debug mode "error"); nothing falls back."""
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    engine, _ = _graph_engine(dev, chain)
+    step = _eager_step(engine)
+    mosaic = engine.put_mosaic(make_mosaic(320, 320, n_sources=12, seed=3)[0])
+    with torch.inference_mode():
+        for k, shape in enumerate(GRAPH_BATCHES):
+            origins, tiles = _mosaic_batch(dev, mosaic, k, shape)
+            got = engine.process_mosaic_async(mosaic, origins, shape)
+            _assert_bit_equal(got, step(tiles))
+        # three in flight, then drained
+        batches = [_mosaic_batch(dev, mosaic, 10 + k, GRAPH_BATCHES[0])
+                   for k in range(3)]
+        outs = [engine.process_mosaic_async(mosaic, o, GRAPH_BATCHES[0])
+                for o, _ in batches]
+        for (_, tiles), got in zip(batches, outs):
+            _assert_bit_equal(got, step(tiles))
+        origins, tiles = _mosaic_batch(dev, mosaic, 20, GRAPH_BATCHES[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = engine.process_mosaic_async(mosaic, origins,
+                                              GRAPH_BATCHES[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _assert_bit_equal(got, step(tiles))
+    c = engine.recorder.counters
+    assert c.get("engine.graph_fallbacks", 0) == 0
+    assert c["engine.graph_captures"] == 1
+    assert c["engine.graph_replays"] == 3 + 3 + 1
+    assert c["engine.eager_batches"] == 4
+
+
+def test_replayed_tile_step_follows_update_params(dev):
+    """update_params drops the graphs: the next batches of the shape run
+    eagerly, are captured again and replayed on the new weights, equal to
+    the eager step of the new model; process_async's staged batches take
+    the same graphs' path."""
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    engine, model_of = _graph_engine(dev, "readme-yolo11n")
+    new_model = model_of(0)
+    with torch.no_grad():       # new weights that move every output
+        g = torch.Generator().manual_seed(1)
+        for p in new_model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    mosaic = make_mosaic(320, 320, n_sources=12, seed=4)[0]
+    tiles = [np.stack([mosaic[8 * k:8 * k + 128, 16 * j:16 * j + 128]
+                       for j in range(4)])[..., None] for k in range(6)]
+    with torch.inference_mode():
+        old_step = _eager_step(engine)
+        for t in tiles[:3]:
+            got = engine.process_async(t)
+            _assert_bit_equal(got, old_step(engine.put_tiles(t)))
+        engine.update_params(new_model)
+        step = _eager_step(engine)
+        for t in tiles[3:]:
+            got = engine.process_async(t)
+            _assert_bit_equal(got, step(engine.put_tiles(t)))
+        old = old_step(engine.put_tiles(t))
+        assert not all(torch.equal(g, o) for g, o in zip(got, old))
+    c = engine.recorder.counters
+    assert (c["engine.graph_captures"], c["engine.graph_replays"],
+            c["engine.eager_batches"]) == (2, 4, 2)
+
+
+def test_graphs_of_two_engines_share_a_pool_and_keep_their_outputs(dev):
+    """Two live engines whose graphs share the device's memory pool,
+    their batches interleaved and three in flight before any is read:
+    every batch equals its engine's eager step bit for bit, also after a
+    third engine's capture into the same pool."""
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    engines = [_graph_engine(dev, c)[0]
+               for c in ("readme-yolo11n", "bkg-chan3-yolov8n")]
+    steps = [_eager_step(e) for e in engines]
+    mosaic = make_mosaic(320, 320, n_sources=12, seed=7)[0]
+    mosaics = [e.put_mosaic(mosaic) for e in engines]
+    shape = GRAPH_BATCHES[0]
+    with torch.inference_mode():
+        for k in range(6):
+            batches = [(j, *_mosaic_batch(dev, mosaics[j], 3 * k + i, shape))
+                       for i, j in enumerate((k % 2, 1 - k % 2, k % 2))]
+            outs = [engines[j].process_mosaic_async(mosaics[j], o, shape)
+                    for j, o, _ in batches]
+            for (j, _, tiles), got in zip(batches, outs):
+                _assert_bit_equal(got, steps[j](tiles))
+        third, _ = _graph_engine(dev, "readme-yolo11n")
+        for k in range(3):
+            third.process_mosaic_async(mosaics[0], _mosaic_batch(
+                dev, mosaics[0], 40 + k, shape)[0], shape)
+        for j in (0, 1):
+            origins, tiles = _mosaic_batch(dev, mosaics[j], 50 + j, shape)
+            _assert_bit_equal(engines[j].process_mosaic_async(
+                mosaics[j], origins, shape), steps[j](tiles))
+    for e in engines + [third]:
+        assert e.recorder.counters["engine.graph_captures"] == 1
+
+
+def test_graph_memory_stays_flat_over_engines(dev):
+    """An engine a field, each capturing its step and then dropped: from
+    the third on, memory reserved does not grow (a capture that finds no
+    live graph frees the dead graphs' pool before it makes its own)."""
+    import gc
+
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    mosaic = make_mosaic(320, 320, n_sources=12, seed=8)[0]
+    shape, reserved = GRAPH_BATCHES[0], []
+    with torch.inference_mode():
+        for f in range(6):
+            engine, _ = _graph_engine(dev, "readme-yolo11n")
+            mos = engine.put_mosaic(mosaic)
+            for k in range(3):
+                engine.process_mosaic_async(mos, _mosaic_batch(
+                    dev, mos, k, shape)[0], shape)
+            assert engine.recorder.counters["engine.graph_captures"] == 1
+            del engine, mos
+            gc.collect()
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved(dev))
+    assert max(reserved[2:]) == reserved[2], reserved
+
+
+def test_no_graph_outlives_its_engine(dev):
+    """The engine module keeps no graph alive: once an engine is gone, its
+    graphs and their memory pool are free (torch.cuda.empty_cache returns
+    the pool to the device)."""
+    import gc
+    import weakref
+
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    engine, _ = _graph_engine(dev, "readme-yolo11n")
+    mos = engine.put_mosaic(make_mosaic(320, 320, n_sources=12, seed=9)[0])
+    shape = GRAPH_BATCHES[0]
+    with torch.inference_mode():
+        for k in range(3):
+            engine.process_mosaic_async(mos, _mosaic_batch(
+                dev, mos, k, shape)[0], shape)
+    graphs = [weakref.ref(g) for g in engine._graphs.values()
+              if not isinstance(g, str)]
+    assert len(graphs) == 1
+    del engine, mos
+    gc.collect()
+    assert graphs[0]() is None
+
+
+def test_a_wrapper_swapped_in_runs_once_update_params_drops_graphs(dev):
+    """A replay calls no Python wrapper: a kernel wrapper swapped in after
+    a shape's graph was captured is bypassed while the graph lives, and
+    runs on the next batch once update_params has dropped the graphs (as
+    chip_smoke.py's K10 parity and K4 A/B phases do)."""
+    engine, model_of = _graph_engine(dev, "readme-yolo11n")
+    kernel, calls = cuda_epilogue.conv_epilogue, []
+
+    def counting(*args):
+        calls.append(1)
+        return kernel(*args)
+
+    tiles = np.random.default_rng(0).random((4, 128, 128, 1), np.float32)
+    with torch.inference_mode():
+        for _ in range(3):          # eager, captured, replayed
+            engine.process_async(tiles)
+        counting.launches = kernel.launches
+        cuda_epilogue.conv_epilogue = counting
+        try:
+            engine.process_async(tiles)
+            replayed = len(calls)
+            engine.update_params(model_of(0))
+            engine.process_async(tiles)
+        finally:
+            cuda_epilogue.conv_epilogue = kernel
+            kernel.launches = counting.launches
+    torch.cuda.synchronize()
+    assert replayed == 0 and len(calls) > 50
+
+
+@pytest.mark.parametrize("chain", ["readme-yolo11n", "bkg-chan3-yolov8n"])
+def test_graph_counters_and_launch_counters(dev, chain):
+    """The first batch of a shape runs eagerly, the second is captured,
+    every later one replayed, a shape seen once is never captured; and the
+    launch counters the benchmark holds to the device trace (K10's, K3's
+    cluster route, K5's) advance by the same amount in every batch of the
+    main shape, replayed or eager."""
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    engine, _ = _graph_engine(dev, chain)
+    mosaic = engine.put_mosaic(make_mosaic(320, 320, n_sources=12, seed=5)[0])
+    counters = ((cuda_epilogue.conv_epilogue, "launches"),
+                (cuda_preproc.zscale_minmax, "cluster_launches"),
+                (cuda_stats.clip_stats, "launches"))
+    rec = engine.recorder
+    runs, advances = [], []
+    with torch.inference_mode():
+        for k, shape in enumerate(GRAPH_BATCHES):
+            before = [getattr(f, a) for f, a in counters]
+            seen = dict(rec.counters)
+            engine.process_mosaic_async(mosaic, _mosaic_batch(
+                dev, mosaic, k, shape)[0], shape)
+            advances.append([getattr(f, a) - n
+                             for (f, a), n in zip(counters, before)])
+            runs.append(tuple(sorted(
+                n for n, v in rec.counters.items() if v != seen.get(n, 0))))
+    torch.cuda.synchronize()
+    eager, capture = ("engine.eager_batches",), ("engine.graph_captures",
+                                                "engine.graph_replays")
+    assert runs == [eager, capture, ("engine.graph_replays",),
+                    ("engine.graph_replays",), eager, eager, eager]
+    main = advances[:4]
+    assert all(a == main[0] for a in main) and main[0][0] > 50
+    assert (main[0][1] > 0) == (chain == "readme-yolo11n")
+    assert (main[0][2] > 0) == (chain == "bkg-chan3-yolov8n")
+
+
+def test_graph_fallback_of_a_step_that_waits_on_the_host(dev, monkeypatch):
+    """A chain with a stage that reads a value on the host cannot be
+    captured: the engine counts one fallback, warns once, and runs every
+    batch of that shape eagerly with the eager step's outputs; the launch
+    counters keep no trace of the failed capture."""
+    from caesar_yolo_tpu_torch.ops.transforms import (Pipeline, _ones,
+                                                      _stage)
+    from caesar_yolo_tpu_torch.parallel import engine as engine_mod
+    from caesar_yolo_tpu_torch.utils.synth import make_mosaic
+
+    warned = []
+    monkeypatch.setattr(engine_mod.logger, "warning",
+                        lambda msg, *args: warned.append(msg % args))
+
+    def host_read(data):
+        return data * float(data.amax().item() > 0), _ones(data)
+
+    pre = Pipeline([_stage(host_read, uniform=True)])
+    engine, _ = _graph_engine(dev, "readme-yolo11n", preprocessor=pre)
+    step = _eager_step(engine)
+    mosaic = engine.put_mosaic(make_mosaic(320, 320, n_sources=12, seed=6)[0])
+    with torch.inference_mode():
+        for k in range(4):
+            origins, tiles = _mosaic_batch(dev, mosaic, k, (128, 128))
+            n0 = cuda_epilogue.conv_epilogue.launches
+            got = engine.process_mosaic_async(mosaic, origins, (128, 128))
+            n1 = cuda_epilogue.conv_epilogue.launches
+            _assert_bit_equal(got, step(tiles))
+            # the engine's batch counted what one eager step counts
+            assert n1 - n0 == cuda_epilogue.conv_epilogue.launches - n1 > 0
+    c = engine.recorder.counters
+    assert c["engine.graph_fallbacks"] == 1 and c["engine.eager_batches"] == 4
+    assert "engine.graph_replays" not in c
+    assert len(warned) == 1 and "cannot be captured" in warned[0]

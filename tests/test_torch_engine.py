@@ -282,3 +282,34 @@ def test_analyzer_unported_outputs_raise(models, tmp_path):
     np.testing.assert_allclose(got, ref, atol=1e-6)
     with open(files["png"], "rb") as f:
         assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+@pytest.mark.parametrize("path", ["tiles", "mosaic"])
+def test_cpu_engine_captures_nothing_and_equals_the_step(models, path):
+    """On the CPU every batch runs the step eagerly, however often its
+    shape recurs: the run's counters hold eager batches alone, and each
+    batch's outputs equal make_tile_step's on the same tiles bit for
+    bit, through process_async and through process_mosaic_async."""
+    from caesar_yolo_tpu_torch.parallel.engine import make_tile_step
+    from caesar_yolo_tpu_torch.utils.trace import Recorder
+
+    engine = TileEngine(models[2], device="cpu", compute_dtype=torch.float32,
+                        preprocessor=build_preprocessor(**README), **KW)
+    engine.recorder = Recorder()
+    step = make_tile_step(engine.model,
+                          preprocessor=build_preprocessor(**README), **KW)
+    mosaic = make_mosaic(160, 160, n_sources=6, noise_sigma=0.08, seed=5,
+                         amp_range=(3.0, 8.0), sigma_range=(2.5, 5.0))[0]
+    shapes = [(96, 96)] * 3 + [(96, 64), (96, 96)]
+    for k, (h, w) in enumerate(shapes):
+        origins = np.array([[0, 0], [64 - k, 160 - w], [8 * k, 3]])
+        tiles = np.stack([mosaic[r:r + h, c:c + w] for r, c in origins])
+        if path == "tiles":
+            got = engine.process_async(tiles[..., None])
+        else:
+            got = engine.process_mosaic_async(
+                engine.put_mosaic(mosaic), origins, (h, w))
+        ref = step(torch.from_numpy(tiles[..., None]))
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and torch.equal(g, r)
+    assert engine.recorder.counters == {"engine.eager_batches": len(shapes)}

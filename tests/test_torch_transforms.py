@@ -226,3 +226,67 @@ def test_per_channel_values_must_fit_the_channels():
         tt.scaler([1.0, 2.0])(torch.ones(1, 4, 4, 3))
     with pytest.raises(ValueError):
         tt.standardizer([0.0, 1.0], [1.0])
+
+
+def _unletterbox_host_constants(boxes, h, w, img_size):
+    """unletterbox_boxes with its constants built on the host, as it was
+    before it filled them on the device."""
+    from caesar_yolo_tpu_torch.detect.letterbox import letterbox_geometry
+    r, _, _, top, left = letterbox_geometry(h, w, img_size)
+    shift = torch.tensor([left, top, left, top], dtype=boxes.dtype)
+    lim = torch.tensor([w, h, w, h], dtype=boxes.dtype)
+    return torch.minimum(((boxes - shift) / r).clamp(min=0.0), lim)
+
+
+@pytest.mark.parametrize("h,w,img_size", [
+    (512, 512, 640), (512, 256, 640), (256, 512, 640), (96, 96, 96),
+    (100, 37, 96), (37, 100, 96), (640, 300, 320), (1, 513, 640)])
+def test_unletterbox_boxes_equals_host_constants_bit_for_bit(h, w, img_size):
+    from caesar_yolo_tpu_torch.detect.letterbox import unletterbox_boxes
+    g = torch.Generator().manual_seed(h * 1009 + w)
+    boxes = torch.rand((3, 40, 4), generator=g) * 1.4 * img_size - 0.2 * (
+        img_size)
+    boxes[0, :3, 1] = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf")])
+    got = unletterbox_boxes(boxes, h, w, img_size)
+    ref = _unletterbox_host_constants(boxes, h, w, img_size)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _per_channel_list_index(data, chid, fn, skip=False):
+    """transforms._per_channel as it was, with a list index."""
+    b, c = data.shape[0], data.shape[-1]
+    chans = [i for i in range(c)
+             if chid == -1 or (i != chid if skip else i == chid)]
+    valid = torch.ones(b, dtype=torch.bool)
+    if not chans:
+        return data, valid
+    out, ok = fn(tt._planes(data[..., chans]))
+    valid = valid & ok.reshape(b, -1).all(dim=1)
+    if len(chans) == c:
+        return tt._unplanes(out, b), valid
+    data = data.clone()
+    data[..., chans] = tt._unplanes(out, b)
+    return data, valid
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("chid", [-1, 0, 1, 3])
+@pytest.mark.parametrize("factory", ["min_shifter", "log_stretcher",
+                                     "bkg_subtractor"])
+def test_per_channel_slices_equal_the_list_index(monkeypatch, factory, chid,
+                                                 channels):
+    """The channel subsets _per_channel takes by slices (one channel, all,
+    all but one in one or two runs, none) give the list index's bits;
+    log_stretcher's chid names the channel to skip."""
+    stage = getattr(tt, factory)(chid=chid)
+    g = torch.Generator().manual_seed(17 * channels + chid)
+    data = torch.rand((3, 20, 24, channels), generator=g) * 4.0 - 1.0
+    data[0, :4, :5] = 0.0
+    data[1, 2, 3] = float("nan")
+    data[2, ..., -1] = 0.0          # an empty last channel
+    got, got_ok = stage(data)
+    monkeypatch.setattr(tt, "_per_channel", _per_channel_list_index)
+    ref, ref_ok = stage(data)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got_ok, ref_ok)
