@@ -14,9 +14,12 @@ facts of the published architectures:
   - `model.model` is a flat Sequential whose indices are the yaml rows,
     the order in which models/yolo.py builds its layers;
   - the Detect head's cv2 is the box branch (Conv, Conv, Conv2d) and cv3
-    the class branch (v8: Conv, Conv, Conv2d; v11: (DWConv, Conv) twice,
-    then Conv2d); dfl.conv.weight is the fixed arange kernel, dropped
-    (decode takes the expectation itself).
+    the class branch (v8: Conv, Conv, Conv2d; v11 and v12: (DWConv, Conv)
+    twice, then Conv2d); dfl.conv.weight is the fixed arange kernel,
+    dropped (decode takes the expectation itself);
+  - a YOLO12 A2C2f keeps cv1, cv2, its layer scale `gamma` (scales l and
+    x) and in `m.<j>` either a Sequential of two ABlocks (`m.<j>.<i>.attn.
+    {qkv,proj,pe}`, `m.<j>.<i>.mlp.{0,1}`) or a C3k laid out as C3.
 
 The reference's npz: its params pytree flattened to '/'-joined keys plus
 a `__meta__` JSON entry (caesar_yolo_tpu/models/convert.py:save_params).
@@ -37,6 +40,7 @@ import torch
 
 from caesar_yolo_tpu_torch import logger
 from caesar_yolo_tpu_torch.models.layers import (
+    A2C2f,
     C2PSA,
     C2f,
     C3,
@@ -276,6 +280,24 @@ class _Mapper:
                 "m": [self.psablock(f"{p}.m.{j}")
                       for j in range(len(module.m))]}
 
+    def ablock(self, p: str) -> dict:
+        return {"attn": {"qkv": self.conv_block(f"{p}.attn.qkv"),
+                         "proj": self.conv_block(f"{p}.attn.proj"),
+                         "pe": self.conv_block(f"{p}.attn.pe")},
+                "mlp": [self.conv_block(f"{p}.mlp.0"),
+                        self.conv_block(f"{p}.mlp.1")]}
+
+    def a2c2f(self, module: A2C2f, p: str) -> dict:
+        out = {"cv1": self.conv_block(f"{p}.cv1"),
+               "cv2": self.conv_block(f"{p}.cv2"),
+               "m": [self.c3(sub, f"{p}.m.{j}") if isinstance(sub, C3)
+                     else [self.ablock(f"{p}.m.{j}.{i}")
+                           for i in range(len(sub))]
+                     for j, sub in enumerate(module.m)]}
+        if module.gamma is not None:
+            out["gamma"] = self.take(f"{p}.gamma")
+        return out
+
     def detect_head(self, head, p: str) -> dict:
         """v8's class branch is cv3.L.{0,1,2}; v11's (DWConv, Conv) pairs
         are cv3.L.0.{0,1} and cv3.L.1.{0,1}, then cv3.L.2."""
@@ -314,6 +336,8 @@ def convert_state_dict(sd: dict[str, np.ndarray],
             tree[name] = m.sppf(p)
         elif isinstance(mod, C2PSA):
             tree[name] = m.c2psa(mod, p)
+        elif isinstance(mod, A2C2f):
+            tree[name] = m.a2c2f(mod, p)
         elif not isinstance(mod, (Upsample, Concat)):
             raise TypeError(f"unmapped module type {type(mod)} at layer {i}")
     tree["head"] = m.detect_head(model.head, f"model.{len(model.graph)}")
@@ -336,13 +360,14 @@ def infer_num_classes(sd: dict, default: int = 5) -> int:
 
 def _infer_model_name(stem: str) -> str:
     """The stem itself if it is an architecture name, else the first
-    `yolov8<s>` / `yolo11<s>` token inside it, else the stem unchanged
+    `yolov8<s>` / `yolo11<s>` / `yolo12<s>` token inside it, else the stem
+    unchanged
     (build_model then raises).  A fullmatch, not a prefix test: 'yolo11best'
     starts like a name but is not one, so the token search still applies
     to it."""
-    if re.fullmatch(r"yolo(?:v8|v11|11)[nsmlx]?", stem):
+    if re.fullmatch(r"yolo(?:v8|v11|11|12)[nsmlx]?", stem):
         return stem
-    found = re.search(r"yolo(?:v8|v11|11)[nsmlx]", stem)
+    found = re.search(r"yolo(?:v8|v11|11|12)[nsmlx]", stem)
     return found.group(0) if found else stem
 
 

@@ -9,7 +9,10 @@ weights load by a mechanical walk (models/convert.py).
 Conventions kept from the reference: symmetric padding k // 2,
 BatchNorm eps 1e-3 folded in f32 (`Conv.fuse`), SPPF max-pooling padded
 with -inf, and C2PSA attention with f32 scores and probabilities cast to
-the compute dtype before the PV product (models/cuda_attn.py).
+the compute dtype before the PV product (models/cuda_attn.py).  YOLO12's
+area attention (`AAttn`, `ABlock`, `A2C2f`) has no counterpart in the
+reference; it follows ultralytics' modules with the same attention
+arithmetic and the same kernel.
 
 Inference follows the reference's arithmetic (`conv_bias_act`): the conv
 of the compute-dtype operands with an f32 output, the f32 bias or BN's
@@ -44,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from caesar_yolo_tpu_torch import cuda_build
 from caesar_yolo_tpu_torch.models import cuda_attn, cuda_epilogue, cuda_qconv
 from caesar_yolo_tpu_torch.models.cuda_epilogue import silu
 from caesar_yolo_tpu_torch.ops import cuda_upsample
@@ -489,6 +493,128 @@ class C2PSA(nn.Module):
         for block in self.m:
             b = block(b)
         return self.cv2(torch.cat([a, b], dim=1))
+
+
+AREA_ATTN_FUSED = "model.area_attn_fused"
+AREA_ATTN_PLAIN = "model.area_attn_plain"
+
+
+def area_attention(q, k, v, scale: float):
+    """q, k, v [B, H, N, hd] -> [B, H, N, hd]: K2 (`fused_attention`,
+    forward and backward) where the reference's gate takes N, else
+    `attention_plain`, as `Attention` dispatches.  Counts each call in
+    `area_attention.fused` (K2 launched on CUDA) or `.plain` (any other
+    path, the CPU's included); both are launch counters of
+    cuda_build.COUNTERS, so a replayed CUDA graph advances them."""
+    gate = cuda_attn.fused_gate(q.shape[2])
+    if gate and q.is_cuda:
+        area_attention.fused += 1
+    else:
+        area_attention.plain += 1
+    if gate:
+        return cuda_attn.fused_attention(q, k, v, scale)
+    return cuda_attn.attention_plain(q, k, v, scale)
+
+
+cuda_build.counters(area_attention, "fused", "plain")
+
+
+def area_attn_counts() -> dict[str, int]:
+    """The area-attention counters by their report names."""
+    return {AREA_ATTN_FUSED: area_attention.fused,
+            AREA_ATTN_PLAIN: area_attention.plain}
+
+
+class AAttn(nn.Module):
+    """Area attention (YOLO12): heads of `dim // num_heads` channels over
+    the positions of `area` horizontal strips, each strip on its own.
+
+    qkv is a 1x1 conv to 3 * dim channels read row-major as [B, N, 3 * dim]
+    (NHWC), cut into `area` strips of N / area consecutive positions, and
+    each head's 3 * hd channels are [q | k | v].  The output, back in
+    [B, dim, H, W], gains a 7x7 depthwise conv of v (the positional
+    encoding) and goes through the 1x1 projection.  An area that does not
+    divide H * W raises, as ultralytics' reshape does."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.dim, self.num_heads, self.area = dim, num_heads, area
+        self.head_dim = dim // num_heads
+        self.scale = self.head_dim ** -0.5
+        self.qkv = Conv(dim, 3 * dim, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 7, 1, groups=dim, act=False)
+
+    def forward(self, x):
+        b, _, hh, ww = x.shape
+        n, a, heads, hd = hh * ww, self.area, self.num_heads, self.head_dim
+        if n % a:
+            raise ValueError(f"area {a} does not divide {hh}x{ww} "
+                             f"positions")
+        # NHWC, a view of the conv's channels_last output on the card:
+        # [B * area, N / area, heads, 3 * hd]
+        qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(b * a, n // a, heads,
+                                                       3 * hd)
+        q, k, v = qkv.transpose(1, 2).split(hd, dim=-1)
+        out = area_attention(q, k, v, self.scale)       # [B*a, heads, s, hd]
+        out = out.transpose(1, 2).reshape(b, hh, ww, self.dim)
+        v = qkv[..., 2 * hd:].reshape(b, hh, ww, self.dim)
+        out = out.permute(0, 3, 1, 2) + self.pe(v.permute(0, 3, 1, 2))
+        return self.proj(out)
+
+
+class ABlock(nn.Module):
+    """Area attention and a 1x1 MLP of int(dim * mlp_ratio) channels, both
+    residual (YOLO12)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2,
+                 area: int = 1):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.attn = AAttn(dim, num_heads, area)
+        self.mlp = nn.Sequential(Conv(dim, hidden, 1),
+                                 Conv(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """R-ELAN block (YOLO12): cv1 to c_ = cout / 2 channels, n blocks each
+    on the previous one's output (two ABlocks of c_ // 32 heads with a2,
+    else a C3k), cv2 over the concatenation of all of them.  With a2 and
+    `residual` (scales l and x) the block returns x + gamma * out, gamma a
+    learned per-channel layer scale, in f32 and rounded once to x's
+    dtype."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1, a2: bool = True,
+                 area: int = 1, residual: bool = False,
+                 mlp_ratio: float = 2.0):
+        super().__init__()
+        c_ = cout // 2
+        if c_ % 32:
+            raise ValueError(f"A2C2f needs hidden channels in multiples of "
+                             f"32, got {c_}")
+        self.cv1 = Conv(cin, c_, 1, 1)
+        self.cv2 = Conv((1 + n) * c_, cout, 1, 1)
+        self.gamma = (nn.Parameter(torch.full((cout,), 0.01))
+                      if a2 and residual else None)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area)
+                            for _ in range(2)))
+            if a2 else C3(c_, c_, 2, True, e=0.5, k=3)
+            for _ in range(n))
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for block in self.m:
+            ys.append(block(ys[-1]))
+        y = self.cv2(torch.cat(ys, dim=1))
+        if self.gamma is None:
+            return y
+        return (x.float() + self.gamma.float()[:, None, None] * y.float()
+                ).to(x.dtype)
 
 
 class Upsample(nn.Module):

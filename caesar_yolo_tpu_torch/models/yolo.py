@@ -1,8 +1,11 @@
-"""YOLOv8 / YOLO11 detector graphs as nn.Modules.
+"""YOLOv8 / YOLO11 / YOLO12 detector graphs as nn.Modules.
 
 Counterpart of caesar_yolo_tpu/models/yolo.py: the same layer graphs at
 scales n/s/m/l/x, with each layer registered under the reference's
-params-tree name (`stem`, `c3k2_1`, `head/box/0/2`, ...).
+params-tree name (`stem`, `c3k2_1`, `head/box/0/2`, ...).  YOLO12
+(ultralytics cfg/models/12/yolo12.yaml: area attention in A2C2f stages),
+which the reference lacks, takes names of the same kind (`a2c2f_1`,
+`a2c2f_1/m/0/1/attn/qkv`, `a2c2f_1/gamma`).
 
 `YOLO.forward(x[B, C, H, W])` returns per FPN level (strides 8/16/32)
 the raw head maps `(box[B, 4*REG_MAX, Hl, Wl], cls[B, NC, Hl, Wl])`;
@@ -22,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from caesar_yolo_tpu_torch.models.layers import (
+    A2C2f,
     C2PSA,
     C2f,
     C3k2,
@@ -52,6 +56,7 @@ V11_SCALES = {
     "l": (1.00, 1.00, 512),
     "x": (1.00, 1.50, 512),
 }
+V12_SCALES = dict(V11_SCALES)
 
 
 def _depth(n: int, d: float) -> int:
@@ -185,11 +190,62 @@ def _build_v11(scale: str, nc: int, in_ch: int):
     return L, head, (16, 19, 22)
 
 
-class YOLO(nn.Module):
-    """A YOLOv8/YOLO11 detector as an explicit layer graph.
+def _build_v12(scale: str, nc: int, in_ch: int):
+    """yolo12.yaml as ultralytics' parse_model reads it: C3k2 takes c3k at
+    scales m/l/x, and every A2C2f takes residual=True, mlp_ratio=1.2 at
+    l/x (the R-ELAN layer scale; else no residual and an MLP ratio of
+    2).  The stride-2 convs of layers 1 and 3 are dense: so the counts
+    equal the published ones (yolo12l at 80 classes: 26,450,768
+    parameters and 88.9 GFLOPs of convolutions at 640 px; groups of 2 and
+    4 there would give 25,971,536 and 81.3)."""
+    d, w, mc = V12_SCALES[scale]
+    c3k_all = scale in ("m", "l", "x")
+    a2kw = (dict(residual=True, mlp_ratio=1.2) if scale in ("l", "x")
+            else {})
 
-    version 'v8' | 'v11'; scale n/s/m/l/x; 5 radio-source classes by
-    default.  Weights start uninitialised: load them
+    def ch(c):
+        return make_divisible(min(c, mc) * w, 8)
+
+    k2, k4 = _depth(2, d), _depth(4, d)
+    L = [
+        (Conv(in_ch, ch(64), 3, 2), (-1,), "stem"),                       # 0
+        (Conv(ch(64), ch(128), 3, 2), (-1,), "down1"),                    # 1
+        (C3k2(ch(128), ch(256), k2, c3k=c3k_all, e=0.25), (-1,), "c3k2_1"),
+        (Conv(ch(256), ch(256), 3, 2), (-1,), "down2"),                   # 3
+        (C3k2(ch(256), ch(512), k2, c3k=c3k_all, e=0.25), (-1,), "c3k2_2"),
+        (Conv(ch(512), ch(512), 3, 2), (-1,), "down3"),                   # 5
+        (A2C2f(ch(512), ch(512), k4, True, 4, **a2kw), (-1,), "a2c2f_1"),
+        (Conv(ch(512), ch(1024), 3, 2), (-1,), "down4"),                  # 7
+        (A2C2f(ch(1024), ch(1024), k4, True, 1, **a2kw), (-1,), "a2c2f_2"),
+        (Upsample(), (-1,), "up1"),                                       # 9
+        (Concat(), (-1, 6), "cat1"),                                      # 10
+        (A2C2f(ch(1024) + ch(512), ch(512), k2, False, -1, **a2kw),
+         (-1,), "neck_p4a"),                                              # 11
+        (Upsample(), (-1,), "up2"),                                       # 12
+        (Concat(), (-1, 4), "cat2"),                                      # 13
+        (A2C2f(ch(512) + ch(512), ch(256), k2, False, -1, **a2kw),
+         (-1,), "neck_p3"),                                               # 14
+        (Conv(ch(256), ch(256), 3, 2), (-1,), "pan_down1"),               # 15
+        (Concat(), (-1, 11), "cat3"),                                     # 16
+        (A2C2f(ch(256) + ch(512), ch(512), k2, False, -1, **a2kw),
+         (-1,), "neck_p4"),                                               # 17
+        (Conv(ch(512), ch(512), 3, 2), (-1,), "pan_down2"),               # 18
+        (Concat(), (-1, 8), "cat4"),                                      # 19
+        (C3k2(ch(512) + ch(1024), ch(1024), k2, c3k=True),
+         (-1,), "neck_p5"),                                               # 20
+    ]
+    head = DetectHead(nc, (ch(256), ch(512), ch(1024)), legacy=False)
+    return L, head, (14, 17, 20)
+
+
+_BUILDERS = {"v8": _build_v8, "v11": _build_v11, "v12": _build_v12}
+
+
+class YOLO(nn.Module):
+    """A YOLOv8/YOLO11/YOLO12 detector as an explicit layer graph.
+
+    version 'v8' | 'v11' | 'v12'; scale n/s/m/l/x; 5 radio-source classes
+    by default.  Weights start uninitialised: load them
     (models/convert.py) or call `init_weights`."""
 
     def __init__(self, version: str = "v8", scale: str = "n",
@@ -198,14 +254,11 @@ class YOLO(nn.Module):
         self.version, self.scale = version, scale
         self.num_classes = num_classes
         self.in_channels = in_channels
-        if version == "v8":
-            layers, head, self.out_idx = _build_v8(scale, num_classes,
-                                                   in_channels)
-        elif version == "v11":
-            layers, head, self.out_idx = _build_v11(scale, num_classes,
-                                                    in_channels)
-        else:
-            raise ValueError(f"unknown version {version!r} (use 'v8'/'v11')")
+        if version not in _BUILDERS:
+            raise ValueError(f"unknown version {version!r} (use "
+                             f"'v8'/'v11'/'v12')")
+        layers, head, self.out_idx = _BUILDERS[version](scale, num_classes,
+                                                        in_channels)
         self.graph = [(name, frm) for _, frm, name in layers]
         for module, _, name in layers:
             self.add_module(name, module)
@@ -329,10 +382,11 @@ def decode_dfl(raw, img_size: int):
 
 def build_model(name: str, num_classes: int = 5,
                 in_channels: int = 3) -> YOLO:
-    """Build from a reference-style name: 'yolov8n', 'yolo11l', ..."""
+    """Build from a reference-style name: 'yolov8n', 'yolo11l',
+    'yolo12l', ..."""
     name = name.lower()
     for prefix, version in (("yolov8", "v8"), ("yolo11", "v11"),
-                            ("yolov11", "v11")):
+                            ("yolov11", "v11"), ("yolo12", "v12")):
         if name.startswith(prefix):
             scale = name[len(prefix):][:1] or "n"
             if scale not in "nsmlx":

@@ -47,6 +47,9 @@ or its own: `sfinder.header`, `engine.prepare`, `detect` (with
 total, and the device-clock counter `engine.device_starved`, go into
 `SFinderReport.phase_times` under that name, and `read_s` is the
 `sfinder.read` total; the spans themselves are `SFinderReport.spans`.
+A model with area attention (YOLO12) adds the calls its forwards made
+during `detect`, `model.area_attn_fused` (K2) and `model.area_attn_plain`
+(models/layers.py:area_attention).
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from caesar_yolo_tpu_torch import logger
 from caesar_yolo_tpu_torch.detect.analyzer import Analyzer, AnalyzerOutputs
 from caesar_yolo_tpu_torch.detect.merge import merge_detections
 from caesar_yolo_tpu_torch.detect.predictor import Predictor
+from caesar_yolo_tpu_torch.models.layers import area_attn_counts
 from caesar_yolo_tpu_torch.outputs.catalog import (
     CLASS_COLOR_MAP_DS9_MOSAIC,
     CLASS_NAMES,
@@ -401,11 +405,18 @@ class SFinder:
                     **self.engine_kwargs)
 
         self._engine.recorder = rec
+        attn_before = area_attn_counts()
         try:
             with rec.span("detect"):
                 tile_results = self._detect_tiles(self._engine, tiles)
         finally:
             self._engine.recorder = NULL
+            # the area-attention calls of this run's forwards (YOLO12)
+            moved = {k: n - attn_before[k]
+                     for k, n in area_attn_counts().items()}
+            if any(moved.values()):
+                for k, n in moved.items():
+                    rec.add(k, n)
 
         # edge flagging (reference inference.py:663-726)
         with rec.span("edge_flagging"):

@@ -29,6 +29,8 @@ Phases (any failure exits non-zero before the last line):
             and constant planes; K7 on both routes at the eval path's
             cutout planes, the tile size and two odd shapes; K3, K4, K6, K7
             and K8 bit-equal)
+  yolo12    K2 at yolo12l's area-attention shapes, forward and backward,
+            and yolo12l's tile step replayed as a CUDA graph
   golden    yolov8n_synth96 at 96 px in f32 (TF32 off) against the JAX
             engine's committed outputs (tests/fixtures/
             torch_port_golden_v8n96.npz), by the catalog rule
@@ -680,6 +682,90 @@ def phase_parity(torch):
     parity_train_kernels(torch, dev, errs, inputs)
     parity_clahe(torch, dev, errs, inputs)
     return errs, inputs
+
+
+# yolo12l at 640 px, batch 32: K2 over P4's 4 strips of 400 positions and
+# over P5's 400, 8 heads of 32 (q, k and v alike); the backward at a
+# training batch of 16
+AREA_SHAPES = ((128, 8, 400, 32), (32, 8, 400, 32))
+AREA_BWD_SHAPE = (16, 8, 400, 32)
+AREA_PER_FORWARD = 16   # yolo12l: 8 ABlocks at P4, 8 at P5
+
+
+def phase_yolo12(torch):
+    """YOLO12's area attention on the card: K2's bf16 parity and time at
+    yolo12l's two shapes (cuda_attn.bf16_mismatch) and its backward at the
+    training shape (bwd_bf16_mismatch); then yolo12l's tile step through
+    the engine on three README batches: the second captured, the third
+    replayed, no fallback, AREA_PER_FORWARD K2 launches a forward, counted
+    as fused by the area-attention counter, the replay included."""
+    from caesar_yolo_tpu_torch.models import cuda_attn, layers
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    from caesar_yolo_tpu_torch.ops.transforms import build_preprocessor
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
+    from caesar_yolo_tpu_torch.utils.trace import Recorder
+
+    dev = torch.device("cuda")
+    for shape in AREA_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(shape[0])
+        q, k, v = (torch.randn(*shape, device=dev, generator=g).bfloat16()
+                   for _ in range(3))
+        scale = shape[3] ** -0.5
+        got = cuda_attn.attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        why = cuda_attn.bf16_mismatch(
+            got, cuda_attn.attention_plain(q, k, v, scale))
+        require(why is None, f"K2 at {list(shape)}: {why}")
+        ms = time_ms(torch, lambda: cuda_attn.attention(q, k, v, scale))
+        dms = device_ms(torch, lambda: cuda_attn.attention(q, k, v, scale))
+        b, h, n, d = shape
+        bound = bound_ms(4 * b * h * n * d * 2, 2 * b * h * n * n * 2 * d,
+                         "bfloat16")
+        plain = time_ms(torch, lambda: cuda_attn.attention_plain(
+            q, k, v, scale), iters=5)
+        log(on_card(f"yolo12 K2 {list(shape)} bf16: parity ok, "
+                    f"{ms:.5f} ms (device {dms:.5f}), bound {bound[0]:.5f} "
+                    f"ms ({bound[1]}), plain {plain:.4f} ms"))
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, dout = (torch.randn(*AREA_BWD_SHAPE, device=dev, generator=g)
+                     .bfloat16() for _ in range(4))
+    scale = AREA_BWD_SHAPE[3] ** -0.5
+    got = cuda_attn.attention_backward(q, k, v, dout, scale)
+    torch.cuda.synchronize()
+    why = cuda_attn.bwd_bf16_mismatch(
+        got, cuda_attn.attention_backward_plain(q, k, v, dout, scale))
+    require(why is None, f"K2 backward at {list(AREA_BWD_SHAPE)}: {why}")
+    ms = time_ms(torch, lambda: cuda_attn.attention_backward(
+        q, k, v, dout, scale), iters=10)
+    log(on_card(f"yolo12 K2 backward {list(AREA_BWD_SHAPE)} bf16: parity "
+                f"ok, {ms:.5f} ms"))
+
+    engine = TileEngine(init_weights(build_model("yolo12l"), seed=0),
+                        preprocessor=build_preprocessor(
+                            zscale_stretch=True, normalize_minmax=True),
+                        img_size=MAIN_SIZE, score_thr=0.7)
+    engine.recorder = Recorder()
+    rng = np.random.default_rng(12)
+    tiles = rng.random((MAIN_BATCH, 512, 512, 1), dtype=np.float32)
+    k2, fused = cuda_attn.attention.launches, layers.area_attention.fused
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.process(tiles)
+        walls.append(time.perf_counter() - t0)
+    c = engine.recorder.counters
+    require(c.get("engine.graph_fallbacks", 0) == 0
+            and c.get("engine.graph_captures") == 1
+            and c.get("engine.graph_replays") == 2,
+            f"yolo12l's tile step did not replay: {c}")
+    require(cuda_attn.attention.launches - k2 == 3 * AREA_PER_FORWARD
+            and layers.area_attention.fused - fused == 3 * AREA_PER_FORWARD,
+            f"yolo12l: {cuda_attn.attention.launches - k2} K2 launches, "
+            f"{layers.area_attention.fused - fused} fused area-attention "
+            f"calls over 3 forwards")
+    log(on_card(f"yolo12l tile step [32,512,512] at 640 px: eager, captured, "
+                f"replayed in {', '.join(f'{w:.4f}' for w in walls)} s; "
+                f"{AREA_PER_FORWARD} K2 launches a forward, counters {c}"))
 
 
 def histeq_planes(dev, rng, shape):
@@ -3866,6 +3952,7 @@ def main() -> int:
                     "qconv": cuda_qconv.qconv}
 
         errs, inputs = phase_parity(torch)
+        phase_yolo12(torch)
         phase_golden(torch)
         phase_golden_train(torch)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

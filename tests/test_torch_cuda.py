@@ -117,14 +117,17 @@ def test_nms_kernel_repeats_bit_for_bit(dev):
                                          (1, 1, 2048, 64, 256),
                                          (1, 2, 424, 64, 64),
                                          (1, 2, 432, 64, 64),
-                                         (1, 1, 1768, 64, 64)])
+                                         (1, 1, 1768, 64, 64),
+                                         (128, 8, 400, 32, 32),
+                                         (32, 8, 400, 32, 32)])
 def test_attention_kernel_matches_plain(dev, dtype, b, h, n, kd, hd):
     """f32 within 1e-5; bf16 by cuda_attn's bf16 parity rule.  The shapes
     reach the kernels' less common paths: ragged N (padded keys), head
     widths padded to 16 (hd 1, 24) and copied element by element (hd % 8),
     several 64-column V passes with a ragged last one (hd 160, 256), and
     kd = 64 at the N (424, 432, 1768) where the shortest V stage holds
-    fewer than 16 K rows."""
+    fewer than 16 K rows; and yolo12l's area attention at 640 px, batch
+    32 (P4's four strips a map, P5; heads of 32 for q, k and v)."""
     g = torch.Generator(device=dev).manual_seed(n)
     q, k, v = (torch.randn(b, h, n, d, device=dev, generator=g).to(dtype)
                for d in (kd, kd, hd))
@@ -392,7 +395,8 @@ def test_histeq_kernel_rejects_what_it_cannot_take(dev):
                                          (3, 2, 40, 16, 24),
                                          (1, 1, 2048, 64, 256),
                                          (1, 2, 424, 64, 64),
-                                         (1, 1, 1768, 64, 64)])
+                                         (1, 1, 1768, 64, 64),
+                                         (16, 8, 400, 32, 32)])
 def test_attention_backward_kernel_matches_plain(dev, dtype, b, h, n, kd, hd):
     """dq, dk, dv against autograd of attention_plain: f32 within 1e-5 of
     each gradient's largest value; bf16 by cuda_attn.bwd_bf16_mismatch."""
@@ -1340,3 +1344,108 @@ def test_graph_fallback_of_a_step_that_waits_on_the_host(dev, monkeypatch):
     assert c["engine.graph_fallbacks"] == 1 and c["engine.eager_batches"] == 4
     assert "engine.graph_replays" not in c
     assert len(warned) == 1 and "cannot be captured" in warned[0]
+
+
+# -- YOLO12's area attention (models/layers.py AAttn, A2C2f) -----------------
+
+# bf16 A2C2f stage outputs of yolo12l against its f32 forward (TF32 off), as
+# the relative L2 distance of each stage's output.  Each bf16 conv rounds
+# its f32 result once (2^-9 relative at most, about 2^-10 on average) and
+# the attention rounds its probabilities and output; through the layers
+# before the two stages, with residuals that add the rounded branches,
+# the H100 measured 0.00717 (layer 6) and 0.00724 (layer 8) on this input;
+# the limit leaves room for other seeds and inputs and stays within about
+# five bf16 ulps (2^-8 each) of the whole output.
+STAGE_REL_L2 = 0.02
+
+
+def _yolo12l(dev):
+    """yolo12l with seeded random weights, random BatchNorm statistics and
+    layer scales ~ U(0.5, 1.5), f32 on `dev`."""
+    from caesar_yolo_tpu_torch.models.layers import A2C2f, BatchNorm
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+    model = init_weights(build_model("yolo12l"), seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.gamma.copy_(0.5 + torch.rand(m.gamma.shape, generator=g))
+                m.beta.copy_(torch.rand(m.beta.shape, generator=g) - 0.5)
+                m.mean.copy_(0.2 * torch.rand(m.mean.shape, generator=g)
+                             - 0.1)
+                m.var.copy_(0.5 + torch.rand(m.var.shape, generator=g))
+            if isinstance(m, A2C2f) and m.gamma is not None:
+                m.gamma.copy_(0.5 + torch.rand(m.gamma.shape, generator=g))
+    return model.to(dev).eval()
+
+
+def _stage_outputs(model, x):
+    """{stage name: output} of yolo12l's two area-attention stages."""
+    got = {}
+    hooks = [getattr(model, n).register_forward_hook(
+        lambda mod, inp, out, n=n: got.__setitem__(n, out.float()))
+        for n in ("a2c2f_1", "a2c2f_2")]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def test_a2c2f_stages_of_the_bf16_engine_match_f32(dev):
+    """yolo12l at 640 px, batch 32: the outputs of layers 6 (area 4) and 8
+    (area 1) of the engine's bf16 model (BatchNorm folded, channels_last,
+    K2 and K10) against the f32 forward of the same weights with TF32
+    off, computed in blocks of 8 images, within STAGE_REL_L2."""
+    from caesar_yolo_tpu_torch.detect.predictor import prepare_model
+    from caesar_yolo_tpu_torch.models import layers
+    from caesar_yolo_tpu_torch.utils.device import exact_f32
+
+    model = _yolo12l(dev)
+    x = torch.rand((32, 3, 640, 640), generator=torch.Generator()
+                   .manual_seed(2)).to(dev)
+    ref = {}
+    with exact_f32():
+        for i in range(0, 32, 8):
+            for k, v in _stage_outputs(model, x[i:i + 8]).items():
+                ref.setdefault(k, []).append(v)
+    ref = {k: torch.cat(v) for k, v in ref.items()}
+    engine_model = prepare_model(model, fuse=True, dtype=torch.bfloat16,
+                                 device=dev)
+    fused = layers.area_attention.fused
+    got = _stage_outputs(engine_model, x.bfloat16().contiguous(
+        memory_format=torch.channels_last))
+    assert layers.area_attention.fused - fused == 16
+    for k in ref:
+        dist = float((got[k] - ref[k]).norm() / ref[k].norm())
+        assert dist <= STAGE_REL_L2, (k, dist)
+
+
+def test_area_attention_outside_the_gate_counts_plain(dev):
+    """A strip length the reference's gate refuses (9 positions) takes the
+    plain path on the card and is counted so; one it takes (16) launches
+    K2 and is counted as fused."""
+    from caesar_yolo_tpu_torch.models import layers
+    attn = layers.AAttn(64, 2, 4).to(dev).eval()
+    for p in attn.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.1)
+    for hw, fused, plain in ((6, 0, 1), (8, 1, 0)):
+        before = layers.area_attn_counts()
+        k2 = cuda_attn.attention.launches
+        with torch.no_grad():
+            attn(torch.randn(2, 64, hw, hw, device=dev))
+        after = layers.area_attn_counts()
+        assert after[layers.AREA_ATTN_FUSED] - before[
+            layers.AREA_ATTN_FUSED] == fused
+        assert after[layers.AREA_ATTN_PLAIN] - before[
+            layers.AREA_ATTN_PLAIN] == plain
+        assert cuda_attn.attention.launches - k2 == fused
+
+
+def test_yolo12l_tile_step_replays_with_area_attention(dev):
+    """chip_smoke's yolo12 phase: K2 at yolo12l's shapes, forward and
+    backward, and yolo12l's 640 px tile step captured and replayed with
+    no fallback and 16 K2 launches a forward, the replay's counted."""
+    cs.phase_yolo12(torch)

@@ -15,9 +15,21 @@ reproduces those catalogs box-for-box.  The torch twins here are
 re-derivations of the published architecture (as in test_torch_parity),
 not ports of any repo code.
 
-Scale coverage: parametrized v8/v11 graph builders covering n..x widths
-(depth/width/max-channel tables per the published yamls, matching
-models/yolo.py's V8_SCALES / V11_SCALES).
+Scale coverage: parametrized v8/v11/v12 graphs covering n..x
+widths (depth/width/max-channel tables per the published yamls, matching
+models/yolo.py's V8_SCALES / V11_SCALES / V12_SCALES).
+
+The YOLO12 twin (`TYolo12Scaled`: ultralytics' AAttn, ABlock and A2C2f
+from ultralytics/nn/modules/block.py, the rows of
+cfg/models/12/yolo12.yaml as parse_model reads them) is plain PyTorch in
+float32 with no kernel, fusion or cache, and with TF32 off on the card.
+Its parameters carry ultralytics' own names (`model.6.m.0.0.attn.qkv.conv.
+weight`, `model.6.gamma`), so a state dict of it is what an ultralytics
+checkpoint holds.  Departures from ultralytics, shared with the port:
+BatchNorm eps 1e-3 (as TConv everywhere), the DFL decoded as a softmax
+expectation (`ultra_decode`), and the layer scale gamma drawn at order 1
+by the tests (`randomize_gamma`; ultralytics initialises it to 0.01, which
+would scale the attention stages out of every comparison).
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import torch
 from torch import nn
 
 from test_torch_parity import (
+    TC3,
     TC2PSA,
     TC2f,
     TC3k2,
@@ -53,6 +66,7 @@ V11_SCALES = {
     "l": (1.00, 1.00, 512),
     "x": (1.00, 1.50, 512),
 }
+V12_SCALES = dict(V11_SCALES)
 
 MAX_WH = 7680.0
 MAX_NMS = 30000
@@ -167,9 +181,161 @@ class TYoloV11Scaled(nn.Module):
         return m[23]([p3, p4, p5])
 
 
+class TAAttn(nn.Module):
+    """ultralytics AAttn: area attention over `area` horizontal strips."""
+
+    def __init__(self, dim, num_heads, area=1):
+        super().__init__()
+        self.area = area
+        self.num_heads = num_heads
+        self.head_dim = head_dim = dim // num_heads
+        all_head_dim = head_dim * num_heads
+        self.qkv = TConv(dim, all_head_dim * 3, 1, act=False)
+        self.proj = TConv(all_head_dim, dim, 1, act=False)
+        self.pe = TConv(all_head_dim, dim, 7, 1, g=dim, act=False)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        N = H * W
+        qkv = self.qkv(x).flatten(2).transpose(1, 2)
+        if self.area > 1:
+            qkv = qkv.reshape(B * self.area, N // self.area, C * 3)
+            B, N, _ = qkv.shape
+        q, k, v = (qkv.view(B, N, self.num_heads, self.head_dim * 3)
+                   .permute(0, 2, 3, 1)
+                   .split([self.head_dim] * 3, dim=2))
+        attn = (q.transpose(-2, -1) @ k) * (self.head_dim ** -0.5)
+        attn = attn.softmax(dim=-1)
+        x = v @ attn.transpose(-2, -1)
+        x = x.permute(0, 3, 1, 2)
+        v = v.permute(0, 3, 1, 2)
+        if self.area > 1:
+            x = x.reshape(B // self.area, N * self.area, C)
+            v = v.reshape(B // self.area, N * self.area, C)
+            B, N, _ = x.shape
+        x = x.reshape(B, H, W, C).permute(0, 3, 1, 2).contiguous()
+        v = v.reshape(B, H, W, C).permute(0, 3, 1, 2).contiguous()
+        return self.proj(x + self.pe(v))
+
+
+class TABlock(nn.Module):
+    def __init__(self, dim, num_heads, mlp_ratio=1.2, area=1):
+        super().__init__()
+        self.attn = TAAttn(dim, num_heads, area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(TConv(dim, hidden, 1),
+                                 TConv(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class TA2C2f(nn.Module):
+    """ultralytics A2C2f (R-ELAN): ABlock pairs with a2, else C3k; the
+    layer-scale residual with a2 and residual."""
+
+    def __init__(self, c1, c2, n=1, a2=True, area=1, residual=False,
+                 mlp_ratio=2.0, e=0.5, g=1, shortcut=True):
+        super().__init__()
+        c_ = int(c2 * e)
+        assert c_ % 32 == 0, "Dimension of ABlock be a multiple of 32."
+        self.cv1 = TConv(c1, c_, 1, 1)
+        self.cv2 = TConv((1 + n) * c_, c2, 1)
+        self.gamma = (nn.Parameter(0.01 * torch.ones(c2))
+                      if a2 and residual else None)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(TABlock(c_, c_ // 32, mlp_ratio, area)
+                            for _ in range(2)))
+            if a2 else TC3(c_, c_, 2, shortcut, g)
+            for _ in range(n))
+
+    def forward(self, x):
+        y = [self.cv1(x)]
+        y.extend(m(y[-1]) for m in self.m)
+        y = self.cv2(torch.cat(y, 1))
+        if self.gamma is not None:
+            return x + self.gamma.view(-1, len(self.gamma), 1, 1) * y
+        return y
+
+
+class TYolo12Scaled(nn.Module):
+    def __init__(self, scale: str, nc: int = 5):
+        super().__init__()
+        d, w, mc = V12_SCALES[scale]
+        c3k_all = scale in ("m", "l", "x")
+        extra = (True, 1.2) if scale in ("l", "x") else ()
+
+        def ch(c):
+            return make_div(min(c, mc) * w)
+
+        def n(x):
+            return max(round(x * d), 1)
+
+        self.model = nn.ModuleList([
+            TConv(3, ch(64), 3, 2),                                   # 0
+            TConv(ch(64), ch(128), 3, 2),                             # 1
+            TC3k2(ch(128), ch(256), n(2), c3k_all, 0.25),             # 2
+            TConv(ch(256), ch(256), 3, 2),                            # 3
+            TC3k2(ch(256), ch(512), n(2), c3k_all, 0.25),             # 4
+            TConv(ch(512), ch(512), 3, 2),                            # 5
+            TA2C2f(ch(512), ch(512), n(4), True, 4, *extra),          # 6
+            TConv(ch(512), ch(1024), 3, 2),                           # 7
+            TA2C2f(ch(1024), ch(1024), n(4), True, 1, *extra),        # 8
+            nn.Upsample(scale_factor=2, mode="nearest"),              # 9
+            nn.Identity(),                                            # 10 cat
+            TA2C2f(ch(1024) + ch(512), ch(512), n(2), False, -1,
+                   *extra),                                           # 11
+            nn.Upsample(scale_factor=2, mode="nearest"),              # 12
+            nn.Identity(),                                            # 13 cat
+            TA2C2f(ch(512) + ch(512), ch(256), n(2), False, -1,
+                   *extra),                                           # 14
+            TConv(ch(256), ch(256), 3, 2),                            # 15
+            nn.Identity(),                                            # 16 cat
+            TA2C2f(ch(256) + ch(512), ch(512), n(2), False, -1,
+                   *extra),                                           # 17
+            TConv(ch(512), ch(512), 3, 2),                            # 18
+            nn.Identity(),                                            # 19 cat
+            TC3k2(ch(512) + ch(1024), ch(1024), n(2), True),          # 20
+            TDetectV11(nc, (ch(256), ch(512), ch(1024))),             # 21
+        ])
+
+    def forward(self, x):
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            m = self.model
+            x0 = m[0](x); x1 = m[1](x0); x2 = m[2](x1); x3 = m[3](x2)
+            x4 = m[4](x3); x5 = m[5](x4); x6 = m[6](x5); x7 = m[7](x6)
+            x8 = m[8](x7)
+            y = m[11](torch.cat([m[9](x8), x6], 1))
+            p3 = m[14](torch.cat([m[12](y), x4], 1))
+            p4 = m[17](torch.cat([m[15](p3), y], 1))
+            p5 = m[20](torch.cat([m[18](p4), x8], 1))
+            return m[21]([p3, p4, p5])
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+
+
+def randomize_gamma(mod: nn.Module, seed: int = 0, lo: float = 0.5,
+                    hi: float = 1.5) -> nn.Module:
+    """Every A2C2f layer scale ~ U(lo, hi), in place."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in mod.modules():
+            if isinstance(m, TA2C2f) and m.gamma is not None:
+                m.gamma.copy_(lo + (hi - lo) * torch.rand(
+                    m.gamma.shape, generator=g))
+    return mod
+
+
 def build_torch_twin(name: str, nc: int = 5, seed: int = 0,
                      calib: "torch.Tensor | None" = None):
-    """Deterministic random-weight torch twin for 'yolov8n'..'yolo11x'.
+    """Deterministic random-weight torch twin for 'yolov8n'..'yolo12x'
+(YOLO12's layer scales ~ U(0.5, 1.5)).
 
     calib: optional model-input tensor [1, 3, S, S].  When given, the
     twin is conditioned to behave like a trained net on that input:
@@ -190,6 +356,9 @@ def build_torch_twin(name: str, nc: int = 5, seed: int = 0,
         tm = TYoloV8Scaled(name[len("yolov8"):] or "n", nc)
     elif name.startswith("yolo11"):
         tm = TYoloV11Scaled(name[len("yolo11"):] or "n", nc)
+    elif name.startswith("yolo12"):
+        tm = randomize_gamma(TYolo12Scaled(name[len("yolo12"):] or "n", nc),
+                             seed=seed + 3)
     else:
         raise ValueError(name)
     tm = tm.eval()
