@@ -39,10 +39,21 @@ run (with --save_plots into out_<image>.png, else shown; matplotlib,
 imported only then); with --datalist it takes the per-image path.
 --multigpu is a no-op, as in the reference package.
 
-A single image's run records the spans `cli.load_weights`, `cli.build`
-and `cli.preprocessor` into the recorder it hands the SFinder, so a tiled
-run's SFinderReport.phase_times holds them beside the SFinder's own
-(utils/trace.py).
+npz weights (but with --int8, whose calibration runs the f32 model) go
+to the device in one pass: read once into one host buffer, copied over
+in one piece, folded and cast there (models/convert.py: read_npz,
+build_prepared), and the engine runs that model without the
+copy it makes of a model handed to it (SFinder.from_prepared,
+TileEngine.from_prepared).  A `.pt` checkpoint, --int8, and an npz that
+read_npz leaves to np.load (compressed, int8, fused) take the f32 model
+on the CPU (load_model_from_args), which the engine copies, folds and
+casts.
+
+A single image's run records the spans `cli.load_weights` (child
+`weights.read` on the npz route), `cli.build` (children `weights.upload`
+and `weights.fold` on the npz route) and `cli.preprocessor` into the
+recorder it hands the SFinder, so a tiled run's SFinderReport.phase_times
+holds them beside the SFinder's own (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -189,6 +200,13 @@ def validate_args(args) -> int:
     return 0
 
 
+def _npz_model(args, meta: dict) -> tuple[str, int]:
+    """(architecture, classes) of npz weights: from their meta, else
+    --model, else the weights' file name; 5 classes."""
+    name = args.model or os.path.splitext(os.path.basename(args.weights))[0]
+    return meta.get("model", name), int(meta.get("num_classes", 5))
+
+
 def load_model_from_args(args, recorder: Recorder = NULL):
     """The model with the weights loaded, on the CPU in f32.  A `.pt`
     checkpoint is converted on the fly (the architecture from --model,
@@ -205,13 +223,36 @@ def load_model_from_args(args, recorder: Recorder = NULL):
         with recorder.span("cli.load_weights"):
             return convert_checkpoint(args.weights,
                                       model_name=args.model or None)[0]
-    name = args.model or os.path.splitext(os.path.basename(args.weights))[0]
     with recorder.span("cli.load_weights"):
         params, meta = load_params(args.weights)
     with recorder.span("cli.build"):
-        model = build_model(meta.get("model", name),
-                            num_classes=int(meta.get("num_classes", 5)))
-        return load_jax_params(model, params)
+        name, nc = _npz_model(args, meta)
+        return load_jax_params(build_model(name, num_classes=nc), params)
+
+
+def load_prepared_from_args(args, device, recorder: Recorder = NULL):
+    """The engine's inference model straight from npz weights: read once
+    into one host buffer (pinned for a GPU), copied to `device` in one
+    piece, folded and cast there (models/convert.py: read_npz,
+    build_prepared), in the engines' compute dtype (predictor.
+    COMPUTE_DTYPE).  None where the weights take load_model_from_args'
+    route: a `.pt` checkpoint, or an npz read_npz leaves to np.load.
+    Spans `cli.load_weights` (child `weights.read`) and `cli.build`
+    (children `weights.upload`, `weights.fold`) go to `recorder`."""
+    from caesar_yolo_tpu_torch.detect import predictor
+    from caesar_yolo_tpu_torch.models.convert import build_prepared, read_npz
+    if args.weights.endswith(".pt"):
+        return None
+    with recorder.span("cli.load_weights"):
+        weights = read_npz(args.weights, pin=device.type == "cuda",
+                           recorder=recorder)
+    if weights is None:
+        return None
+    with recorder.span("cli.build"):
+        name, nc = _npz_model(args, weights.meta)
+        return build_prepared(weights, name, nc,
+                              dtype=predictor.COMPUTE_DTYPE, device=device,
+                              recorder=recorder)
 
 
 def quantize_from_image(model, image_path, preproc, img_size, device=None):
@@ -295,16 +336,18 @@ def _per_image_config(cfg, path: str, n: int):
 
 
 def run_datalist_tiled(model, cfg, images, preproc, device=None,
-                       engine_kwargs=None) -> int:
+                       engine_kwargs=None, prepared=False) -> int:
     """Tiled detection over a datalist, every image through ONE shared
-    TileEngine."""
+    TileEngine (running `model` itself where it is `prepared`:
+    load_prepared_from_args)."""
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
 
+    make = SFinder.from_prepared if prepared else SFinder
     status, engine = 0, None
     for path in images:
-        sf = SFinder(model, _per_image_config(cfg, path, len(images)),
-                     preprocessor=preproc, engine=engine, device=device,
-                     engine_kwargs=engine_kwargs)
+        sf = make(model, _per_image_config(cfg, path, len(images)),
+                  preprocessor=preproc, engine=engine, device=device,
+                  engine_kwargs=engine_kwargs)
         rc = sf.run_tiled()
         engine = sf._engine
         if rc != 0:
@@ -314,16 +357,18 @@ def run_datalist_tiled(model, cfg, images, preproc, device=None,
 
 
 def run_datalist_serial(model, cfg, images, preproc, device=None,
-                        engine_kwargs=None) -> int:
+                        engine_kwargs=None, prepared=False) -> int:
     """Per-image SFinder runs (plots, outfile overrides, crop windows)
-    sharing ONE Predictor."""
+    sharing ONE Predictor (running `model` itself where it is
+    `prepared`)."""
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
 
+    make = SFinder.from_prepared if prepared else SFinder
     status, predictor = 0, None
     for path in images:
-        sf = SFinder(model, _per_image_config(cfg, path, len(images)),
-                     preprocessor=preproc, predictor=predictor,
-                     device=device, engine_kwargs=engine_kwargs)
+        sf = make(model, _per_image_config(cfg, path, len(images)),
+                  preprocessor=preproc, predictor=predictor,
+                  device=device, engine_kwargs=engine_kwargs)
         rc = sf.run()
         predictor = sf._predictor
         if rc != 0:
@@ -333,11 +378,12 @@ def run_datalist_serial(model, cfg, images, preproc, device=None,
 
 
 def run_datalist_batched(model, cfg, images, preproc, device=None,
-                         engine_kwargs=None) -> int:
+                         engine_kwargs=None, prepared=False) -> int:
     """Whole-image detection over a datalist, batched by shape through the
-    BatchedDetector; writes out_<stem>.json and out_<stem>.reg per image
-    into the working directory (the reference dispatches the model once
-    per image, macros/make_prediction.py:645-658)."""
+    BatchedDetector (its TileEngine running `model` itself where it is
+    `prepared`); writes out_<stem>.json and out_<stem>.reg per image into
+    the working directory (the reference dispatches the model once per
+    image, macros/make_prediction.py:645-658)."""
     from caesar_yolo_tpu_torch.detect.batch import BatchedDetector
     from caesar_yolo_tpu_torch.detect.merge import merge_detections
     from caesar_yolo_tpu_torch.evaluation.evaluate import detect_files
@@ -348,14 +394,17 @@ def run_datalist_batched(model, cfg, images, preproc, device=None,
     )
     from caesar_yolo_tpu_torch.outputs.ds9 import write_ds9_regions
     from caesar_yolo_tpu_torch.parallel import mesh
+    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
 
     t0 = time.time()
     master = mesh.process_index() == 0     # rank 0 writes
+    kw = dict(preprocessor=preproc, img_size=cfg.img_size,
+              score_thr=cfg.score_thr, iou_thr=cfg.iou_thr,
+              pre_nms=cfg.pre_nms, relay_dtype=cfg.relay_dtype, device=device)
     detector = BatchedDetector(
-        model, preprocessor=preproc, img_size=cfg.img_size,
-        score_thr=cfg.score_thr, iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms,
-        batch_size=cfg.batch_size, relay_dtype=cfg.relay_dtype,
-        device=device, **(engine_kwargs or {}))
+        model, batch_size=cfg.batch_size,
+        engine=TileEngine.from_prepared(model, **kw) if prepared else None,
+        **kw, **(engine_kwargs or {}))
     detections, shapes = detect_files(detector, images)
     status, n_total = 0, 0
     for path in images:
@@ -396,16 +445,22 @@ def run(argv=None):
 
     from caesar_yolo_tpu_torch.parallel import mesh
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
+    from caesar_yolo_tpu_torch.utils.device import resolve_device
 
     mesh.initialize_distributed(device=args.devices or None)
     # a datalist's SFinders record their own runs: the CLI's spans are
     # reported by a single image's run
     recorder = NULL if args.datalist else Recorder()
-    model = load_model_from_args(args, recorder)
+    device = resolve_device(args.devices or None)
+    # --int8 calibrates the f32 model
+    model = (None if args.int8
+             else load_prepared_from_args(args, device, recorder))
+    prepared = model is not None
+    if not prepared:
+        model = load_model_from_args(args, recorder)
     cfg = config_from_args(args)
     with recorder.span("cli.preprocessor"):
         preproc = build_preprocessor_from_args(args)
-    device = args.devices or None
     images = read_filelist(args.datalist) if args.datalist else []
     engine_kwargs = {}
     if args.int8:
@@ -426,10 +481,11 @@ def run(argv=None):
             route = run_datalist_serial
         else:
             route = run_datalist_batched
-        return route(model, cfg, images, preproc, device,
-                     engine_kwargs), None
-    sf = SFinder(model, cfg, preprocessor=preproc, device=device,
-                 engine_kwargs=engine_kwargs, recorder=recorder)
+        return route(model, cfg, images, preproc, device, engine_kwargs,
+                     prepared), None
+    make = SFinder.from_prepared if prepared else SFinder
+    sf = make(model, cfg, preprocessor=preproc, device=device,
+              engine_kwargs=engine_kwargs, recorder=recorder)
     rc = sf.run_tiled() if args.split_img_in_tiles else sf.run()
     return (0 if rc == 0 else 1), sf
 

@@ -25,6 +25,10 @@ from caesar_yolo_tpu_torch.models.layers import (cast_weights, fuse_tree,
 from caesar_yolo_tpu_torch.models.yolo import YOLO, decode_dfl
 from caesar_yolo_tpu_torch.utils.device import resolve_device
 
+# inference's compute dtype: the default of the Predictor and the
+# TileEngine, and that of the model cli.run prepares from npz weights
+COMPUTE_DTYPE = torch.bfloat16
+
 
 def prepare_model(model: YOLO, *, fuse: bool, dtype: torch.dtype,
                   device: torch.device) -> YOLO:
@@ -81,16 +85,36 @@ class Predictor:
     on the CPU.  `input_scale` multiplies the letterboxed pixels and
     `channel_flip` reverses their channels (BGR -> RGB), for images in
     ultralytics' 0-255 convention (1/255 and True reproduce its
-    preprocessing); the defaults leave the path as it is.
+    preprocessing); the defaults leave the path as it is.  The predictor
+    runs a copy of `model` (prepare_model); `Predictor.from_prepared`
+    runs a model made for it as it is.
     """
 
-    def __init__(self, model: YOLO, *, img_size: int = 640,
-                 score_thr: float = 0.7, iou_thr: float = 0.5,
-                 max_det: int = 300, pre_nms: int = DEFAULT_PRE_NMS,
-                 compute_dtype: torch.dtype = torch.bfloat16,
-                 fuse: bool = True, device=None, input_scale: float = 1.0,
-                 channel_flip: bool = False):
-        self.device = resolve_device(device)
+    def __init__(self, model: YOLO, *,
+                 compute_dtype: torch.dtype = COMPUTE_DTYPE,
+                 fuse: bool = True, device=None, **settings):
+        """`settings` as `_setup`'s."""
+        device = resolve_device(device)
+        self._setup(prepare_model(model, fuse=fuse, dtype=compute_dtype,
+                                  device=device), device, **settings)
+
+    @classmethod
+    def from_prepared(cls, model: YOLO, *, device=None,
+                      **settings) -> "Predictor":
+        """A predictor that runs `model` itself, without prepare_model's
+        copy: an inference model made for it alone, on its device
+        (models/convert.py:build_prepared)."""
+        predictor = cls.__new__(cls)
+        predictor._setup(model, resolve_device(device), **settings)
+        return predictor
+
+    def _setup(self, model: YOLO, device: torch.device, *,
+               img_size: int = 640, score_thr: float = 0.7,
+               iou_thr: float = 0.5, max_det: int = 300,
+               pre_nms: int = DEFAULT_PRE_NMS, input_scale: float = 1.0,
+               channel_flip: bool = False) -> None:
+        self.device = device
+        self.model = model
         self.in_channels = model.in_channels
         self.img_size = img_size
         self.score_thr = score_thr
@@ -99,8 +123,6 @@ class Predictor:
         self.pre_nms = pre_nms
         self.input_scale = input_scale
         self.channel_flip = channel_flip
-        self.model = prepare_model(model, fuse=fuse, dtype=compute_dtype,
-                                   device=self.device)
 
     @torch.inference_mode()
     def predict_batch(self, images):

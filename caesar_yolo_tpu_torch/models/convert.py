@@ -26,21 +26,39 @@ a `__meta__` JSON entry (caesar_yolo_tpu/models/convert.py:save_params).
 The port's module tree carries the same names, so carrying weights across
 is a mechanical walk: '/' becomes '.', and conv kernels turn from HWIO to
 OIHW.
+
+Inference takes a shorter route from an npz (cli.run): `read_npz` reads
+every member's bytes once, straight into one host buffer (pinned for a
+GPU), checking each CRC-32 as np.load does; `build_prepared` builds the
+module tree on the meta device (no init that the weights overwrite),
+copies the buffer to the device in one piece, and there folds BatchNorm
+(every conv's statistics at once), lays the kernels out OIHW and casts
+them: the model predictor.prepare_model makes from `load_model`'s, bit for
+bit, without the f32 model on the CPU or its copy.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import math
 import os
 import pickle
 import re
+import struct
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch import nn
 
 from caesar_yolo_tpu_torch import logger
 from caesar_yolo_tpu_torch.models.layers import (
     A2C2f,
+    BatchNorm,
     C2PSA,
     C2f,
     C3,
@@ -49,8 +67,11 @@ from caesar_yolo_tpu_torch.models.layers import (
     Conv,
     SPPF,
     Upsample,
+    bn_scale_shift,
+    fold_bn_weight,
 )
 from caesar_yolo_tpu_torch.models.yolo import YOLO, build_model
+from caesar_yolo_tpu_torch.utils.trace import NULL
 
 
 def _flatten(tree, prefix=""):
@@ -168,6 +189,279 @@ def load_model(path: str) -> tuple[YOLO, dict]:
     model = build_model(meta["model"],
                         num_classes=int(meta.get("num_classes", 5)))
     return load_jax_params(model, params), meta
+
+
+# ---------------------------------------------------------------------------
+# The inference model straight from an npz
+# ---------------------------------------------------------------------------
+
+_BN_STATS = ("gamma", "beta", "mean", "var")
+_LOCAL_HEADER = struct.Struct("<4s2B4HL2L2H")   # zipfile's structFileHeader
+_F32 = np.dtype("<f4")
+# members of 64 KiB and more (99% of a yolo11l npz's bytes) are read on 4
+# threads: on the 8 cores of an H100 host 8 threads read its 100 MB slower
+# than 4 (0.11-0.30 s against 0.03-0.04 s)
+_POOLED_BYTES = 1 << 16
+_READERS = 4
+
+
+@dataclass
+class _Member:
+    key: str          # the npz key ('/'-joined, without ".npy")
+    start: int        # file offset of the member's bytes (the .npy file)
+    size: int
+    crc: int
+    data: int         # offset of the array data inside the member
+    shape: tuple
+    fortran: bool     # stored in column-major order
+    dst: int = 0      # offset in the host buffer (f32 elements)
+
+
+@dataclass
+class NpzWeights:
+    """An npz's f32 leaves in one host buffer (`read_npz`).  `leaves` maps
+    each '/'-joined key to (offset in `buffer`, shape as stored: conv
+    kernels HWIO, whether column-major: np.save keeps the order of an
+    array that is Fortran-contiguous, as a 1x1 kernel's OIHW -> HWIO
+    transpose is).  The conv kernels come first, each at a 64-byte
+    boundary; then `bn`, the BatchNorm statistics as four rows [gamma;
+    beta; mean; var] with one column block per conv; then `rest`, every
+    other leaf."""
+    buffer: torch.Tensor      # f32 [n]
+    leaves: dict
+    bn: slice
+    rest: slice
+    meta: dict
+
+    def leaf(self, t: torch.Tensor, key: str, base: int = 0):
+        """Leaf `key` as a view of `t`, a copy of the buffer from element
+        `base` on."""
+        off, shape, fortran = self.leaves[key]
+        off -= base
+        t = t[off:off + math.prod(shape)]
+        if not fortran:
+            return t.view(shape)
+        return t.view(shape[::-1]).permute(*range(len(shape) - 1, -1, -1))
+
+
+def _npz_members(fd: int, infos) -> list[_Member] | None:
+    """Where each member's array lies in the file, from its zip local
+    header and .npy header; None unless every member is a stored .npy of
+    little-endian f32 (but `__meta__`, bytes)."""
+    members, headers = [], {}
+    for info in infos:
+        if (info.compress_type != zipfile.ZIP_STORED or info.flag_bits & 1
+                or not info.filename.endswith(".npy")):
+            return None
+        # the local header (its name and extra field lengths at 10, 11),
+        # then the .npy magic, version and header length
+        head = os.pread(fd, 1024, info.header_offset)
+        fields = _LOCAL_HEADER.unpack_from(head)
+        if fields[0] != b"PK\x03\x04":
+            raise zipfile.BadZipFile(
+                f"bad local header of {info.filename!r}")
+        at = _LOCAL_HEADER.size + fields[10] + fields[11]
+        start = info.header_offset + at
+        npy = head[at:at + 12]
+        if npy[:6] != b"\x93NUMPY" or npy[6] not in (1, 2):
+            return None
+        n = (10 + struct.unpack_from("<H", npy, 8)[0] if npy[6] == 1
+             else 12 + struct.unpack_from("<I", npy, 8)[0])
+        header = (head[at:at + n] if at + n <= len(head)
+                  else os.pread(fd, n, start))
+        if header not in headers:
+            f = io.BytesIO(header)
+            version = np.lib.format.read_magic(f)
+            headers[header] = (np.lib.format.read_array_header_1_0(f)
+                               if version == (1, 0) else
+                               np.lib.format.read_array_header_2_0(f))
+        shape, fortran, dtype = headers[header]
+        key = info.filename[:-4]
+        ok = (dtype == np.uint8 and len(shape) == 1 if key == "__meta__"
+              else dtype == _F32)
+        if not ok or n + math.prod(shape) * dtype.itemsize != \
+                info.file_size:
+            return None
+        members.append(_Member(key, start, info.file_size, info.CRC, n,
+                               tuple(shape), fortran))
+    return members
+
+
+def _layout(members: list[_Member]):
+    """Give each member its offset in the host buffer -> (elements, bn
+    rows, rest) as NpzWeights lays them out."""
+    end = 0
+
+    def place(n: int, align: int = 1) -> int:
+        nonlocal end
+        at = -(-end // align) * align
+        end = at + n
+        return at
+
+    by_key = {m.key: m for m in members}
+    kernels = [m for m in members if len(m.shape) == 4]
+    quads = []
+    for m in members:
+        if m.key.endswith("/bn/gamma"):
+            quad = [by_key.get(m.key[:-5] + s) for s in _BN_STATS]
+            if all(q is not None and q.shape == m.shape and len(q.shape) == 1
+                   for q in quad):
+                quads.append(quad)
+    in_bn = {id(q) for quad in quads for q in quad}
+    for m in kernels:
+        m.dst = place(math.prod(m.shape), 16)
+    cols = sum(quad[0].shape[0] for quad in quads)
+    bn0 = place(4 * cols, 16)
+    col = 0
+    for quad in quads:
+        for row, m in enumerate(quad):
+            m.dst = bn0 + row * cols + col
+        col += quad[0].shape[0]
+    rest0 = place(0, 16)
+    for m in members:
+        if len(m.shape) != 4 and id(m) not in in_bn:
+            m.dst = place(math.prod(m.shape))
+    return end, slice(bn0, bn0 + 4 * cols), slice(rest0, end)
+
+
+def _read_member(fd: int, m: _Member, buf: np.ndarray) -> None:
+    """Read member `m`'s array into its place in `buf` (f32) and check the
+    member's CRC-32 (its .npy header and data, as zipfile does)."""
+    nbytes = m.size - m.data
+    dst = memoryview(buf.view(np.uint8)[4 * m.dst:4 * m.dst + nbytes])
+    done = 0
+    while done < nbytes:        # a read may return short
+        n = os.preadv(fd, [dst[done:]], m.start + m.data + done)
+        if n == 0:
+            raise zipfile.BadZipFile(f"truncated member {m.key!r}")
+        done += n
+    if zlib.crc32(dst, zlib.crc32(os.pread(fd, m.data, m.start))) != m.crc:
+        raise zipfile.BadZipFile(f"Bad CRC-32 for file {m.key!r}.npy")
+
+
+def read_npz(path: str, *, pin: bool = False,
+             recorder=NULL) -> NpzWeights | None:
+    """Read a reference npz's leaves into one f32 host buffer, pinned with
+    `pin` (for one copy to a GPU) -> NpzWeights, or None where the file
+    takes `load_params`' route: a member compressed or holding anything
+    but little-endian f32, or no BatchNorm leaves (a fused or int8
+    quantized tree).  Each member's bytes are read once, on a pool of
+    threads, straight into their place, and its CRC-32 checked: a corrupt
+    member raises zipfile.BadZipFile, as np.load does.  The read and the
+    checks are the span `weights.read`."""
+    with open(path, "rb", buffering=0) as f:
+        fd = f.fileno()
+        with zipfile.ZipFile(f) as z:
+            members = _npz_members(fd, z.infolist())
+        if members is None:
+            return None
+        meta = next((m for m in members if m.key == "__meta__"), None)
+        members = [m for m in members if m is not meta]
+        n, bn, rest = _layout(members)
+        if bn.stop == bn.start:
+            return None
+        buffer = torch.empty(n, dtype=torch.float32, pin_memory=pin)
+        dst = buffer.numpy()
+        readers = min(_READERS, os.cpu_count() or 1)
+        with recorder.span("weights.read"), \
+                ThreadPoolExecutor(readers) as pool:
+            # the large members on the pool (their reads and checks leave
+            # the interpreter lock), the small ones here
+            pooled = [pool.submit(_read_member, fd, m, dst)
+                      for m in members if m.size >= _POOLED_BYTES]
+            for m in members:
+                if m.size < _POOLED_BYTES:
+                    _read_member(fd, m, dst)
+            for done in pooled:
+                done.result()
+            if meta is not None:
+                text = os.pread(fd, meta.size, meta.start)
+                if zlib.crc32(text) != meta.crc:
+                    raise zipfile.BadZipFile(
+                        "Bad CRC-32 for file '__meta__.npy'")
+                meta = json.loads(text[meta.data:].decode())
+    return NpzWeights(buffer, {m.key: (m.dst, m.shape, m.fortran)
+                               for m in members}, bn, rest, meta or {})
+
+
+def _oihw(shape: tuple) -> tuple:
+    return (shape[3], shape[2], shape[0], shape[1]) if len(shape) == 4 \
+        else shape
+
+
+@torch.no_grad()
+def build_prepared(weights: NpzWeights, name: str, num_classes: int, *,
+                   dtype: torch.dtype, device: torch.device,
+                   recorder=NULL) -> YOLO:
+    """The inference model of `weights` on `device`, as
+    predictor.prepare_model(load_jax_params(build_model(name,
+    num_classes), params), fuse=True, dtype=dtype, device=device) makes
+    it, bit for bit (names, dtypes, shapes, strides): BatchNorm folded in
+    f32, conv kernels in `dtype` (channels_last on CUDA), biases and
+    layer scales in f32.  The module tree is built on the meta device;
+    keys and shapes must match its own, as load_jax_params' strict load.
+    BatchNorm's scale and shift are computed on the host conv by conv, as
+    prepare_model computes them (the card's square root rounds otherwise),
+    into the buffer's gamma and beta rows: `weights` is spent.
+    The buffer goes to the device in one copy (span `weights.upload`,
+    non-blocking from pinned memory); the kernels' products with the
+    scale, their HWIO -> OIHW layout and the casts run there (the fold,
+    span `weights.fold`, on both sides of the copy).  Each kernel is a
+    tensor of its own; biases and layer scales are views of two small
+    blocks."""
+    with torch.device("meta"):
+        model = build_model(name, num_classes=num_classes)
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k.replace("/", "."): _oihw(leaf[1])
+           for k, leaf in weights.leaves.items()}
+    if got != want:
+        odd = sorted(k for k in got.keys() & want.keys() if got[k] != want[k])
+        raise RuntimeError(
+            f"weights do not fit {name}: missing "
+            f"{sorted(want.keys() - got.keys())[:5]}, unexpected "
+            f"{sorted(got.keys() - want.keys())[:5]}, other shapes at "
+            f"{odd[:5]}")
+    with recorder.span("weights.fold"):
+        # conv by conv, as prepare_model: over all convs at once the
+        # host's intra-op threads split the vector, and a split once
+        # rounded otherwise (test_torch_weights_direct.py's bit-equality
+        # on the CPU, about one run in twenty)
+        rows = weights.buffer[weights.bn].view(4, -1)
+        for key, (off, shape, _) in weights.leaves.items():
+            if key.endswith("/bn/gamma"):
+                col = off - weights.bn.start
+                block = rows[:, col:col + shape[0]]
+                block[:2] = torch.stack(bn_scale_shift(*block))
+    with recorder.span("weights.upload"):
+        dev = weights.buffer.to(device, non_blocking=True)
+    with recorder.span("weights.fold"):
+        fmt = (torch.channels_last if device.type == "cuda"
+               else torch.contiguous_format)
+
+        def kernel(key):     # stored HWIO
+            return weights.leaf(dev, key).permute(3, 2, 0, 1)
+
+        scale, shift = dev[weights.bn].view(4, -1)[:2].clone()
+        rest = dev[weights.rest].clone()
+        for mod_name, module in list(model.named_modules()):
+            prefix = mod_name.replace(".", "/") + "/" if mod_name else ""
+            if isinstance(module, Conv):
+                off, (c,), _ = weights.leaves[prefix + "bn/gamma"]
+                cols = slice(off - weights.bn.start, off - weights.bn.start
+                             + c)
+                w = fold_bn_weight(kernel(prefix + "w"), scale[cols])
+                module.set_fused(w.to(dtype, memory_format=fmt, copy=True),
+                                 shift[cols])
+            elif not isinstance(module, BatchNorm):
+                for attr in list(module._parameters):
+                    key = prefix + attr
+                    module._parameters[attr] = nn.Parameter(
+                        kernel(key).to(dtype, memory_format=fmt, copy=True)
+                        if len(weights.leaves[key][1]) == 4 else
+                        weights.leaf(rest, key, weights.rest.start))
+    model.eval()
+    model.compute_dtype = dtype
+    return model
 
 
 # ---------------------------------------------------------------------------

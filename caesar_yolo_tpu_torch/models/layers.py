@@ -211,8 +211,22 @@ class BatchNorm(nn.Module):
 
     def scale_shift(self):
         """(scale, shift) in f32 with y * scale + shift == BN(y)."""
-        scale = self.gamma.float() / torch.sqrt(self.var.float() + BN_EPS)
-        return scale, self.beta.float() - self.mean.float() * scale
+        return bn_scale_shift(self.gamma, self.beta, self.mean, self.var)
+
+
+def bn_scale_shift(gamma, beta, mean, var):
+    """BatchNorm's (scale, shift) in f32 from its statistics, elementwise:
+    y * scale + shift == BN(y).  The one fold arithmetic of inference:
+    `BatchNorm.scale_shift`, and models/convert.py:build_prepared on the
+    statistics of every conv at once."""
+    scale = gamma.float() / torch.sqrt(var.float() + BN_EPS)
+    return scale, beta.float() - mean.float() * scale
+
+
+def fold_bn_weight(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Conv weights `w` [O, I, kh, kw] times BN's per-output-channel
+    `scale`, in f32 (`Conv.fuse`, models/convert.py:build_prepared)."""
+    return w.float() * scale[:, None, None, None]
 
 
 class Conv(nn.Module):
@@ -282,9 +296,13 @@ class Conv(nn.Module):
         if self.bn is None:
             return
         scale, shift = self.bn.scale_shift()
-        self.w = nn.Parameter((self.w.float() * scale[:, None, None, None])
-                              .to(self.w.dtype))
-        self.b = nn.Parameter(shift)
+        self.set_fused(fold_bn_weight(self.w, scale).to(self.w.dtype), shift)
+
+    def set_fused(self, w: torch.Tensor, b: torch.Tensor) -> None:
+        """Become a fused Conv with kernel `w` and f32 bias `b` (BatchNorm
+        gone), as `fuse` leaves it."""
+        self.w = nn.Parameter(w)
+        self.b = nn.Parameter(b)
         self.bn = None
 
     @torch.no_grad()

@@ -110,6 +110,17 @@ Phases (any failure exits non-zero before the last line):
             the mosaic's 640x640 crop (README chain, bf16) must write the
             same catalog from the .pt as from the npz, launching K1, K2 and
             K3; the .pt load-and-convert time beside the npz load time
+  weights   npz weights to the engine's model in one pass (models/
+            convert.py: read_npz, build_prepared) for yolo11l, yolov8l and
+            yolo12l at 5 classes, weights seeded and written as the
+            benchmark writes them: bit-equal to prepare_model's copy of
+            load_model's model in every parameter (dtype, shape, strides);
+            then a 2560 px field of yolo11l through cli.run and through
+            the copy route (load_model_from_args, an SFinder that copies),
+            in turns: the set-up spans of each (cli.load_weights,
+            cli.build, cli.preprocessor, sfinder.header, engine.prepare;
+            weights.read, weights.upload, weights.fold) and
+            engine.weights_direct on the direct route alone
   image     the crop as an 8-bit RGB PNG and a 16-bit grey PNG (this
             script's stdlib encoder): read_image must give the written
             values / 255 or / 65535 exactly, and cli.run on each must write
@@ -3030,6 +3041,167 @@ def serial_cli(torch, counters, flags, what):
         return json.load(f), wall
 
 
+DIRECT_MODELS = ("yolo11l", "yolov8l", "yolo12l")
+SETUP_SPANS = ("cli.load_weights", "cli.build", "cli.preprocessor",
+               "sfinder.header", "engine.prepare")
+DIRECT_SPANS = ("weights.read", "weights.upload", "weights.fold")
+
+
+def seeded_model(torch, name, seed, nc=5):
+    """`name` at `nc` classes with init_weights' kernels and BatchNorm
+    statistics and layer scales drawn from `seed` (init_weights leaves BN
+    at identity, which would fold to nothing)."""
+    from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
+
+    model = init_weights(build_model(name, num_classes=nc), seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for key, t in model.state_dict().items():
+            low, high = ((0.05, 2.0) if key.endswith(".bn.var") else
+                         (-0.5, 0.5) if key.endswith((".bn.beta",
+                                                      ".bn.mean"))
+                         else (0.5, 1.5) if key.endswith("gamma")
+                         else (None, None))
+            if low is not None:
+                t.copy_(torch.rand(t.shape, generator=gen) * (high - low)
+                        + low)
+    return model
+
+
+def save_hwio_npz(model, path, meta):
+    """The weights as the benchmark's reference/weights.py:save_npz writes
+    them: np.savez of the leaves with 4-D kernels transposed OIHW -> HWIO
+    as they lie (np.save keeps a 1x1 kernel's transpose column-major)."""
+    flat = {}
+    for key, t in model.state_dict().items():
+        a = t.detach().float().cpu().numpy()
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        flat[key.replace(".", "/")] = a
+    flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez(path, **flat)
+    return path
+
+
+def prepared_mismatch(torch, a, b):
+    """Where two inference models differ -> [] or the first differences:
+    their modules' names and types, every parameter and buffer by name,
+    dtype, shape, strides, device, requires_grad and bits, the compute
+    dtype and the mode."""
+    # floats compared as integers of their width: bit for bit
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    out = []
+    if [(n, type(m)) for n, m in a.named_modules()] != \
+            [(n, type(m)) for n, m in b.named_modules()]:
+        out.append("module trees differ")
+    for kind in ("named_parameters", "named_buffers"):
+        ta, tb = list(getattr(a, kind)()), list(getattr(b, kind)())
+        if [n for n, _ in ta] != [n for n, _ in tb]:
+            out.append(f"{kind}: names differ")
+            continue
+        for (name, x), (_, y) in zip(ta, tb):
+            if (x.dtype, x.shape, x.stride(), x.device, x.requires_grad) != (
+                    y.dtype, y.shape, y.stride(), y.device, y.requires_grad):
+                out.append(f"{name}: {x.dtype} {tuple(x.shape)} "
+                           f"{x.stride()} {x.device} against {y.dtype} "
+                           f"{tuple(y.shape)} {y.stride()} {y.device}")
+            elif not torch.equal(*(t.view(bits.get(t.dtype, t.dtype))
+                                   for t in (x, y))):
+                out.append(f"{name}: values differ")
+    if (a.compute_dtype, a.training) != (b.compute_dtype, b.training):
+        out.append("compute dtype or mode differ")
+    return out[:5]
+
+
+def direct_and_copied(torch, path, name, device):
+    """The inference model of the npz at `path` by the direct route
+    (read_npz, build_prepared) and by prepare_model's copy of load_model's
+    f32 model -> (direct, copied)."""
+    from caesar_yolo_tpu_torch.detect.predictor import prepare_model
+    from caesar_yolo_tpu_torch.models.convert import (build_prepared,
+                                                      load_model, read_npz)
+
+    weights = read_npz(path, pin=device.type == "cuda")
+    direct = build_prepared(weights, name, 5, dtype=torch.bfloat16,
+                            device=device)
+    copied = prepare_model(load_model(path)[0], fuse=True,
+                           dtype=torch.bfloat16, device=device)
+    return direct, copied
+
+
+def phase_weights(torch, tmp):
+    """The direct route from an npz to the engine's model (models/
+    convert.py: read_npz, build_prepared) on the card: for yolo11l,
+    yolov8l and yolo12l at 5 classes, seeded weights written as the
+    benchmark writes them, the model bit-equal to prepare_model's copy of
+    load_model's (every parameter by name, dtype, shape and strides).
+    Then one tiled field of yolo11l (2560 px mosaic, 512 px tiles at step
+    0.5, README chain) by cli.run, and by the copy route as cli.run took
+    it before (load_model_from_args, an SFinder that copies the model), in
+    turns after one warm field each: the five set-up spans and the direct
+    route's three, and `engine.weights_direct`."""
+    from caesar_yolo_tpu_torch.cli import run as cli_run
+    from caesar_yolo_tpu_torch.cli.preproc_args import (
+        build_preprocessor_from_args)
+    from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
+    from caesar_yolo_tpu_torch.utils.synth import write_mosaic_fits
+    from caesar_yolo_tpu_torch.utils.trace import Recorder
+
+    dev = torch.device(DEVICE)
+    for k, name in enumerate(DIRECT_MODELS):
+        path = save_hwio_npz(seeded_model(torch, name, 7 + k),
+                             os.path.join(tmp, f"direct_{name}.npz"),
+                             {"model": name, "num_classes": 5})
+        direct, copied = direct_and_copied(torch, path, name, dev)
+        why = prepared_mismatch(torch, direct, copied)
+        n = sum(1 for _ in direct.parameters())
+        log(f"weights: {name} direct route against prepare_model on the "
+            f"card: {n} parameters, {os.path.getsize(path)} bytes of npz, "
+            f"bit-equal {not why} {why}")
+        require(not why, f"weights: {name} direct model differs: {why}")
+        del direct, copied
+    field = os.path.join(tmp, "direct_field.fits")
+    write_mosaic_fits(field, MOSAIC_SIZE, MOSAIC_SIZE, n_sources=400,
+                      seed=11)
+    weights = os.path.join(tmp, f"direct_{DIRECT_MODELS[0]}.npz")
+    argv = [f"--image={field}", f"--weights={weights}",
+            "--split_img_in_tiles", f"--tile_xsize={MOSAIC_TILE}",
+            f"--tile_ysize={MOSAIC_TILE}", "--tile_xstep=0.5",
+            "--tile_ystep=0.5", "--batch_size=32", "--scoreThr=0.7",
+            *README_CHAIN, f"--devices={DEVICE}",
+            f"--detect_outfile_json={tmp}/direct.json",
+            f"--detect_outfile={tmp}/direct.reg"]
+
+    def copy_route():
+        args = cli_run.parse_args(argv)
+        rec = Recorder()
+        model = cli_run.load_model_from_args(args, rec)
+        with rec.span("cli.preprocessor"):
+            preproc = build_preprocessor_from_args(args)
+        sf = SFinder(model, cli_run.config_from_args(args),
+                     preprocessor=preproc, device=DEVICE, recorder=rec)
+        return sf.run_tiled(), sf
+
+    routes = {"direct": lambda: cli_run.run(argv), "copy": copy_route}
+    order = ("direct", "copy") * 3 + ("copy", "direct")
+    for turn, name in enumerate(order):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, sf = routes[name]()
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"weights: {name} field failed")
+        ph = sf.report.phase_times
+        setup = sum(ph.get(k, 0.0) for k in SETUP_SPANS)
+        log(f"weights: field {turn} {name} route ({sf.report.n_tiles} "
+            f"tiles): wall {wall:.4f} s, set-up spans {setup:.4f} s: " +
+            ", ".join(f"{k} {ph[k]:.4f}" for k in SETUP_SPANS +
+                      DIRECT_SPANS if k in ph) +
+            f"; engine.weights_direct {ph.get('engine.weights_direct', 0)}")
+        require(("engine.weights_direct" in ph) == (name == "direct"),
+                "weights: engine.weights_direct on the wrong route")
+
+
 def phase_pt(torch, counters, tmp):
     """The main phase's seeded yolo11l as an ultralytics checkpoint
     (written by this script, its classes gone at load time): cli.convert's
@@ -3967,6 +4139,7 @@ def main() -> int:
             phase_profile(torch, tmp)
             phase_resume(torch, tmp)
             phase_pt(torch, counters, tmp)
+            phase_weights(torch, tmp)
             phase_image(torch, counters, tmp)
             eval_launches = phase_eval(torch, counters, tmp, card)
             train_launches = phase_train(torch, counters, tmp, card)

@@ -396,7 +396,8 @@ def test_tiled_run_refuses_png(tmp_path):
 
 @pytest.fixture
 def f32_engines(monkeypatch):
-    """Both packages' engines and predictors default to f32, so that the
+    """Both packages' engines and predictors default to f32, and so does
+    the model the port's cli.run prepares from npz weights, so that the
     CLIs (which have no dtype flag) are held by the catalog rule."""
     monkeypatch.setenv("CAESAR_YOLO_NO_COMPILE_CACHE", "1")
     for cls, f32 in ((jax_engine.TileEngine, jnp.float32),
@@ -404,6 +405,7 @@ def f32_engines(monkeypatch):
                      (port_engine.TileEngine, torch.float32),
                      (port_predictor.Predictor, torch.float32)):
         monkeypatch.setitem(cls.__init__.__kwdefaults__, "compute_dtype", f32)
+    monkeypatch.setattr(port_predictor, "COMPUTE_DTYPE", torch.float32)
 
 
 def _png_cutouts(root, n=6):

@@ -9,7 +9,8 @@ the call's wall; the report keeps its old phase keys and `read_s`; the
 band and stream paths' worker spans are summed into the run's totals; a
 profiler session the program did not open sees no span, the program's
 own (`--profile_dir`) sees them all; the starvation counter pairs batch
-k-1's end with batch k's start, and is absent on the CPU.
+k-1's end with batch k's start, and is absent on the CPU; the weights'
+read, upload and fold nest in the set-up spans.
 """
 
 import json
@@ -44,7 +45,11 @@ RUN_SPANS = {"sfinder.header", "engine.prepare", "detect", "sfinder.read",
              "engine.stage", "engine.dispatch", "engine.origins",
              "sfinder.drain", "sfinder.drain_wait", "edge_flagging",
              "stitch", "save"}
-NAMES = TOP | RUN_SPANS | {"engine.pin", "preprocess_mosaic"}
+# the children of cli.load_weights and cli.build on the npz route
+WEIGHTS_SPANS = {"weights.read": "cli.load_weights",
+                 "weights.upload": "cli.build", "weights.fold": "cli.build"}
+NAMES = TOP | RUN_SPANS | set(WEIGHTS_SPANS) | {"engine.pin",
+                                                 "preprocess_mosaic"}
 
 
 @pytest.fixture(scope="module")
@@ -109,6 +114,25 @@ def test_top_level_spans_are_disjoint_and_inside_the_wall(tiled):
         assert a.end <= b.start, (a, b)
     assert 0 < sum(s.end - s.start for s in top) <= wall
     assert {s.name for s in sf.report.spans} <= NAMES
+
+
+def test_the_weights_spans_nest_in_the_set_up_spans(tiled):
+    """On the npz route the weights' read is inside cli.load_weights, the
+    upload and the fold (BatchNorm's statistics before the upload, the
+    kernels after it) inside cli.build; the engine counts the route."""
+    spans = tiled[0].report.spans
+    for child, parent in WEIGHTS_SPANS.items():
+        inner = named(spans, child)
+        assert len(inner) == (2 if child == "weights.fold" else 1)
+        for s in inner:
+            outer = spans[s.parent]
+            assert outer.name == parent
+            assert outer.start <= s.start <= s.end <= outer.end
+    fold, upload = named(spans, "weights.fold"), named(spans, "weights.upload")
+    assert fold[0].end <= upload[0].start <= upload[0].end <= fold[1].start
+    phase = tiled[0].report.phase_times
+    assert phase["engine.weights_direct"] == 1
+    assert all(phase[k] > 0 for k in TOP)
 
 
 @pytest.mark.parametrize("context", ["tile", "global"])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from caesar_yolo_tpu_torch.detect.predictor import prepare_model
 from caesar_yolo_tpu_torch.models import layers
 from caesar_yolo_tpu_torch.models.convert import (convert_checkpoint,
@@ -215,8 +216,10 @@ def test_ultralytics_state_dict_converts_and_runs_through_cli(tmp_path):
     """The twin's state dict under ultralytics' names (`model.6.m.0.0.attn.
     qkv.conv.weight`, `model.6.gamma`, ...) saved as a checkpoint,
     converted to the npz format, and read back by `cli.run --weights` on a
-    small field: the CLI's model gives the twin's raw maps, and its run
-    reports the area-attention calls (all plain on the CPU)."""
+    small field: the converted model gives the twin's raw maps, the CLI's
+    model (prepared from the npz on the engine's device) is bit-equal to
+    prepare_model's copy of it, and its run reports the area-attention
+    calls (all plain on the CPU)."""
     from caesar_yolo_tpu_torch.cli import run as cli_run
     from caesar_yolo_tpu_torch.utils.synth import write_mosaic_fits
     twin = build_torch_twin("yolo12l", nc=5, seed=2)
@@ -240,8 +243,10 @@ def test_ultralytics_state_dict_converts_and_runs_through_cli(tmp_path):
     x = images(64, 2, seed=5)
     with torch.no_grad():
         ref = twin(x)
-        assert worst_rel_error(sf.model.eval()(x), ref) <= REL_ATOL
         assert worst_rel_error(model.eval()(x), ref) <= REL_ATOL
+    copied = prepare_model(model, fuse=True, dtype=sf.model.compute_dtype,
+                           device=torch.device("cpu"))
+    assert cs.prepared_mismatch(torch, sf.model, copied) == []
     phase = sf.report.phase_times
     forwards = phase["engine.eager_batches"]
     assert phase[layers.AREA_ATTN_PLAIN] == 16 * forwards > 0
