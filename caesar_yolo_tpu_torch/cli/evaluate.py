@@ -73,12 +73,10 @@ def run(argv=None):
     model = load_model_from_args(args)
     preproc = build_preprocessor_from_args(args)
     device = args.devices or None
-    engine_kwargs = {}
     if args.int8:
         first = read_filelist(args.filelist)
         model = quantize_from_image(model, first[0] if first else "",
                                     preproc, args.imgsize, device)
-        engine_kwargs = {"fuse": False}
     report = evaluate_dataset(
         model, args.filelist,
         label_dir=args.label_dir or None,
@@ -89,8 +87,7 @@ def run(argv=None):
         soft_merge_thr=args.merge_overlap_iou_thr_soft,
         hard_merge_thr=args.merge_overlap_iou_thr_hard,
         iou_thr=args.iouThr_match, max_images=args.maxnimgs,
-        detail_out=args.save_detail, plot_out=args.save_plot, device=device,
-        **engine_kwargs)
+        detail_out=args.save_detail, plot_out=args.save_plot, device=device)
     print(report.summary())
     return 0, report
 

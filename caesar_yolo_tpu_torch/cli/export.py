@@ -77,7 +77,7 @@ def main(argv=None) -> int:
         tile_shape=(args.tile_ysize, args.tile_xsize, args.nchannels),
         batch=args.batch, img_size=args.imgsize, score_thr=args.scoreThr,
         iou_thr=args.iouThr, max_det=args.max_det, pre_nms=args.pre_nms,
-        fuse=not args.int8, platforms=device)
+        platforms=device)
     with open(args.out, "wb") as f:
         f.write(blob)
     logger.info("Exported %d-tile %dx%d detector to %s (%.1f MB)",

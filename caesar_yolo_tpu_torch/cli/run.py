@@ -42,9 +42,8 @@ imported only then); with --datalist it takes the per-image path.
 npz weights (but with --int8, whose calibration runs the f32 model) go
 to the device in one pass: read once into one host buffer, copied over
 in one piece, folded and cast there (models/convert.py: read_npz,
-build_prepared), and the engine runs that model without the
-copy it makes of a model handed to it (SFinder.from_prepared,
-TileEngine.from_prepared).  A `.pt` checkpoint, --int8, and an npz that
+build_prepared), and the engine runs that model itself
+(predictor.prepare_model).  A `.pt` checkpoint, --int8, and an npz that
 read_npz leaves to np.load (compressed, int8, fused) take the f32 model
 on the CPU (load_model_from_args), which the engine copies, folds and
 casts.
@@ -260,8 +259,7 @@ def quantize_from_image(model, image_path, preproc, img_size, device=None):
     calibrate the activation ranges on up to three square crops of side
     min(h, w, 640) of the input image itself (its corners (0, 0) and
     (h - s, w - s) and its centre), prepared as the engine prepares
-    tiles, then quantize.  Returns the int8 model, for engines built with
-    fuse=False."""
+    tiles, then quantize.  Returns the int8 model."""
     import numpy as np
 
     from caesar_yolo_tpu_torch.evaluation.evaluate import load_eval_image
@@ -335,19 +333,15 @@ def _per_image_config(cfg, path: str, n: int):
                    spool_path=_per_image_path(cfg.spool_path, path, n))
 
 
-def run_datalist_tiled(model, cfg, images, preproc, device=None,
-                       engine_kwargs=None, prepared=False) -> int:
+def run_datalist_tiled(model, cfg, images, preproc, device=None) -> int:
     """Tiled detection over a datalist, every image through ONE shared
-    TileEngine (running `model` itself where it is `prepared`:
-    load_prepared_from_args)."""
+    TileEngine."""
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
 
-    make = SFinder.from_prepared if prepared else SFinder
     status, engine = 0, None
     for path in images:
-        sf = make(model, _per_image_config(cfg, path, len(images)),
-                  preprocessor=preproc, engine=engine, device=device,
-                  engine_kwargs=engine_kwargs)
+        sf = SFinder(model, _per_image_config(cfg, path, len(images)),
+                     preprocessor=preproc, engine=engine, device=device)
         rc = sf.run_tiled()
         engine = sf._engine
         if rc != 0:
@@ -356,19 +350,16 @@ def run_datalist_tiled(model, cfg, images, preproc, device=None,
     return status
 
 
-def run_datalist_serial(model, cfg, images, preproc, device=None,
-                        engine_kwargs=None, prepared=False) -> int:
+def run_datalist_serial(model, cfg, images, preproc, device=None) -> int:
     """Per-image SFinder runs (plots, outfile overrides, crop windows)
-    sharing ONE Predictor (running `model` itself where it is
-    `prepared`)."""
+    sharing ONE Predictor."""
     from caesar_yolo_tpu_torch.parallel.sfinder import SFinder
 
-    make = SFinder.from_prepared if prepared else SFinder
     status, predictor = 0, None
     for path in images:
-        sf = make(model, _per_image_config(cfg, path, len(images)),
-                  preprocessor=preproc, predictor=predictor,
-                  device=device, engine_kwargs=engine_kwargs)
+        sf = SFinder(model, _per_image_config(cfg, path, len(images)),
+                     preprocessor=preproc, predictor=predictor,
+                     device=device)
         rc = sf.run()
         predictor = sf._predictor
         if rc != 0:
@@ -377,11 +368,9 @@ def run_datalist_serial(model, cfg, images, preproc, device=None,
     return status
 
 
-def run_datalist_batched(model, cfg, images, preproc, device=None,
-                         engine_kwargs=None, prepared=False) -> int:
+def run_datalist_batched(model, cfg, images, preproc, device=None) -> int:
     """Whole-image detection over a datalist, batched by shape through the
-    BatchedDetector (its TileEngine running `model` itself where it is
-    `prepared`); writes out_<stem>.json and out_<stem>.reg per image into
+    BatchedDetector; writes out_<stem>.json and out_<stem>.reg per image into
     the working directory (the reference dispatches the model once per
     image, macros/make_prediction.py:645-658)."""
     from caesar_yolo_tpu_torch.detect.batch import BatchedDetector
@@ -394,17 +383,14 @@ def run_datalist_batched(model, cfg, images, preproc, device=None,
     )
     from caesar_yolo_tpu_torch.outputs.ds9 import write_ds9_regions
     from caesar_yolo_tpu_torch.parallel import mesh
-    from caesar_yolo_tpu_torch.parallel.engine import TileEngine
 
     t0 = time.time()
     master = mesh.process_index() == 0     # rank 0 writes
-    kw = dict(preprocessor=preproc, img_size=cfg.img_size,
-              score_thr=cfg.score_thr, iou_thr=cfg.iou_thr,
-              pre_nms=cfg.pre_nms, relay_dtype=cfg.relay_dtype, device=device)
     detector = BatchedDetector(
-        model, batch_size=cfg.batch_size,
-        engine=TileEngine.from_prepared(model, **kw) if prepared else None,
-        **kw, **(engine_kwargs or {}))
+        model, preprocessor=preproc, img_size=cfg.img_size,
+        score_thr=cfg.score_thr, iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms,
+        batch_size=cfg.batch_size, relay_dtype=cfg.relay_dtype,
+        device=device)
     detections, shapes = detect_files(detector, images)
     status, n_total = 0, 0
     for path in images:
@@ -455,20 +441,17 @@ def run(argv=None):
     # --int8 calibrates the f32 model
     model = (None if args.int8
              else load_prepared_from_args(args, device, recorder))
-    prepared = model is not None
-    if not prepared:
+    if model is None:
         model = load_model_from_args(args, recorder)
     cfg = config_from_args(args)
     with recorder.span("cli.preprocessor"):
         preproc = build_preprocessor_from_args(args)
     images = read_filelist(args.datalist) if args.datalist else []
-    engine_kwargs = {}
     if args.int8:
         calib_image = ((images[0] if images else "") if args.datalist
                        else args.image)
         model = quantize_from_image(model, calib_image, preproc,
                                     args.imgsize, device)
-        engine_kwargs = {"fuse": False}
     if args.datalist:
         if args.maxnimgs > 0:
             images = images[:args.maxnimgs]
@@ -481,11 +464,9 @@ def run(argv=None):
             route = run_datalist_serial
         else:
             route = run_datalist_batched
-        return route(model, cfg, images, preproc, device, engine_kwargs,
-                     prepared), None
-    make = SFinder.from_prepared if prepared else SFinder
-    sf = make(model, cfg, preprocessor=preproc, device=device,
-              engine_kwargs=engine_kwargs, recorder=recorder)
+        return route(model, cfg, images, preproc, device), None
+    sf = SFinder(model, cfg, preprocessor=preproc, device=device,
+                 recorder=recorder)
     rc = sf.run_tiled() if args.split_img_in_tiles else sf.run()
     return (0 if rc == 0 else 1), sf
 

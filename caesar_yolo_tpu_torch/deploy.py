@@ -94,18 +94,19 @@ class ServingStep(nn.Module):
 def build_serving_step(model, *, preprocessor=None, img_size: int = 640,
                        score_thr: float = 0.25, iou_thr: float = 0.5,
                        max_det: int = 300, pre_nms: int = DEFAULT_PRE_NMS,
-                       compute_dtype: torch.dtype = torch.bfloat16,
-                       fuse: bool = True, device=None) -> ServingStep:
-    """The TileEngine's step over `predictor.prepare_model`'s copy of
-    `model` (BN folded if `fuse`, cast to `compute_dtype`, on `device`:
-    CUDA unless "cpu" is asked for).  LITERALLY the engine's step: both
-    call parallel.engine.make_tile_step, so serving and the live engine
-    cannot drift."""
+                       compute_dtype: torch.dtype | None = None,
+                       device=None) -> ServingStep:
+    """The TileEngine's step over `predictor.prepare_model`'s inference
+    model of `model` (BN folded, cast to `compute_dtype`, on `device`:
+    CUDA unless "cpu" is asked for; None: the model's own dtype, or
+    predictor.COMPUTE_DTYPE).  LITERALLY the engine's step: both call
+    parallel.engine.make_tile_step, so serving and the live engine cannot
+    drift."""
     from caesar_yolo_tpu_torch.detect.predictor import prepare_model
     from caesar_yolo_tpu_torch.parallel.engine import make_tile_step
     from caesar_yolo_tpu_torch.utils.device import resolve_device
 
-    prepared = prepare_model(model, fuse=fuse, dtype=compute_dtype,
+    prepared = prepare_model(model, dtype=compute_dtype,
                              device=resolve_device(device))
     step = make_tile_step(prepared, preprocessor=preprocessor,
                           img_size=img_size, score_thr=score_thr,
@@ -134,17 +135,17 @@ def export_detector(model, *, tile_shape, batch: int, preprocessor=None,
                     img_size: int = 640, score_thr: float = 0.25,
                     iou_thr: float = 0.5, max_det: int = 300,
                     pre_nms: int = DEFAULT_PRE_NMS,
-                    compute_dtype: torch.dtype = torch.bfloat16,
-                    fuse: bool = True, platforms=None) -> bytes:
+                    compute_dtype: torch.dtype | None = None,
+                    platforms=None) -> bytes:
     """The detect step for `batch` f32 tiles of `tile_shape` (H, W, C),
     exported (non-strict, under no_grad) and saved with its weights to
-    bytes.  `platforms`: "cuda" (default) or "cpu"."""
+    bytes.  `platforms`: "cuda" (default) or "cpu"; `compute_dtype` as
+    build_serving_step's."""
     device = platform_of(platforms)
     step = build_serving_step(
         model, preprocessor=preprocessor, img_size=img_size,
         score_thr=score_thr, iou_thr=iou_thr, max_det=max_det,
-        pre_nms=pre_nms, compute_dtype=compute_dtype, fuse=fuse,
-        device=device)
+        pre_nms=pre_nms, compute_dtype=compute_dtype, device=device)
     shape = (int(batch), *(int(d) for d in tile_shape))
     example = torch.zeros(shape, dtype=torch.float32, device=device)
     with torch.no_grad():

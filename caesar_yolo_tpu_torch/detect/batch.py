@@ -37,11 +37,11 @@ class BatchedDetector:
 
     def __init__(self, model, *, preprocessor=None, img_size: int = 640,
                  score_thr: float = 0.7, iou_thr: float = 0.5,
-                 pre_nms: int = 512, batch_size: int = 32, engine=None,
-                 device=None, **engine_kwargs):
+                 pre_nms: int = 512, batch_size: int = 32, device=None,
+                 **engine_kwargs):
         # imported here as in the reference: parallel/ imports detect/*
         from caesar_yolo_tpu_torch.parallel.engine import TileEngine
-        self.engine = engine or TileEngine(
+        self.engine = TileEngine(
             model, preprocessor=preprocessor, img_size=img_size,
             score_thr=score_thr, iou_thr=iou_thr, pre_nms=pre_nms,
             device=device, **engine_kwargs)

@@ -30,17 +30,27 @@ from caesar_yolo_tpu_torch.utils.device import resolve_device
 COMPUTE_DTYPE = torch.bfloat16
 
 
-def prepare_model(model: YOLO, *, fuse: bool, dtype: torch.dtype,
+def prepare_model(model: YOLO, *, dtype: torch.dtype | None = None,
                   device: torch.device) -> YOLO:
-    """A copy of `model` ready for inference: BN folded in f32 (the
-    reference's fuse_model_params / _fuse_head), conv weights cast to
-    `dtype` (biases stay f32; an int8 model's quantized Convs keep their
-    int8 weights and f32 scales), moved to `device` (channels_last on
-    CUDA, and the int8 weights packed as K9 reads them).  The copy's
-    `compute_dtype` is `dtype`."""
-    model = copy.deepcopy(model).float().eval()
-    if fuse:
-        fuse_tree(model)
+    """The inference model of `model` in `dtype` on `device`: `model`
+    itself where it is one already (its `compute_dtype` is `dtype` and its
+    weights are on `device`), else a copy, so the caller's modules are
+    never changed.  The copy has BN folded in f32 (the reference's
+    fuse_model_params / _fuse_head; a Conv without BatchNorm, as an int8
+    model's, stays as it is), conv weights cast to `dtype` (biases stay
+    f32; an int8 model's quantized Convs keep their int8 weights and f32
+    scales), moved to `device` (channels_last on CUDA, and the int8
+    weights packed as K9 reads them), and `dtype` as its `compute_dtype`.
+    A None `dtype` is the model's own, or COMPUTE_DTYPE (read at the call)
+    for a model that is not yet an inference model."""
+    if dtype is None:
+        dtype = model.compute_dtype or COMPUTE_DTYPE
+    at = next(model.parameters()).device
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if model.compute_dtype == dtype and at == device:
+        return model
+    model = fuse_tree(copy.deepcopy(model).float().eval())
     model = cast_weights(model.to(device=device), dtype)
     if device.type == "cuda":
         model = pack_int8(model.to(memory_format=torch.channels_last))
@@ -86,35 +96,19 @@ class Predictor:
     `channel_flip` reverses their channels (BGR -> RGB), for images in
     ultralytics' 0-255 convention (1/255 and True reproduce its
     preprocessing); the defaults leave the path as it is.  The predictor
-    runs a copy of `model` (prepare_model); `Predictor.from_prepared`
-    runs a model made for it as it is.
+    runs prepare_model's inference model of `model` in `compute_dtype`
+    (None: the model's own, or COMPUTE_DTYPE).
     """
 
     def __init__(self, model: YOLO, *,
-                 compute_dtype: torch.dtype = COMPUTE_DTYPE,
-                 fuse: bool = True, device=None, **settings):
-        """`settings` as `_setup`'s."""
-        device = resolve_device(device)
-        self._setup(prepare_model(model, fuse=fuse, dtype=compute_dtype,
-                                  device=device), device, **settings)
-
-    @classmethod
-    def from_prepared(cls, model: YOLO, *, device=None,
-                      **settings) -> "Predictor":
-        """A predictor that runs `model` itself, without prepare_model's
-        copy: an inference model made for it alone, on its device
-        (models/convert.py:build_prepared)."""
-        predictor = cls.__new__(cls)
-        predictor._setup(model, resolve_device(device), **settings)
-        return predictor
-
-    def _setup(self, model: YOLO, device: torch.device, *,
-               img_size: int = 640, score_thr: float = 0.7,
-               iou_thr: float = 0.5, max_det: int = 300,
-               pre_nms: int = DEFAULT_PRE_NMS, input_scale: float = 1.0,
-               channel_flip: bool = False) -> None:
-        self.device = device
-        self.model = model
+                 compute_dtype: torch.dtype | None = None, device=None,
+                 img_size: int = 640, score_thr: float = 0.7,
+                 iou_thr: float = 0.5, max_det: int = 300,
+                 pre_nms: int = DEFAULT_PRE_NMS, input_scale: float = 1.0,
+                 channel_flip: bool = False):
+        self.device = resolve_device(device)
+        self.model = prepare_model(model, dtype=compute_dtype,
+                                   device=self.device)
         self.in_channels = model.in_channels
         self.img_size = img_size
         self.score_thr = score_thr

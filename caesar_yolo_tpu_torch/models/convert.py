@@ -395,7 +395,7 @@ def build_prepared(weights: NpzWeights, name: str, num_classes: int, *,
                    recorder=NULL) -> YOLO:
     """The inference model of `weights` on `device`, as
     predictor.prepare_model(load_jax_params(build_model(name,
-    num_classes), params), fuse=True, dtype=dtype, device=device) makes
+    num_classes), params), dtype=dtype, device=device) makes
     it, bit for bit (names, dtypes, shapes, strides): BatchNorm folded in
     f32, conv kernels in `dtype` (channels_last on CUDA), biases and
     layer scales in f32.  The module tree is built on the meta device;
@@ -424,8 +424,8 @@ def build_prepared(weights: NpzWeights, name: str, num_classes: int, *,
     with recorder.span("weights.fold"):
         # conv by conv, as prepare_model: over all convs at once the
         # host's intra-op threads split the vector, and a split once
-        # rounded otherwise (test_torch_weights_direct.py's bit-equality
-        # on the CPU, about one run in twenty)
+        # rounded otherwise (the direct route's bit-equality test on the
+        # CPU failed about one run in twenty)
         rows = weights.buffer[weights.bn].view(4, -1)
         for key, (off, shape, _) in weights.leaves.items():
             if key.endswith("/bn/gamma"):

@@ -15,7 +15,7 @@ Counterpart of caesar_yolo_tpu/models/quant.py, with its scheme:
 
 Usage:
     qmodel = quantize_model(model, calibration_inputs_from_tiles(tiles))
-    engine = TileEngine(qmodel, fuse=False, ...)     # or a Predictor
+    engine = TileEngine(qmodel, ...)     # or a Predictor
 
 The ranges are keyed by module path, not by module object: calibration
 runs on a copy cast to the inputs' dtype, and quantization then reads the
@@ -64,16 +64,15 @@ def calibrate_ranges(model: YOLO, sample_inputs) -> dict:
     return {names[m]: amax for m, amax in ranges.items()}
 
 
-def quantize_model(model: YOLO, sample_inputs, *,
-                   fused: bool = False) -> YOLO:
-    """BN-fuse (unless `fused`), calibrate on `sample_inputs` (an iterable
-    of model-input batches [B, C, S, S] in the compute dtype) and return a
-    new model, on the CPU, whose calibrated dense Convs are int8.  Give it
-    to a TileEngine or Predictor with fuse=False."""
+def quantize_model(model: YOLO, sample_inputs) -> YOLO:
+    """BN-fuse, calibrate on `sample_inputs` (an iterable of model-input
+    batches [B, C, S, S] in the compute dtype) and return a new model, on
+    the CPU in f32 and not yet an inference model (its `compute_dtype` is
+    None), whose calibrated dense Convs are int8."""
     qmodel = copy.deepcopy(model).cpu().float().eval()
     qmodel = qmodel.to(memory_format=torch.contiguous_format)
-    if not fused:
-        fuse_tree(qmodel)
+    qmodel.compute_dtype = None
+    fuse_tree(qmodel)
     ranges = calibrate_ranges(qmodel, list(sample_inputs))
     for name, m in qmodel.named_modules():
         # dense Convs only: grouped ones stay float

@@ -246,7 +246,11 @@ class YOLO(nn.Module):
 
     version 'v8' | 'v11' | 'v12'; scale n/s/m/l/x; 5 radio-source classes
     by default.  Weights start uninitialised: load them
-    (models/convert.py) or call `init_weights`."""
+    (models/convert.py) or call `init_weights`.  `compute_dtype` is
+    None until predictor.prepare_model or convert.build_prepared makes
+    an inference model, BatchNorm folded and cast to that dtype."""
+
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, version: str = "v8", scale: str = "n",
                  num_classes: int = 5, in_channels: int = 3):

@@ -37,10 +37,7 @@ span `engine.stage` (child `engine.pin`), each dispatched batch the span
 `engine.dispatch` (child `engine.origins`) with its device events, and
 the counters `engine.eager_batches`, `engine.graph_captures`,
 `engine.graph_replays` (the captured batch among them) and
-`engine.graph_fallbacks` say how each batch ran.  The run that builds an
-engine with `TileEngine.from_prepared` (on the model models/convert.py:
-build_prepared made for it, without the copy the constructor makes) adds
-1 to `engine.weights_direct`.
+`engine.graph_fallbacks` say how each batch ran.
 """
 
 from __future__ import annotations
@@ -52,8 +49,7 @@ import torch
 
 from caesar_yolo_tpu_torch import cuda_build, logger
 from caesar_yolo_tpu_torch.detect.nms import DEFAULT_PRE_NMS
-from caesar_yolo_tpu_torch.detect.predictor import (COMPUTE_DTYPE,
-                                                   detect_images,
+from caesar_yolo_tpu_torch.detect.predictor import (detect_images,
                                                    prepare_model)
 from caesar_yolo_tpu_torch.models.yolo import YOLO
 from caesar_yolo_tpu_torch.ops.transforms import prepare_tiles
@@ -64,7 +60,6 @@ EAGER_BATCHES = "engine.eager_batches"
 GRAPH_CAPTURES = "engine.graph_captures"
 GRAPH_REPLAYS = "engine.graph_replays"
 GRAPH_FALLBACKS = "engine.graph_fallbacks"
-WEIGHTS_DIRECT = "engine.weights_direct"
 _SEEN, _EAGER = "seen", "eager"     # an input's state before or without a graph
 # Every engine's graphs on a device are captured on one stream into the
 # memory pool of the device's live graphs, which are held here weakly.
@@ -172,61 +167,38 @@ class TileEngine:
     `device` defaults to CUDA (and raises without it); pass "cpu" to run
     on the CPU.  relay_dtype="bfloat16" ships tiles host->device in bf16
     (half the bytes, 8-bit mantissa) and upcasts them on the device.
-    The engine runs a copy of `model` (`update_params`);
-    `TileEngine.from_prepared` runs a model made for it as it is.
+    The engine runs prepare_model's inference model of `model` in
+    `compute_dtype` (None: the model's own, or COMPUTE_DTYPE).
     """
 
     def __init__(self, model: YOLO, *,
-                 compute_dtype: torch.dtype = COMPUTE_DTYPE,
-                 fuse: bool = True, device=None, **settings):
-        """`settings` as `_setup`'s."""
-        self._setup(resolve_device(device), compute_dtype, fuse, **settings)
-        self.update_params(model)
-
-    @classmethod
-    def from_prepared(cls, model: YOLO, *, device=None,
-                      **settings) -> "TileEngine":
-        """An engine that runs `model` itself, without the copy the
-        constructor makes: an inference model made for this engine alone,
-        on its device, BatchNorm folded and cast (models/convert.py:
-        build_prepared, cli.run's route for npz weights).  Its compute dtype
-        is the model's; `update_params` later copies as ever."""
-        engine = cls.__new__(cls)
-        engine._setup(resolve_device(device), model.compute_dtype, True,
-                      **settings)
-        engine._take(model)
-        return engine
-
-    def _setup(self, device: torch.device, compute_dtype: torch.dtype,
-               fuse: bool, *, preprocessor=None, img_size: int = 640,
-               score_thr: float = 0.7, iou_thr: float = 0.5,
-               max_det: int = 300, pre_nms: int = DEFAULT_PRE_NMS,
-               relay_dtype: str = "float32") -> None:
-        self.device = device
+                 compute_dtype: torch.dtype | None = None, device=None,
+                 preprocessor=None, img_size: int = 640,
+                 score_thr: float = 0.7, iou_thr: float = 0.5,
+                 max_det: int = 300, pre_nms: int = DEFAULT_PRE_NMS,
+                 relay_dtype: str = "float32"):
+        self.device = resolve_device(device)
         self.recorder = NULL
         self._warned = False
         self.relay_dtype = (torch.bfloat16
                             if str(relay_dtype) in ("bfloat16", "bf16")
                             else torch.float32)
-        self._fuse = fuse
         self.compute_dtype = compute_dtype
         self.preprocessor = preprocessor
         self._step_kwargs = dict(
             img_size=img_size, score_thr=score_thr, iou_thr=iou_thr,
             max_det=max_det, pre_nms=pre_nms)
+        self.update_params(model)
 
     def update_params(self, model: YOLO) -> None:
-        """Swap in the weights `model` carries (e.g. a trainer's EMA model,
-        for validation during training) with the same treatment as at
-        construction: prepare_model copies it, folds BatchNorm and casts,
-        so the caller's modules are never changed."""
-        self._take(prepare_model(model, fuse=self._fuse,
-                                 dtype=self.compute_dtype,
-                                 device=self.device))
-
-    def _take(self, model: YOLO) -> None:
-        """Run `model`, already prepared for this engine."""
-        self.model = model
+        """Run prepare_model's inference model of `model` (e.g. a
+        trainer's EMA model, for validation during training) at the
+        engine's compute dtype and on its device: `model` itself where it
+        is one already, else a copy, BatchNorm folded and cast, so the
+        caller's modules are never changed."""
+        self.model = prepare_model(model, dtype=self.compute_dtype,
+                                   device=self.device)
+        self.compute_dtype = self.model.compute_dtype
         # the step of raw tiles, and of tiles cut from a mosaic that
         # preprocess_mosaic has already preprocessed (gray -> 3 channels and
         # the degenerate-channel guard only)

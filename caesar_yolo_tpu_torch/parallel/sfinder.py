@@ -45,9 +45,7 @@ or its own: `sfinder.header`, `engine.prepare`, `detect` (with
 `sfinder.drain_wait` is the copy of the batch's outputs to the host),
 `edge_flagging`, `stitch` and `save`.  At the end of the run each name's
 total, and the device-clock counter `engine.device_starved`, go into
-`SFinderReport.phase_times` under that name (with the counter
-`engine.weights_direct` of an engine built on a prepared model,
-`SFinder.from_prepared`), and `read_s` is the
+`SFinderReport.phase_times` under that name, and `read_s` is the
 `sfinder.read` total; the spans themselves are `SFinderReport.spans`.
 A model with area attention (YOLO12) adds the calls its forwards made
 during `detect`, `model.area_attn_fused` (K2) and `model.area_attn_plain`
@@ -79,7 +77,7 @@ from caesar_yolo_tpu_torch.outputs.catalog import (
 )
 from caesar_yolo_tpu_torch.outputs.ds9 import write_ds9_regions
 from caesar_yolo_tpu_torch.parallel import mesh
-from caesar_yolo_tpu_torch.parallel.engine import WEIGHTS_DIRECT, TileEngine
+from caesar_yolo_tpu_torch.parallel.engine import TileEngine
 from caesar_yolo_tpu_torch.parallel.stitch import (
     flag_edge_sources,
     stitch_tile_sources,
@@ -180,8 +178,9 @@ class SFinder:
     `engine_kwargs` go to the TileEngine and the Predictor (e.g.
     compute_dtype).  `recorder` is the run's span recorder (utils/trace.py;
     the CLI passes the one holding its own spans), a new one if None.  The
-    engine and the Predictor run copies of `model`; an SFinder made by
-    `SFinder.from_prepared` runs the model itself."""
+    engine and the Predictor run predictor.prepare_model's inference model
+    of `model`: `model` itself where it is one already (cli.run's model
+    from npz weights, models/convert.py:build_prepared), else a copy."""
 
     def __init__(self, model, config: SFinderConfig, *, preprocessor=None,
                  engine_kwargs=None, predictor=None, engine=None,
@@ -196,7 +195,6 @@ class SFinder:
         self.report = SFinderReport(spans=self.recorder.spans)
         self._engine = engine
         self._predictor = predictor
-        self._prepared = False
         base = os.path.basename(os.path.abspath(config.image_path))
         self.image_id = os.path.splitext(base)[0]
         self.header = None
@@ -205,18 +203,6 @@ class SFinder:
         self.xmin = self.ymin = 0
         self.last_tile_results: list[dict] = []
         self._image_cache = None  # a PNG/JPEG decode, reused by run()
-
-    @classmethod
-    def from_prepared(cls, model, config: SFinderConfig,
-                      **kwargs) -> "SFinder":
-        """An SFinder whose engine (or Predictor) runs `model` itself: an
-        inference model made for this run alone, on the run's device
-        (models/convert.py:build_prepared; cli.run's route for npz
-        weights).  Building the engine on it adds 1 to
-        `engine.weights_direct`.  kwargs as the constructor's."""
-        sf = cls(model, config, **kwargs)
-        sf._prepared = True
-        return sf
 
     def _crop(self) -> bool:
         cfg = self.config
@@ -317,8 +303,7 @@ class SFinder:
             return -1
 
         if self._predictor is None:
-            make = Predictor.from_prepared if self._prepared else Predictor
-            self._predictor = make(
+            self._predictor = Predictor(
                 self.model, img_size=cfg.img_size, score_thr=cfg.score_thr,
                 iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms, device=self.device,
                 **self.engine_kwargs)
@@ -414,18 +399,14 @@ class SFinder:
 
         if self._engine is None:
             # the weights' copy, BatchNorm fold, cast and move to the
-            # device; none of it for a prepared model
+            # device; none of it for a model prepared already
             with rec.span("engine.prepare"):
-                make = (TileEngine.from_prepared if self._prepared
-                        else TileEngine)
-                self._engine = make(
+                self._engine = TileEngine(
                     self.model, preprocessor=self.preprocessor,
                     img_size=cfg.img_size, score_thr=cfg.score_thr,
                     iou_thr=cfg.iou_thr, pre_nms=cfg.pre_nms,
                     relay_dtype=cfg.relay_dtype, device=self.device,
                     **self.engine_kwargs)
-                if self._prepared:
-                    rec.add(WEIGHTS_DIRECT, 1)
 
         self._engine.recorder = rec
         attn_before = area_attn_counts()

@@ -119,8 +119,8 @@ Phases (any failure exits non-zero before the last line):
             the copy route (load_model_from_args, an SFinder that copies),
             in turns: the set-up spans of each (cli.load_weights,
             cli.build, cli.preprocessor, sfinder.header, engine.prepare;
-            weights.read, weights.upload, weights.fold) and
-            engine.weights_direct on the direct route alone
+            weights.read, weights.upload, weights.fold), the last three
+            on the direct route alone
   image     the crop as an 8-bit RGB PNG and a 16-bit grey PNG (this
             script's stdlib encoder): read_image must give the written
             values / 255 or / 65535 exactly, and cli.run on each must write
@@ -1325,8 +1325,7 @@ def phase_int8(torch, counters, tmp, q5_model, q5_bf16):
         np.concatenate([tiles[:MAIN_BATCH // 2], tiles[MAIN_BATCH // 2 + 1:],
                         tiles[:1]]), preprocessor=pre, img_size=MAIN_SIZE)[0]
     shapes, e = qconv_model_parity(
-        torch, cuda_qconv, prepare_model(qmodel, fuse=False,
-                                         dtype=torch.bfloat16,
+        torch, cuda_qconv, prepare_model(qmodel, dtype=torch.bfloat16,
                                          device=torch.device(DEVICE)), x)
     err = max(err, e)
     log(f"parity K9 on yolo11l@{MAIN_SIZE} batch {MAIN_BATCH}: {n_int8} "
@@ -1373,16 +1372,16 @@ def phase_int8(torch, counters, tmp, q5_model, q5_bf16):
             cal, img_size=MAIN_SIZE, compute_dtype=dt))
         for dt in (torch.bfloat16, torch.float32))
     t0 = time.perf_counter()
-    mf1, pl, table = got = q5_heldout(q5, q5_int8, fuse=False)
+    mf1, pl, table = got = q5_heldout(q5, q5_int8)
     wall = time.perf_counter() - t0
     why, held, fails = int8_miss(q5_bf16, got)
     control = copy.deepcopy(q5_int8)
     for m in control.modules():
         if isinstance(m, Conv) and m.wq is not None:
             m.xs *= INT8_CONTROL_XS
-    ctl = q5_heldout(q5, control, fuse=False)
+    ctl = q5_heldout(q5, control)
     why_ctl, held_ctl, fails_ctl = int8_miss(q5_bf16, ctl)
-    f32cal = q5_heldout(q5, q5_int8_f32cal, fuse=False)
+    f32cal = q5_heldout(q5, q5_int8_f32cal)
     why_f32cal, held_f32cal, _ = int8_miss(q5_bf16, f32cal)
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1419,7 +1418,7 @@ def phase_int8(torch, counters, tmp, q5_model, q5_bf16):
     kw = dict(img_size=MAIN_SIZE, score_thr=1e-3, iou_thr=0.5,
               pre_nms=PRE_NMS)
     engines = {"bf16": TileEngine(model, preprocessor=pre, **kw),
-               "int8": TileEngine(qmodel, preprocessor=pre, fuse=False, **kw)}
+               "int8": TileEngine(qmodel, preprocessor=pre, **kw)}
     tiles = make_main_tiles(MAIN_BATCH * MAIN_BATCHES)
     staged = [engines["bf16"].put_tiles(tiles[i * MAIN_BATCH:
                                               (i + 1) * MAIN_BATCH])
@@ -2438,10 +2437,10 @@ def phase_export(torch, counters, engine, batches, tmp):
     calib = quant.calibration_inputs_from_tiles(
         batches[0][:4], preprocessor=pre, img_size=MAIN_SIZE)
     qmodel = quant.quantize_model(model, calib)
-    qlive = TileEngine(qmodel, preprocessor=pre, fuse=False, **kw)
+    qlive = TileEngine(qmodel, preprocessor=pre, **kw)
     ref = qlive.process(batches[0])
     _, qdet = export_artifact(torch, tmp, "int8", qmodel, preprocessor=pre,
-                              fuse=False, **shape, **kw)
+                              **shape, **kw)
     got, n = launch_counts(counters, lambda: [t.cpu().numpy()
                                               for t in qdet(batches[0])])
     require(same_outputs(ref, got), "export: the int8 artifact differs "
@@ -3124,8 +3123,8 @@ def direct_and_copied(torch, path, name, device):
     weights = read_npz(path, pin=device.type == "cuda")
     direct = build_prepared(weights, name, 5, dtype=torch.bfloat16,
                             device=device)
-    copied = prepare_model(load_model(path)[0], fuse=True,
-                           dtype=torch.bfloat16, device=device)
+    copied = prepare_model(load_model(path)[0], dtype=torch.bfloat16,
+                           device=device)
     return direct, copied
 
 
@@ -3138,8 +3137,9 @@ def phase_weights(torch, tmp):
     Then one tiled field of yolo11l (2560 px mosaic, 512 px tiles at step
     0.5, README chain) by cli.run, and by the copy route as cli.run took
     it before (load_model_from_args, an SFinder that copies the model), in
-    turns after one warm field each: the five set-up spans and the direct
-    route's three, and `engine.weights_direct`."""
+    turns after one warm field each: the five set-up spans, and the direct
+    route's three on that route alone, whose engine runs cli.run's model
+    itself."""
     from caesar_yolo_tpu_torch.cli import run as cli_run
     from caesar_yolo_tpu_torch.cli.preproc_args import (
         build_preprocessor_from_args)
@@ -3196,10 +3196,12 @@ def phase_weights(torch, tmp):
         log(f"weights: field {turn} {name} route ({sf.report.n_tiles} "
             f"tiles): wall {wall:.4f} s, set-up spans {setup:.4f} s: " +
             ", ".join(f"{k} {ph[k]:.4f}" for k in SETUP_SPANS +
-                      DIRECT_SPANS if k in ph) +
-            f"; engine.weights_direct {ph.get('engine.weights_direct', 0)}")
-        require(("engine.weights_direct" in ph) == (name == "direct"),
-                "weights: engine.weights_direct on the wrong route")
+                      DIRECT_SPANS if k in ph))
+        require(all((k in ph) == (name == "direct") for k in DIRECT_SPANS),
+                "weights: the direct route's spans on the wrong route")
+        require((sf._engine.model is sf.model) == (name == "direct"),
+                "weights: the engine copied the direct model, or ran the "
+                "copy route's own")
 
 
 def phase_pt(torch, counters, tmp):

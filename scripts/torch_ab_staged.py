@@ -52,8 +52,7 @@ def child(root: str, modes: list[str]) -> None:
         if mode == "int8":
             calib = quant.calibration_inputs_from_tiles(
                 tiles[:4], preprocessor=pre, img_size=SIZE)
-            engine = TileEngine(quant.quantize_model(model, calib),
-                                fuse=False, **kw)
+            engine = TileEngine(quant.quantize_model(model, calib), **kw)
         else:
             engine = TileEngine(model, **kw)
         staged = [engine.put_tiles(tiles[i * BATCH:(i + 1) * BATCH])

@@ -853,7 +853,7 @@ def test_qconv_model_forward_on_the_kernel(dev, monkeypatch):
     x = torch.rand((4, 3, 128, 128), generator=torch.Generator()
                    .manual_seed(0)).to(dev, torch.bfloat16).contiguous(
                        memory_format=torch.channels_last)
-    qm = prepare_model(quant.quantize_model(model, [x]), fuse=False,
+    qm = prepare_model(quant.quantize_model(model, [x]),
                        dtype=torch.bfloat16, device=dev)
     n_int8 = sum(isinstance(m, Conv) and m.wq is not None
                  for m in qm.modules())
@@ -914,7 +914,7 @@ def test_bf16_model_forward_on_the_epilogue_kernel(dev, monkeypatch):
     from caesar_yolo_tpu_torch.models.yolo import build_model, init_weights
 
     model = prepare_model(init_weights(build_model("yolov8n"), seed=0),
-                          fuse=True, dtype=torch.bfloat16, device=dev)
+                          dtype=torch.bfloat16, device=dev)
     n_conv = sum(isinstance(m, (Conv, Conv2dRaw)) for m in model.modules())
     x = torch.rand((2, 3, 128, 128), generator=torch.Generator()
                    .manual_seed(0)).to(dev, torch.bfloat16).contiguous(
@@ -1054,7 +1054,7 @@ def _graph_engine(dev, chain, seed=0, preprocessor=None):
                            memory_format=torch.channels_last)
         return quant.quantize_model(model, [x])
 
-    engine = TileEngine(model_of(seed), fuse=not int8,
+    engine = TileEngine(model_of(seed),
                         preprocessor=preprocessor or build_preprocessor(
                             **pipe), **GRAPH_KW)
     engine.recorder = Recorder()
@@ -1412,8 +1412,7 @@ def test_a2c2f_stages_of_the_bf16_engine_match_f32(dev):
             for k, v in _stage_outputs(model, x[i:i + 8]).items():
                 ref.setdefault(k, []).append(v)
     ref = {k: torch.cat(v) for k, v in ref.items()}
-    engine_model = prepare_model(model, fuse=True, dtype=torch.bfloat16,
-                                 device=dev)
+    engine_model = prepare_model(model, dtype=torch.bfloat16, device=dev)
     fused = layers.area_attention.fused
     got = _stage_outputs(engine_model, x.bfloat16().contiguous(
         memory_format=torch.channels_last))

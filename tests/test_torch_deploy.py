@@ -130,9 +130,9 @@ def test_export_cli(tmp_path, caplog):
 
 
 def test_export_quantized_detector(tmp_path):
-    """int8 PTQ exports and serves through the same artifact path
-    (fuse=False, as the JAX test), equal to the live int8 engine; the CLI
-    exports it from --int8 with a calibration image."""
+    """int8 PTQ exports and serves through the same artifact path, equal
+    to the live int8 engine; the CLI exports it from --int8 with a
+    calibration image."""
     from caesar_yolo_tpu_torch.cli.export import main
     from caesar_yolo_tpu_torch.models.convert import save_params
     from caesar_yolo_tpu_torch.models.quant import (
@@ -147,11 +147,11 @@ def test_export_quantized_detector(tmp_path):
     qmodel = quantize_model(_v8n(), calib)
     blob = export_detector(qmodel, preprocessor=pipe, tile_shape=(32, 32, 1),
                            batch=1, img_size=32, score_thr=0.01, max_det=5,
-                           fuse=False, **F32)
+                           **F32)
     out = load_detector(blob)(tiles)
     assert out[0].shape == (1, 5, 4)
     assert torch.isfinite(out[0]).all()
-    ref = TileEngine(qmodel, preprocessor=pipe, device="cpu", fuse=False,
+    ref = TileEngine(qmodel, preprocessor=pipe, device="cpu",
                      compute_dtype=torch.float32, img_size=32,
                      score_thr=0.01, max_det=5).process(tiles)
     _assert_close(ref, out, atol=1e-5)

@@ -170,7 +170,7 @@ def test_bf16_head_keeps_the_reference_biases():
                            "fixtures", "yolov8n_synth96.npz")
     params, meta = load_params(weights)
     jm = jax_build_model(meta["model"], num_classes=int(meta["num_classes"]))
-    tm = prepare_model(load_model(weights)[0], fuse=True,
+    tm = prepare_model(load_model(weights)[0],
                        dtype=torch.bfloat16, device=torch.device("cpu"))
     x = np.random.default_rng(0).random((2, 96, 96, 3), dtype=np.float32)
     jraw = jax.jit(jm.__call__)(fuse_model_params(jm, params),

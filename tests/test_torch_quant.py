@@ -145,7 +145,7 @@ def test_quantization_matches_jax(name, trained, dt):
         jm, fp, [jnp.asarray(x).astype(jdt)], fused=True))
     qm = quant.quantize_model(
         load_jax_params(build_model(name, num_classes=5), fp),
-        [nchw(x, tdt)], fused=True)
+        [nchw(x, tdt)])
     jflat = dict(_flatten(qp))
     state = qm.state_dict()
     for k in jq:
@@ -213,7 +213,7 @@ def test_int8_forward_matches_jax_on_carried_params(name, trained):
     qm = load_jax_params(build_model(name, num_classes=5), qp)
     assert sum(isinstance(m, Conv) and m.wq is not None
                for m in qm.modules()) > 30
-    tm = prepare_model(qm, fuse=False, dtype=torch.float32,
+    tm = prepare_model(qm, dtype=torch.float32,
                        device=torch.device("cpu"))
     with torch.inference_mode():
         got = tm(nchw(x, torch.float32))
@@ -240,7 +240,7 @@ def test_quantized_model_saves_and_loads(tmp_path):
     back, _ = load_model(path)
     for k, v in qm.state_dict().items():
         assert torch.equal(back.state_dict()[k], v), k
-    tm = prepare_model(back, fuse=False, dtype=torch.float32,
+    tm = prepare_model(back, dtype=torch.float32,
                        device=torch.device("cpu"))
     with torch.inference_mode():
         got = tm(nchw(x, torch.float32))
@@ -319,7 +319,7 @@ def test_quantized_forward_runs_all_models(rng):
     for name in ("yolov8n", "yolo11n"):
         model = init_weights(build_model(name, num_classes=5), seed=0)
         xx = [torch.from_numpy(rng.random((1, 3, 64, 64), np.float32))]
-        q = prepare_model(quant.quantize_model(model, xx), fuse=False,
+        q = prepare_model(quant.quantize_model(model, xx),
                           dtype=torch.float32, device=torch.device("cpu"))
         with torch.inference_mode():
             for box, _ in q(xx[0]):
@@ -342,7 +342,7 @@ def test_quantized_detection_quality(rng):
         tile[None], preprocessor=pipe, img_size=96,
         compute_dtype=torch.float32, device="cpu")
     pq = Predictor(quant.quantize_model(model, calib), img_size=96,
-                   score_thr=0.3, compute_dtype=torch.float32, fuse=False,
+                   score_thr=0.3, compute_dtype=torch.float32,
                    device="cpu")
     bq, sq, cq = pq.predict_image(inp)
     assert len(bf) == 2, "float baseline must find both sources"

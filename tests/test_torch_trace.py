@@ -119,7 +119,7 @@ def test_top_level_spans_are_disjoint_and_inside_the_wall(tiled):
 def test_the_weights_spans_nest_in_the_set_up_spans(tiled):
     """On the npz route the weights' read is inside cli.load_weights, the
     upload and the fold (BatchNorm's statistics before the upload, the
-    kernels after it) inside cli.build; the engine counts the route."""
+    kernels after it) inside cli.build."""
     spans = tiled[0].report.spans
     for child, parent in WEIGHTS_SPANS.items():
         inner = named(spans, child)
@@ -131,7 +131,6 @@ def test_the_weights_spans_nest_in_the_set_up_spans(tiled):
     fold, upload = named(spans, "weights.fold"), named(spans, "weights.upload")
     assert fold[0].end <= upload[0].start <= upload[0].end <= fold[1].start
     phase = tiled[0].report.phase_times
-    assert phase["engine.weights_direct"] == 1
     assert all(phase[k] > 0 for k in TOP)
 
 

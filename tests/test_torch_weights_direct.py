@@ -6,14 +6,16 @@ seed and written as the benchmark writes them (chip_smoke.save_hwio_npz:
 HWIO, 1x1 kernels column-major): the model built straight from the npz is
 bit-equal to prepare_model's copy of load_model's in every parameter
 (name, dtype, shape, strides), and a byte flipped in one member raises a
-CRC error as np.load does.  On the trained yolov8n fixture: cli.run counts
-`engine.weights_direct` on the npz route alone (not for a compressed
-npz, --int8 or a .pt checkpoint), an engine made with
-TileEngine.from_prepared runs the model it is given and detects as the
-copying engine does, and its update_params leaves the caller's model
-unchanged.
+CRC error as np.load does.  On the trained yolov8n fixture: cli.run's
+engine runs the direct model itself on the npz route alone (not for a
+compressed npz, --int8 or a .pt checkpoint), an engine made on a
+prepared model runs it and detects as the copying engine does, and its
+update_params leaves the caller's model unchanged.  prepare_model takes
+a model that is already its inference model as it is, and copies any
+other.
 """
 
+import copy
 import json
 import os
 import zipfile
@@ -24,9 +26,12 @@ import torch
 
 import chip_smoke as cs
 from caesar_yolo_tpu_torch.cli import run as cli_run
+from caesar_yolo_tpu_torch.detect.predictor import prepare_model
+from caesar_yolo_tpu_torch.models import quant
 from caesar_yolo_tpu_torch.models.convert import (build_prepared, load_model,
                                                   read_npz)
-from caesar_yolo_tpu_torch.parallel.engine import WEIGHTS_DIRECT, TileEngine
+from caesar_yolo_tpu_torch.models.layers import cast_weights, fuse_tree
+from caesar_yolo_tpu_torch.parallel.engine import TileEngine
 from caesar_yolo_tpu_torch.utils.synth import write_mosaic_fits
 
 torch.set_num_threads(2)
@@ -113,11 +118,12 @@ def mosaic(tmp_path_factory):
 
 
 @pytest.mark.parametrize("route", ["npz", "compressed", "int8", "pt"])
-def test_weights_direct_counts_the_direct_route(mosaic, tmp_path, route):
+def test_cli_run_takes_the_direct_route_on_npz_alone(mosaic, tmp_path,
+                                                     route):
     """A tiled cli.run on npz weights builds its engine on the direct
-    route: `engine.weights_direct` 1 and the route's child spans; a
-    compressed npz, --int8 and a .pt checkpoint take the copy route, with
-    neither."""
+    route: the route's child spans, and the engine runs the SFinder's
+    model itself, with no copy; a compressed npz, --int8 and a .pt
+    checkpoint take the copy route, with neither."""
     weights, extra = WEIGHTS, []
     if route == "compressed":
         weights = str(tmp_path / "compressed.npz")
@@ -138,7 +144,7 @@ def test_weights_direct_counts_the_direct_route(mosaic, tmp_path, route):
     assert rc == 0
     phase = sf.report.phase_times
     direct = route == "npz"
-    assert phase.get(WEIGHTS_DIRECT) == (1 if direct else None)
+    assert (sf._engine.model is sf.model) == direct
     for child in cs.DIRECT_SPANS:
         assert (child in phase) == direct, child
     # a .pt checkpoint is converted to its model inside cli.load_weights
@@ -154,15 +160,14 @@ def _tiles():
     return tiles
 
 
-def test_from_prepared_runs_its_model_and_update_params_copies():
-    """TileEngine.from_prepared takes the direct model itself, no copy,
-    and detects as an engine built on load_model's model; update_params on
-    it copies, folds and casts the caller's model and leaves it
-    unchanged."""
+def test_an_engine_runs_a_prepared_model_and_update_params_copies():
+    """TileEngine takes the direct model itself, no copy, and detects as
+    an engine built on load_model's model; update_params on it copies,
+    folds and casts the caller's model and leaves it unchanged."""
     prepared = build_prepared(read_npz(WEIGHTS), "yolov8n", 5,
                               dtype=torch.bfloat16, device=CPU)
     kw = dict(img_size=96, score_thr=0.05, device="cpu")
-    engine = TileEngine.from_prepared(prepared, **kw)
+    engine = TileEngine(prepared, **kw)
     assert engine.model is prepared
     assert engine.compute_dtype == torch.bfloat16
     model = load_model(WEIGHTS)[0]
@@ -190,3 +195,57 @@ def test_weights_that_do_not_fit_the_model_raise(tmp_path):
     with pytest.raises(RuntimeError, match="do not fit yolo11n"):
         build_prepared(read_npz(WEIGHTS), "yolo11n", 5,
                        dtype=torch.bfloat16, device=CPU)
+
+
+def _stepwise(model, dtype, fold):
+    """The inference copy of `model` on the CPU made step by step: f32,
+    eval, BatchNorm folded where `fold`, conv weights cast to `dtype`."""
+    ref = copy.deepcopy(model).float().eval()
+    if fold:
+        fuse_tree(ref)
+    ref = cast_weights(ref, dtype)
+    ref.compute_dtype = dtype
+    return ref
+
+
+@pytest.mark.parametrize("case", ["prepared", "other_dtype", "training",
+                                  "int8"])
+def test_prepare_model_copies_all_but_its_own_inference_model(case):
+    """prepare_model's rule on the CPU.  A prepared model asked for at its
+    own dtype and device, or with no dtype, is returned as it is.  Asked
+    for another dtype it is copied, as the step-by-step copy, and stays as
+    it was.  A training f32 model is copied in COMPUTE_DTYPE and left
+    unchanged.  An int8 model's copy equals, bit for bit in its state and
+    in its outputs on a fixed input, the step-by-step copy with no fold:
+    its Convs have no BatchNorm left to fold."""
+    x = torch.from_numpy(np.random.default_rng(9).random(
+        (2, 3, 96, 96), dtype=np.float32))
+    model = load_model(WEIGHTS)[0]
+    if case == "prepared":
+        prepared = build_prepared(read_npz(WEIGHTS), "yolov8n", 5,
+                                  dtype=torch.bfloat16, device=CPU)
+        assert prepare_model(prepared, dtype=torch.bfloat16,
+                             device=CPU) is prepared
+        assert prepare_model(prepared, device=CPU) is prepared
+        return
+    dtype, fold = torch.float32, True
+    if case == "other_dtype":
+        model = prepare_model(model, dtype=torch.bfloat16, device=CPU)
+    elif case == "training":
+        dtype = torch.bfloat16
+    else:
+        model = quant.quantize_model(model, [x])
+        fold = False
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    was = model.compute_dtype
+    got = prepare_model(model, dtype=None if case == "training" else dtype,
+                        device=CPU)
+    assert got is not model and got.compute_dtype == dtype
+    assert model.compute_dtype == was
+    for k, v in model.state_dict().items():
+        assert v.dtype == before[k].dtype and torch.equal(v, before[k]), k
+    ref = _stepwise(model, dtype, fold)
+    assert cs.prepared_mismatch(torch, got, ref) == []
+    with torch.no_grad():
+        for a, b in zip(sum(got(x.to(dtype)), ()), sum(ref(x.to(dtype)), ())):
+            assert torch.equal(a, b)

@@ -86,7 +86,7 @@ def test_bf16_raw_maps_keep_the_class_logit_means(case):
     """The bf16 inference model (BN folded, weights cast) against the f32
     twin by ROADMAP's bf16 rule for raw maps (LOGIT_MEAN_TOL)."""
     _, _, port, x, ref = case
-    model = prepare_model(port, fuse=True, dtype=torch.bfloat16,
+    model = prepare_model(port, dtype=torch.bfloat16,
                           device=torch.device("cpu"))
     with torch.no_grad():
         got = model(x.bfloat16())
@@ -244,7 +244,7 @@ def test_ultralytics_state_dict_converts_and_runs_through_cli(tmp_path):
     with torch.no_grad():
         ref = twin(x)
         assert worst_rel_error(model.eval()(x), ref) <= REL_ATOL
-    copied = prepare_model(model, fuse=True, dtype=sf.model.compute_dtype,
+    copied = prepare_model(model, dtype=sf.model.compute_dtype,
                            device=torch.device("cpu"))
     assert cs.prepared_mismatch(torch, sf.model, copied) == []
     phase = sf.report.phase_times
